@@ -1,0 +1,2 @@
+"""Numerical ops, and the hand-written CUDA kernels with their plain
+versions."""
