@@ -10,18 +10,36 @@ Phases, one line or more each; any failure exits non-zero:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the kernel build from ``gaussian_process_edge_trace_torch/csrc`` with
    ``nvcc`` (set-up time);
-3. each hand-written kernel (K1 fused curve cost, K2 column interpolation,
-   K5 batched Cholesky, K6 batched triangular solves) against its plain
-   PyTorch version on CUDA tensors, at the main path's shapes, with the
-   tolerance stated beside each check, and both times (CUDA events, median
-   of warm runs);
+3. each hand-written kernel (K1 fused curve cost with its transposed-samples
+   output, K2 column interpolation, K3 two-level adjoint binning, K4 dense
+   binning, K5 batched Cholesky, K6 batched triangular solves) against its
+   plain PyTorch version on CUDA tensors, at the main paths' shapes, with
+   the tolerance stated beside each check; the kernel's time, the plain
+   version's, the time of one PyTorch library call that computes the same
+   function where there is one (CUDA events, median of warm runs), and the
+   least time the card could take (bytes over 3.35 TB/s or float32
+   operations over 67 TFLOP/s, whichever is larger);
 4. the README demo config (500×500, RBF σf=75 ℓ=20, 1000 samples, δx=5)
-   traced through ``GP_Edge_Tracing(...)()`` on the card for seeds 1-3: the
-   launch counts of every kernel during those traces, MSE and DICE against
-   the true edge with the accuracy gates of ``bench.py`` (median DICE >
-   0.985, every seed > 0.97), a rerun of seed 1 that must give the same
-   trace, and the warm wall time per trace;
-5. one JSON line of kernel results, the card line again, and as the last
+   traced through ``GP_Edge_Tracing(...)()`` for seeds 1-3: the launch
+   counts of every kernel during those traces, MSE and DICE against the true
+   edge with the accuracy gates of ``bench.py`` (median DICE > 0.985, every
+   seed > 0.97), a rerun of seed 1 that must give the same trace, and the
+   warm wall time per trace;
+5. the 1000² config (``benchmarks/suite.py`` config 4: RBF σf=200 ℓ=50,
+   S=10⁴, δx=5) traced the same way for seeds 1-3: iterations, MSE, DICE
+   (gates: median > 0.97, every seed > 0.95, the spread of the JAX package
+   itself there: ``tests/torch_reference_1000.py`` reads DICE 0.963-0.980
+   over its seeds 1-10 on a CPU, and the port's CPU path gives the
+   reference's trace from the reference's draws), the launches of K1 (and
+   how many wrote the transposed copy), K2, K3, K5 and K6, peak device
+   memory, a rerun of seed 1 that must be identical and the warm wall
+   time;
+6. ``curve_kde(..., use_pallas_binning=True)`` at that config's kept-curve
+   shape, which launches K4, held against the K3 KDE;
+7. one ``torch.profiler`` trace of each config: device busy and idle share,
+   the top device operations, K1, K3, K5 and K6 per launch, the final fit's
+   share of the wall time (host clock) and peak memory;
+8. one JSON line of kernel results, the card line again, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -39,6 +57,12 @@ import time
 import numpy as np
 
 DEMO_SEEDS = (1, 2, 3)
+BIG_SEEDS = (1, 2, 3)
+
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
+# device memory bytes/s and float32 operations/s outside the tensor cores.
+MEM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def log(msg):
@@ -70,24 +94,60 @@ def cuda_ms(fn, warm=3, reps=25):
     return statistics.median(times)
 
 
+def bound(n_bytes, n_ops):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for work that moves ``n_bytes`` and does ``n_ops`` float32 operations."""
+    by_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
+    by_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+# Work of each kernel's function at its shape: (bytes, float32 operations).
+# Each input is read once and each output written once; operations are
+# counted from the kernels' arithmetic per element.
+def work_k1(E, M, S, transpose):
+    return 4 * (E * M + E * S + 2 * S + (S * E if transpose else 0)), \
+        23 * E * S
+
+
+def work_k2(E, M, S):
+    # The lerp touches at most two entries of cols per sample.
+    return 4 * (2 * E * S + min(E * M, 2 * E * S)), 8 * E * S
+
+
+def work_binning(E, S, M):
+    # The adjoint: two taps of ~10 operations per sample.
+    return 4 * (E * S + S + (M + 2) * E), 10 * E * S
+
+
+def work_k5(B, n):
+    return 4 * 2 * B * n * n, B * n ** 3 / 3
+
+
+def work_k6(B, n, m):
+    return 4 * (B * n * n + 2 * B * n * m), B * n * n * m
+
+
 class Checks:
     def __init__(self):
         self.failed = []
         self.kernels = {}
 
-    def record(self, kernel, case, err, tol, ok, ms=None, plain_ms=None):
+    def record(self, kernel, case, err, tol, ok, ms, plain_ms, work,
+               library_ms=None, main=False):
         entry = self.kernels.setdefault(kernel, {"max_abs_err": 0.0,
                                                  "cases": []})
         entry["max_abs_err"] = max(entry["max_abs_err"], float(err))
-        case_row = {"case": case, "max_abs_err": float(err), "tol": tol}
-        if ms is not None:
-            case_row.update(ms=ms, plain_ms=plain_ms)
-        entry["cases"].append(case_row)
-        status = "ok" if ok else "FAIL"
-        timing = (f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
-                  if ms is not None else "")
+        b_ms, b_by = bound(*work)
+        entry["cases"].append({
+            "case": case, "max_abs_err": float(err), "tol": tol,
+            "main": main, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by})
+        lib = f"{library_ms:.4f} ms" if library_ms is not None else "none"
         log(f"[kernels] {kernel} {case}: max_abs_err={err:.3e} ({tol}) "
-            f"{status}{timing}")
+            f"{'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  library {lib}  bound {b_ms:.4g} ms ({b_by})")
         if not ok:
             self.failed.append(f"{kernel} {case}")
 
@@ -117,53 +177,152 @@ def curve_samples(rng, E, M, S):
     return y
 
 
-def check_kernels(checks, dev):
+def kept_curves(rng, E, S, M):
+    """Kept curves for the binning kernels: random walks around the middle
+    row, exact integers, both image edges, just-outside values and
+    out-of-image sentinels; weights are normalised inverse costs."""
+    y = M / 2 + np.cumsum(rng.normal(0, 1.5, (E, S)), axis=0)
+    y[:, :4] = [0.0, M - 1.0, np.floor(M / 3), -1.0]
+    y[::3, 4 % S] = float(M)
+    y[1::3, 5 % S] = -10.0
+    y[::7] = np.rint(y[::7])
+    w = 1.0 / rng.uniform(0.5, 2.0, S)
+    return y, w / w.sum()
+
+
+def check_k1(checks, rng, f32):
     import torch
-    from gaussian_process_edge_trace_torch.ops import cuda_chol as cc
     from gaussian_process_edge_trace_torch.ops import cuda_interp as ci
 
-    rng = np.random.default_rng(0)
-    f32 = dict(dtype=torch.float32, device=dev)
-
-    # K1. Both sides sum ~E/2 pair terms of size ~1 in f32 in different
-    # orders: the gap is f32 rounding, ~1e-6 relative; the bound is the
-    # reference's own interpret-mode test bound (rtol 1e-4 line, 1e-5 arc).
-    for case, (E, M, S) in (("demo E=M=500 S=1000", (500, 500, 1000)),
-                            ("ragged E=38 M=61 S=130", (38, 61, 130))):
+    # Both sides sum ~E/2 pair terms of size ~1 in f32 in different orders:
+    # the gap is f32 rounding, ~1e-6 relative; the bound is the reference's
+    # own interpret-mode test bound (rtol 1e-4 line, 1e-5 arc). The
+    # transposed copy must equal ys.T bit for bit, and the quadratures with
+    # and without it must be bitwise equal. No single PyTorch call computes
+    # this function, so there is no library time.
+    for case, (E, M, S), transpose, main in (
+            ("demo E=M=500 S=1000", (500, 500, 1000), False, False),
+            ("ragged E=38 M=61 S=130", (38, 61, 130), False, False),
+            ("1000² E=M=1000 S=10⁴ +transpose", (1000, 1000, 10000), True,
+             True),
+            ("ragged E=38 M=61 S=8197 +transpose", (38, 61, 8197), True,
+             False),
+            ("M=2000 (2 pairs per chunk) E=2000 S=8200 +transpose",
+             (2000, 2000, 8200), True, False)):
         cols = torch.tensor(rng.random((E, M)), **f32)
         ys = torch.tensor(curve_samples(rng, E, M, S), **f32)
-        line, arc = ci.fused_cost_cuda(cols, ys, 1e-3)
+        out = ci.fused_cost_cuda(cols, ys, 1e-3, with_transpose=transpose)
         pline, parc = ci.fused_cost_plain(cols, ys, 1e-3)
         torch.cuda.synchronize()
-        el, rl = rel_err(line, pline)
-        ea, ra = rel_err(arc, parc)
+        el, rl = rel_err(out[0], pline)
+        ea, ra = rel_err(out[1], parc)
         ok = rl <= 1e-4 and ra <= 1e-5
-        kw = {}
-        if E == 500:
-            kw = dict(ms=cuda_ms(lambda: ci.fused_cost_cuda(cols, ys, 1e-3)),
-                      plain_ms=cuda_ms(
-                          lambda: ci.fused_cost_plain(cols, ys, 1e-3)))
-        checks.record("K1", case, max(el, ea), "rel 1e-4 line, 1e-5 arc",
-                      ok, **kw)
+        tol = "rel 1e-4 line, 1e-5 arc"
+        if transpose:
+            line0, arc0 = ci.fused_cost_cuda(cols, ys, 1e-3)
+            same_t = torch.equal(out[2], ys.T.contiguous())
+            same_q = torch.equal(line0, out[0]) and torch.equal(arc0, out[1])
+            ok = ok and same_t and same_q
+            tol += "; samples_t == ys.T bitwise"
+            log(f"[kernels] K1 {case}: samples_t {tuple(out[2].shape)} "
+                f"equals ys.T: {same_t}; line/arc unchanged by the copy: "
+                f"{same_q}")
+            if main:
+                checks.record(
+                    "K1", case.replace("+transpose", "without the copy"),
+                    max(el, ea), "as above", rl <= 1e-4 and ra <= 1e-5,
+                    ms=cuda_ms(lambda: ci.fused_cost_cuda(cols, ys, 1e-3)),
+                    plain_ms=cuda_ms(lambda: ci.fused_cost_plain(
+                        cols, ys, 1e-3)),
+                    work=work_k1(E, M, S, False))
+        checks.record(
+            "K1", case, max(el, ea), tol, ok,
+            ms=cuda_ms(lambda: ci.fused_cost_cuda(
+                cols, ys, 1e-3, with_transpose=transpose)),
+            plain_ms=cuda_ms(lambda: ci.fused_cost_plain(
+                cols, ys, 1e-3, with_transpose=transpose)),
+            work=work_k1(E, M, S, transpose), main=main)
 
-    # K2. Same arithmetic, each op rounded once on both sides (the kernel
-    # uses the _rn intrinsics): bitwise equal is expected; the bound allows
-    # one ulp.
-    for case, (E, M, S) in (("final cost E=M=500 S=1", (500, 500, 1)),
-                            ("E=M=500 S=1000", (500, 500, 1000))):
+
+def check_k2(checks, rng, f32):
+    import torch
+    import torch.nn.functional as F
+    from gaussian_process_edge_trace_torch.ops import cuda_interp as ci
+
+    # Same arithmetic, each op rounded once on both sides (the kernel uses
+    # the _rn intrinsics): bitwise equal is expected; the bound allows one
+    # ulp. The library yardstick is grid_sample (bilinear, align_corners,
+    # border padding) on the (1, 1, E, M) columns at the same points; it is
+    # timed only, the port never calls it.
+    for case, (E, M, S), main in (
+            ("final cost E=M=500 S=1", (500, 500, 1), False),
+            ("final cost E=M=1000 S=1", (1000, 1000, 1), True),
+            ("E=M=500 S=1000", (500, 500, 1000), False)):
         cols = torch.tensor(rng.random((E, M)), **f32)
         ys = torch.tensor(curve_samples(rng, E, M, S), **f32)
         out = ci.column_interp_cuda(cols, ys, 1e-3)
         ref = ci.column_interp_plain(cols, ys, 1e-3)
         torch.cuda.synchronize()
         e, r = rel_err(out, ref)
-        kw = {}
-        if S == 1:
-            kw = dict(ms=cuda_ms(lambda: ci.column_interp_cuda(cols, ys,
-                                                               1e-3)),
-                      plain_ms=cuda_ms(lambda: ci.column_interp_plain(
-                          cols, ys, 1e-3)))
-        checks.record("K2", case, e, "rel 1.2e-7 (1 ulp)", r <= 1.2e-7, **kw)
+        img = cols[None, None]
+        gx = 2.0 * torch.clamp(ys, 0, M - 1) / (M - 1) - 1.0
+        gy = (2.0 * torch.arange(E, **f32) / (E - 1) - 1.0)[:, None]
+        grid = torch.stack([gx, gy.expand(E, S)], dim=-1)[None]
+
+        def library():
+            return F.grid_sample(img, grid, mode="bilinear",
+                                 padding_mode="border",
+                                 align_corners=True)[0, 0] + 1e-3
+        le, _ = rel_err(library(), ref)
+        log(f"[kernels] K2 {case}: grid_sample yardstick max_abs_err "
+            f"{le:.3e} (not a gate)")
+        checks.record(
+            "K2", case, e, "rel 1.2e-7 (1 ulp)", r <= 1.2e-7,
+            ms=cuda_ms(lambda: ci.column_interp_cuda(cols, ys, 1e-3)),
+            plain_ms=cuda_ms(lambda: ci.column_interp_plain(cols, ys, 1e-3)),
+            library_ms=cuda_ms(library), work=work_k2(E, M, S), main=main)
+
+
+def check_binning(checks, rng, f32):
+    import torch
+    from gaussian_process_edge_trace_torch.trace import cuda_kde as ck
+
+    # K3 and K4 sum the same taps as the dense plain version in other
+    # orders; the bound is the reference's own test bound (test_trace.py:74):
+    # |H - plain| <= 1e-5·|plain| + 1e-6·max|plain|. A K3 rerun must be
+    # bitwise equal (no atomics). No single PyTorch call computes this
+    # function, so there is no library time.
+    for case, (E, S, M), main in (
+            ("1000² kept curves E=S=M=1000", (1000, 1000, 1000), True),
+            ("demo kept curves E=500 S=100 M=500", (500, 100, 500), False),
+            ("E=2000 S=100 M=2000", (2000, 100, 2000), False),
+            ("ragged E=37 S=33 M=129", (37, 33, 129), False)):
+        yn, wn = kept_curves(rng, E, S, M)
+        y = torch.tensor(yn, **f32)
+        w = torch.tensor(wn, **f32)
+        ref = ck.column_binning_plain(y, w, M)
+        scale = ref.abs().max().item()
+        plain_ms = cuda_ms(lambda: ck.column_binning_plain(y, w, M), reps=10)
+        for key, fn in (("K3", ck.binning_2l_cuda),
+                        ("K4", ck.binning_dense_cuda)):
+            H = fn(y, w, M)
+            torch.cuda.synchronize()
+            err = (H - ref).abs()
+            ok = bool((err <= 1e-5 * ref.abs() + 1e-6 * scale).all().item())
+            tol = "1e-5·|H| + 1e-6·max|H|"
+            if key == "K3":
+                same = torch.equal(H, fn(y, w, M))
+                ok = ok and same
+                tol += "; rerun bitwise"
+                log(f"[kernels] K3 {case}: rerun bitwise equal: {same}")
+            checks.record(key, case, err.max().item(), tol, ok,
+                          ms=cuda_ms(lambda: fn(y, w, M)), plain_ms=plain_ms,
+                          work=work_binning(E, S, M), main=main)
+
+
+def check_chol(checks, rng, f32, dev):
+    import torch
+    from gaussian_process_edge_trace_torch.ops import cuda_chol as cc
 
     def spd(B, n):
         A = rng.normal(size=(B, n, n))
@@ -172,7 +331,9 @@ def check_kernels(checks, dev):
     # K5. Right-looking Cholesky vs LAPACK-style blocked potrf: f32
     # rounding in another order, ~n·eps relative on a well-conditioned
     # batch; the bound is 2e-5 of max |L|. One non-PD matrix must give NaN
-    # on both sides.
+    # on both sides. The library yardstick is cholesky_ex alone. Above
+    # n = 160 the timed "kernel" is the blocked orchestration: panels
+    # through K5 and K6, trailing updates as matmuls.
     K = spd(109, 104)
     K[7] = -K[7]
     Kt = torch.tensor(K, **f32)
@@ -188,15 +349,30 @@ def check_kernels(checks, dev):
                   r <= 2e-5 and nan_k and nan_p and
                   not torch.isnan(L[keep]).any().item(),
                   ms=cuda_ms(lambda: cc.cholesky_cuda(Kt)),
-                  plain_ms=cuda_ms(lambda: cc.cholesky_plain(Kt)))
-    K2 = torch.tensor(spd(8, 200), **f32)
-    Lb = cc.cholesky_auto(K2)
-    torch.cuda.synchronize()
-    e, r = rel_err(Lb, cc.cholesky_plain(K2))
-    checks.record("K5", "blocked n=200 B=8", e, "rel 2e-5", r <= 2e-5)
+                  plain_ms=cuda_ms(lambda: cc.cholesky_plain(Kt)),
+                  library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(Kt)),
+                  work=work_k5(109, 104), main=True)
+    for B, n in ((8, 200), (2, 208)):
+        Kb = torch.tensor(spd(B, n), **f32)
+        Lb = cc.cholesky_auto(Kb)
+        torch.cuda.synchronize()
+        e, r = rel_err(Lb, cc.cholesky_plain(Kb))
+        checks.record("K5", f"blocked n={n} B={B}", e, "rel 2e-5", r <= 2e-5,
+                      ms=cuda_ms(lambda: cc.cholesky_auto(Kb)),
+                      plain_ms=cuda_ms(lambda: cc.cholesky_plain(Kb)),
+                      library_ms=cuda_ms(
+                          lambda: torch.linalg.cholesky_ex(Kb)),
+                      work=work_k5(B, n))
 
     # K6. Substitution in row order vs LAPACK trsm: f32 rounding in another
-    # order on well-conditioned factors; the bound is 2e-5 of max |Z|.
+    # order on well-conditioned factors; the bound is 2e-5 of max |Z|. The
+    # library yardstick is solve_triangular alone.
+    def library_solve(L, R, transpose):
+        if transpose:
+            return torch.linalg.solve_triangular(L.transpose(-1, -2), R,
+                                                 upper=True)
+        return torch.linalg.solve_triangular(L, R, upper=False)
+
     Lw = cc.cholesky_plain(torch.tensor(spd(56, 104), **f32))
     for m in (1, 104):
         R = (torch.eye(104, **f32).expand(56, 104, 104).contiguous() if m > 1
@@ -206,94 +382,270 @@ def check_kernels(checks, dev):
             Zp = cc.solve_plain(Lw, R, transpose)
             torch.cuda.synchronize()
             e, r = rel_err(Z, Zp)
-            kw = {}
-            if m > 1 and not transpose:
-                kw = dict(ms=cuda_ms(lambda: cc.solve_cuda(Lw, R, False)),
-                          plain_ms=cuda_ms(
-                              lambda: cc.solve_plain(Lw, R, False)))
-            checks.record("K6", f"{name} B=56 n=104 m={m}", e, "rel 2e-5",
-                          r <= 2e-5, **kw)
-    R = torch.tensor(rng.normal(size=(8, 200, 3)), **f32)
-    e, r = rel_err(cc.forward_solve_auto(Lb, R),
-                   cc.solve_plain(Lb, R, False))
-    checks.record("K6", "blocked forward n=200 m=3", e, "rel 2e-5",
-                  r <= 2e-5)
-    e, r = rel_err(cc.backward_solve_auto(Lb, R),
-                   cc.solve_plain(Lb, R, True))
-    checks.record("K6", "blocked backward n=200 m=3", e, "rel 2e-5",
-                  r <= 2e-5)
+            checks.record(
+                "K6", f"{name} B=56 n=104 m={m}", e, "rel 2e-5", r <= 2e-5,
+                ms=cuda_ms(lambda: cc.solve_cuda(Lw, R, transpose)),
+                plain_ms=cuda_ms(lambda: cc.solve_plain(Lw, R, transpose)),
+                library_ms=cuda_ms(lambda: library_solve(Lw, R, transpose)),
+                work=work_k6(56, 104, m), main=m > 1 and not transpose)
+    Lb = cc.cholesky_plain(torch.tensor(spd(8, 208), **f32))
+    R = torch.tensor(rng.normal(size=(8, 208, 3)), **f32)
+    for name, fn, transpose in (("forward", cc.forward_solve_auto, False),
+                                ("backward", cc.backward_solve_auto, True)):
+        e, r = rel_err(fn(Lb, R), cc.solve_plain(Lb, R, transpose))
+        checks.record(
+            "K6", f"blocked {name} n=208 m=3", e, "rel 2e-5", r <= 2e-5,
+            ms=cuda_ms(lambda: fn(Lb, R)),
+            plain_ms=cuda_ms(lambda: cc.solve_plain(Lb, R, transpose)),
+            library_ms=cuda_ms(lambda: library_solve(Lb, R, transpose)),
+            work=work_k6(8, 208, 3))
 
 
-def demo(checks, dev):
-    """The README demo through GP_Edge_Tracing on the card."""
+def check_kernels(checks, dev):
     import torch
-    import gaussian_process_edge_trace_torch as gpt
+    rng = np.random.default_rng(0)
+    f32 = dict(dtype=torch.float32, device=dev)
+    check_k1(checks, rng, f32)
+    check_k2(checks, rng, f32)
+    check_binning(checks, rng, f32)
+    check_chol(checks, rng, f32, dev)
+
+
+def reset_counts():
     from gaussian_process_edge_trace_torch.ops import cuda_chol as cc
     from gaussian_process_edge_trace_torch.ops import cuda_interp as ci
+    from gaussian_process_edge_trace_torch.trace import cuda_kde as ck
+    for counts in (ci.LAUNCHES, cc.LAUNCHES, ck.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
-    img, true_edge = gpt.construct_test_img((500, 500), 200, 4, 0.05,
-                                            "sinusoidal", 0.3, gaps=True)
-    grad = gpt.comp_grad_img(img, gpt.kernel_builder((11, 5), unit=False),
-                             device=dev)
-    init = true_edge[[0, -1]][:, [1, 0]]
-    ko = {"kernel": "RBF", "sigma_f": 75, "length_scale": 20}
 
-    def trace(seed):
-        tracer = gpt.GP_Edge_Tracing(init, grad, ko, 1, np.array([]), 1000,
-                                     1, 5, 0.1, 5, seed, True, True,
-                                     device=dev)
+def read_counts():
+    from gaussian_process_edge_trace_torch.ops import cuda_chol as cc
+    from gaussian_process_edge_trace_torch.ops import cuda_interp as ci
+    from gaussian_process_edge_trace_torch.trace import cuda_kde as ck
+    return {"K1": ci.LAUNCHES["fused_cost"],
+            "K1_transpose": ci.LAUNCHES["fused_cost_transpose"],
+            "K2": ci.LAUNCHES["column_interp"],
+            "K3": ck.LAUNCHES["binning_2l"],
+            "K4": ck.LAUNCHES["binning_dense"],
+            "K5": cc.LAUNCHES["cholesky"], "K6": cc.LAUNCHES["trsm"]}
+
+
+class Config:
+    """One traced configuration: its image, truth and tracer arguments."""
+
+    def __init__(self, dev, size, amplitude, ko, n_samples):
+        import gaussian_process_edge_trace_torch as gpt
+        self.img, self.true_edge = gpt.construct_test_img(
+            size, amplitude, 4, 0.05, "sinusoidal", 0.3, gaps=True)
+        self.grad = gpt.comp_grad_img(
+            self.img, gpt.kernel_builder((11, 5), unit=False), device=dev)
+        self.init = self.true_edge[[0, -1]][:, [1, 0]]
+        self.ko, self.n_samples, self.dev = ko, n_samples, dev
+        self.size = size
+
+    def tracer(self, seed):
+        import gaussian_process_edge_trace_torch as gpt
+        return gpt.GP_Edge_Tracing(self.init, self.grad, self.ko, 1,
+                                   np.array([]), self.n_samples, 1, 5, 0.1, 5,
+                                   seed, True, True, device=self.dev)
+
+    def trace(self, seed):
+        import torch
+        tracer = self.tracer(seed)
         edge, cred = tracer()
         torch.cuda.synchronize()
         return edge, cred, tracer.last_result
 
-    for counts in (ci.LAUNCHES, cc.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
-    runs = {seed: trace(seed) for seed in DEMO_SEEDS}
-    launches = {"K1": ci.LAUNCHES["fused_cost"],
-                "K2": ci.LAUNCHES["column_interp"],
-                "K5": cc.LAUNCHES["cholesky"], "K6": cc.LAUNCHES["trsm"]}
-    log(f"[demo] kernel launches over seeds {DEMO_SEEDS}: "
-        f"{json.dumps(launches)}")
-    for k, n in launches.items():
-        if n <= 0:
-            checks.failed.append(f"demo did not launch {k}")
-
-    dices = []
-    for seed, (edge, cred, res) in runs.items():
-        mse = gpt.trace_MSE(edge, true_edge)
-        dice = gpt.trace_dicecoef(edge, true_edge)
-        dices.append(dice)
+    def report(self, checks, tag, seed, run):
+        import gaussian_process_edge_trace_torch as gpt
+        import torch
+        edge, cred, res = run
+        mse = gpt.trace_MSE(edge, self.true_edge)
+        dice = gpt.trace_dicecoef(edge, self.true_edge)
         finite = bool(np.isfinite(cred[0]).all() and np.isfinite(cred[1]).all()
                       and torch.isfinite(res.y_mean).all().item())
-        shape_ok = edge.shape == (500, 2) and cred[0].shape == (500,)
-        log(f"[demo] seed {seed}: n_iters={res.n_iters} MSE={mse} "
+        shape_ok = (edge.shape == (self.size[1], 2)
+                    and cred[0].shape == (self.size[1],))
+        log(f"[{tag}] seed {seed}: n_iters={res.n_iters} MSE={mse} "
             f"DICE={dice} theta={res.theta.tolist()} "
             f"final_cost={res.final_cost.item():.6f} finite={finite}")
         if not (finite and shape_ok):
-            checks.failed.append(f"demo seed {seed}: non-finite or shape")
+            checks.failed.append(f"{tag} seed {seed}: non-finite or shape")
+        return dice
+
+    def rerun_and_wall(self, checks, tag, seed, first):
+        again = self.trace(seed)[0]
+        same = np.array_equal(again, first)
+        log(f"[{tag}] rerun of seed {seed} identical: {same}")
+        if not same:
+            checks.failed.append(f"{tag} rerun differs")
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            self.trace(seed)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        log(f"[{tag}] warm wall time per trace (seed {seed}, median of "
+            f"3 after warm-up): {statistics.median(walls):.2f} ms "
+            f"(runs {[round(w, 2) for w in walls]})")
+
+
+def require(checks, tag, launches, keys):
+    for k in keys:
+        if launches[k] <= 0:
+            checks.failed.append(f"{tag} did not launch {k}")
+
+
+def demo(checks, dev):
+    """The README demo through GP_Edge_Tracing on the card."""
+    cfg = Config(dev, (500, 500), 200,
+                 {"kernel": "RBF", "sigma_f": 75, "length_scale": 20}, 1000)
+    reset_counts()
+    runs = {seed: cfg.trace(seed) for seed in DEMO_SEEDS}
+    launches = read_counts()
+    log(f"[demo] kernel launches over seeds {DEMO_SEEDS}: "
+        f"{json.dumps(launches)}")
+    require(checks, "demo", launches, ("K1", "K2", "K3", "K5", "K6"))
+
+    dices = [cfg.report(checks, "demo", seed, run)
+             for seed, run in runs.items()]
     median = sorted(dices)[len(dices) // 2]
     gates = median > 0.985 and min(dices) > 0.97
     log(f"[demo] DICE median={median} min={min(dices)} "
         f"(gates: median > 0.985, min > 0.97) {'ok' if gates else 'FAIL'}")
     if not gates:
         checks.failed.append("demo DICE gates")
+    cfg.rerun_and_wall(checks, "demo", DEMO_SEEDS[0],
+                       runs[DEMO_SEEDS[0]][0])
+    return cfg, launches
 
-    again = trace(DEMO_SEEDS[0])[0]
-    same = np.array_equal(again, runs[DEMO_SEEDS[0]][0])
-    log(f"[demo] rerun of seed {DEMO_SEEDS[0]} identical: {same}")
-    if not same:
-        checks.failed.append("demo rerun differs")
 
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        trace(DEMO_SEEDS[0])
-        walls.append((time.perf_counter() - t0) * 1e3)
-    log(f"[demo] warm wall time per trace (seed {DEMO_SEEDS[0]}, median of "
-        f"3 after warm-up): {statistics.median(walls):.2f} ms "
-        f"(runs {[round(w, 2) for w in walls]})")
+def big_config(dev):
+    return Config(dev, (1000, 1000), 400,
+                  {"kernel": "RBF", "sigma_f": 200, "length_scale": 50},
+                  10000)
+
+
+def big(checks, dev):
+    """The 1000² S=10⁴ config through GP_Edge_Tracing on the card."""
+    import torch
+    cfg = big_config(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    runs = {seed: cfg.trace(seed) for seed in BIG_SEEDS}
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[1000²] kernel launches over seeds {BIG_SEEDS}: "
+        f"{json.dumps(launches)}")
+    log(f"[1000²] peak device memory (max_memory_allocated): {peak} bytes "
+        f"({peak / 2**20:.1f} MiB)")
+    require(checks, "1000²", launches,
+            ("K1", "K1_transpose", "K2", "K3", "K5", "K6"))
+    dices = [cfg.report(checks, "1000²", seed, run)
+             for seed, run in runs.items()]
+    median = sorted(dices)[len(dices) // 2]
+    ok = median > 0.97 and min(dices) > 0.95
+    log(f"[1000²] DICE median={median} min={min(dices)} (gates: median > "
+        f"0.97, min > 0.95) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        checks.failed.append("1000² DICE gates")
+    cfg.rerun_and_wall(checks, "1000²", BIG_SEEDS[0], runs[BIG_SEEDS[0]][0])
+    return cfg, launches
+
+
+def pallas_binning_kde(checks, dev):
+    """``curve_kde(..., use_pallas_binning=True)`` at the 1000² config's
+    kept-curve shape: K4 bins; held against the K3 KDE."""
+    import torch
+    from gaussian_process_edge_trace_torch.trace.kde import curve_kde
+    rng = np.random.default_rng(1)
+    yn, wn = kept_curves(rng, 1000, 1000, 1000)
+    y = torch.tensor(yn, dtype=torch.float32, device=dev)
+    w = torch.tensor(wn, dtype=torch.float32, device=dev)
+    reset_counts()
+    kde4 = curve_kde(y, w, 1000, 1000, 0, use_pallas_binning=True)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    kde3 = curve_kde(y, w, 1000, 1000, 0)
+    e, _ = rel_err(kde4, kde3)
+    ok = launches["K4"] > 0 and e <= 1e-5
+    log(f"[kde K4] launches {json.dumps(launches)}; K4 KDE vs K3 KDE "
+        f"max_abs_err={e:.3e} (1e-5 on a [0, 1] grid) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        checks.failed.append("curve_kde with use_pallas_binning")
     return launches
+
+
+def _device_us(evt):
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, name, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def profile(checks, tag, cfg, seed):
+    """The loop and the final fit on the host clock and peak memory; then
+    one profiled trace: device busy time, the idle share of the unprofiled
+    and of the profiled wall time, top device ops, K1, K3, K5 and K6 per
+    launch."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+
+    tracer = cfg.tracer(seed)
+    cfg_, data = tracer.cfg, tracer.data
+    draws = pd.TorchDraws(cfg_, data.L_prior_unit.shape[1], cfg.dev)
+    loop, fit = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(4):                          # the first one warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = pd.run_loop(cfg_, data, pd.init_state(cfg_, cfg.dev), draws)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pd.finish_trace(cfg_, data, state, draws)
+        torch.cuda.synchronize()
+        loop.append((t1 - t0) * 1e3)
+        fit.append((time.perf_counter() - t1) * 1e3)
+    lm, fm = statistics.median(loop[1:]), statistics.median(fit[1:])
+    log(f"[profile {tag}] host clock, median of 3: loop {lm:.2f} ms over "
+        f"{state.it} iterations ({lm / max(state.it, 1):.2f} ms each), final "
+        f"fit {fm:.2f} ms ({100 * fm / (lm + fm):.1f}% of the trace); peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tracer()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # Device-side events only: a CPU op's own row repeats its kernels' time.
+    rows = [(e.key, _device_us(e) / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and _device_us(e) > 0]
+    busy = sum(r[1] for r in rows)
+    if busy <= 0:
+        checks.failed.append(f"{tag} profile shows no device time")
+    log(f"[profile {tag}] device busy {busy:.3f} ms per trace: idle "
+        f"{100 * (1 - busy / (lm + fm)):.1f}% of the unprofiled "
+        f"{lm + fm:.2f} ms, {100 * (1 - busy / wall):.1f}% of the profiled "
+        f"{wall:.2f} ms")
+    rows.sort(key=lambda r: -r[1])
+    for key, ms, count in rows[:14]:
+        log(f"[profile {tag}]   {ms:8.3f} ms  {count:5d}x  "
+            f"{1e3 * ms / count:9.2f} us/launch  {key[:90]}")
+    for name in ("fused_cost_partial_kernel", "fused_cost_reduce_kernel",
+                 "binning_2l_kernel", "batched_chol_kernel",
+                 "batched_trsm_kernel"):
+        for key, ms, count in rows:
+            if name in key:
+                log(f"[profile {tag}] {name}: {count} launches, "
+                    f"{1e3 * ms / count:.2f} us each, {ms:.3f} ms in all")
 
 
 KERNEL_ROWS = {
@@ -303,6 +655,12 @@ KERNEL_ROWS = {
     "K2": ("column_interp", "gaussian_process_edge_trace_torch/csrc/"
            "column_interp_kernel.cu",
            "gaussian_process_edge_trace_tpu/ops/pallas_interp.py:167"),
+    "K3": ("binning_2l", "gaussian_process_edge_trace_torch/csrc/"
+           "binning_2l_kernel.cu",
+           "gaussian_process_edge_trace_tpu/trace/pallas_kde.py:153"),
+    "K4": ("binning_dense", "gaussian_process_edge_trace_torch/csrc/"
+           "binning_dense_kernel.cu",
+           "gaussian_process_edge_trace_tpu/trace/pallas_kde.py:199"),
     "K5": ("batched_cholesky", "gaussian_process_edge_trace_torch/csrc/"
            "batched_chol_kernel.cu",
            "gaussian_process_edge_trace_tpu/ops/pallas_chol.py:218"),
@@ -310,12 +668,6 @@ KERNEL_ROWS = {
            "csrc/batched_trsm_kernel.cu",
            "gaussian_process_edge_trace_tpu/ops/pallas_chol.py:274"),
 }
-NOT_PORTED = [
-    {"name": "K3 binning_2l", "status": "not_ported",
-     "replaces": "gaussian_process_edge_trace_tpu/trace/pallas_kde.py:153"},
-    {"name": "K4 binning_pallas", "status": "not_ported",
-     "replaces": "gaussian_process_edge_trace_tpu/trace/pallas_kde.py:199"},
-]
 
 
 def main() -> int:
@@ -348,24 +700,37 @@ def main() -> int:
 
     checks = Checks()
     check_kernels(checks, dev)
-    launches = demo(checks, dev)
+    demo_cfg, demo_launches = demo(checks, dev)
+    big_cfg, big_launches = big(checks, dev)
+    kde_launches = pallas_binning_kde(checks, dev)
+    profile(checks, "demo", demo_cfg, DEMO_SEEDS[0])
+    profile(checks, "1000²", big_cfg, BIG_SEEDS[0])
 
+    paths = {"demo": demo_launches, "1000_S1e4": big_launches,
+             "curve_kde_pallas_binning": kde_launches}
     rows = []
     for key, (name, source, replaces) in KERNEL_ROWS.items():
         k = checks.kernels.get(key, {"max_abs_err": float("nan"),
                                      "cases": []})
-        timed = [c for c in k["cases"] if "ms" in c]
+        main_case = next((c for c in k["cases"] if c["main"]), None)
+        if main_case is None:
+            checks.failed.append(f"{key} has no timed main-path case")
+            continue
         rows.append({
             "name": f"{key} {name}", "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[key],
+            "replaces": replaces,
+            "launches": sum(p[key] for p in paths.values()),
+            "launches_by_path": {p: n[key] for p, n in paths.items()},
             "max_abs_err": k["max_abs_err"],
-            "ms": timed[0]["ms"] if timed else None,
-            "plain_ms": timed[0]["plain_ms"] if timed else None,
-            "timed_case": timed[0]["case"] if timed else None})
+            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"],
+            "library_ms": main_case["library_ms"],
+            "timed_case": main_case["case"]})
     if checks.failed:
         log(f"chip_smoke: FAILED: {checks.failed}")
         return 1
-    log(json.dumps({"kernels": rows, "not_ported": NOT_PORTED}))
+    log(json.dumps({"kernels": rows, "not_ported": []}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

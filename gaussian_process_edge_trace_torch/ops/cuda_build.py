@@ -37,8 +37,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every kernel entry point (all return a cudaError_t as int).
 _SIGNATURES = {
-    "gpet_fused_cost": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    "gpet_fused_cost": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "gpet_column_interp": [_P, _P, _P, _I, _I, _I, _F, _P],
+    "gpet_binning_2l": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "gpet_binning_dense": [_P, _P, _P, _I, _I, _I, _P],
     "gpet_batched_cholesky": [_P, _P, _I, _I, _P],
     "gpet_batched_trsm": [_P, _P, _P, _I, _I, _I, _I, _P],
 }

@@ -5,7 +5,9 @@ Counterpart of ``gaussian_process_edge_trace_tpu/ops/pallas_interp.py``:
 - **K1**, :func:`fused_curve_cost` (``csrc/fused_cost_kernel.cu``): per
   sample, the non-uniform Simpson line integral of the interpolated gradient
   column plus ``kde_thresh`` and the uniform Simpson arc length, in one pass.
-  Replaces ``_fused_cost_call`` (pallas_interp.py:230).
+  Replaces ``_fused_cost_call`` (pallas_interp.py:230), including its
+  ``with_transpose`` arm: at S >= 8192 it can also write ``ys`` transposed,
+  which ``best_curves`` then takes rows from.
 - **K2**, :func:`column_interp` (``csrc/column_interp_kernel.cu``):
   ``out[e, s] = lerp(cols[e, :], clip(ys[e, s], 0, M-1)) + add_const``.
   Replaces ``_column_interp_pallas_2l`` (:167) and ``_column_interp_pallas``
@@ -25,11 +27,19 @@ from gaussian_process_edge_trace_torch.ops import cuda_build
 from gaussian_process_edge_trace_torch.ops.integrate import (
     simpson_nonuniform, simpson_weights)
 
-LAUNCHES = {"fused_cost": 0, "column_interp": 0}
+# "fused_cost_transpose" counts the K1 launches that also wrote samples_t.
+LAUNCHES = {"fused_cost": 0, "fused_cost_transpose": 0, "column_interp": 0}
 
 # Pair windows per K1 chunk (gridDim.y), shrunk for tall columns so the
 # staged rows of cols stay within 48 KB of shared memory.
 _PAIRS_PER_CHUNK = 8
+
+# K1 writes the transposed samples only from this S up, as the reference
+# does (pallas_interp.py:427).
+_TRANSPOSE_MIN_S = 8192
+
+# K1's block width (threads per block, one sample each).
+_K1_THREADS = 128
 
 
 def fused_cost_eligible(E: int, M: int, S: int) -> bool:
@@ -106,11 +116,15 @@ def line_and_arc(grad_score, ys, even="simpson"):
     return line, (arc_w[:, None] * step).sum(0)
 
 
-def fused_cost_plain(cols, ys, kde_thresh=0.0):
+def fused_cost_plain(cols, ys, kde_thresh=0.0, with_transpose=False):
     """Plain version of K1: gather interpolation, then
-    :func:`line_and_arc`. Returns ``(line, arc)``, each (S,)."""
-    return line_and_arc(column_interp_plain(cols, ys, add_const=kde_thresh),
-                        ys)
+    :func:`line_and_arc`. Returns ``(line, arc)``, each (S,), and with
+    ``with_transpose`` also ``ys.T`` as a contiguous (S, E) tensor."""
+    line, arc = line_and_arc(
+        column_interp_plain(cols, ys, add_const=kde_thresh), ys)
+    if with_transpose:
+        return line, arc, ys.T.contiguous()
+    return line, arc
 
 
 def _pairs_per_chunk(M: int) -> int:
@@ -118,8 +132,10 @@ def _pairs_per_chunk(M: int) -> int:
     return max(1, min(_PAIRS_PER_CHUNK, (rows - 1) // 2))
 
 
-def fused_cost_cuda(cols, ys, kde_thresh=0.0):
-    """K1 on the card. Requires even E >= 4."""
+def fused_cost_cuda(cols, ys, kde_thresh=0.0, with_transpose=False):
+    """K1 on the card. Requires even E >= 4. Returns what
+    :func:`fused_cost_plain` returns; the transposed copy is written by the
+    kernel itself."""
     _check_shapes(cols, ys)
     cuda_build.check_tensors("fused_cost", cols, ys)
     E, M = cols.shape
@@ -127,28 +143,40 @@ def fused_cost_cuda(cols, ys, kde_thresh=0.0):
     if E % 2 or E < 4:
         raise ValueError(f"fused cost kernel requires even E >= 4, got {E}")
     ppc = _pairs_per_chunk(M)
-    if (2 * ppc + 1) * M * 4 > 227 * 1024:
+    smem = (2 * ppc + 1) * M * 4
+    if with_transpose:
+        smem += (2 * ppc + 2) * (_K1_THREADS + 1) * 4
+    if smem > 227 * 1024:
         raise ValueError(f"M={M} rows do not fit the kernel's shared memory")
     n_chunks = -(-((E - 2) // 2) // ppc)
-    partial = torch.empty((n_chunks, 2, S), dtype=torch.float32,
-                          device=ys.device)
-    line = torch.empty((S,), dtype=torch.float32, device=ys.device)
-    arc = torch.empty((S,), dtype=torch.float32, device=ys.device)
+    f32 = dict(dtype=torch.float32, device=ys.device)
+    partial = torch.empty((n_chunks, 2, S), **f32)
+    line = torch.empty((S,), **f32)
+    arc = torch.empty((S,), **f32)
+    samples_t = torch.empty((S, E), **f32) if with_transpose else None
     lib = cuda_build.library()
     with torch.cuda.device(ys.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.gpet_fused_cost(cols.data_ptr(), ys.data_ptr(),
-                                 partial.data_ptr(), line.data_ptr(),
-                                 arc.data_ptr(), E, M, S, float(kde_thresh),
-                                 ppc, n_chunks, stream)
+        rc = lib.gpet_fused_cost(
+            cols.data_ptr(), ys.data_ptr(), partial.data_ptr(),
+            line.data_ptr(), arc.data_ptr(),
+            samples_t.data_ptr() if with_transpose else None, E, M, S,
+            float(kde_thresh), ppc, n_chunks, stream)
     cuda_build.check(rc, "fused_cost")
     LAUNCHES["fused_cost"] += 1
+    if with_transpose:
+        LAUNCHES["fused_cost_transpose"] += 1
+        return line, arc, samples_t
     return line, arc
 
 
-def fused_curve_cost(cols, ys, kde_thresh=0.0):
-    """``(line_integral, arc_length)`` of every curve: K1 for CUDA tensors,
-    the plain version on the CPU."""
-    if ys.device.type == "cpu":
-        return fused_cost_plain(cols, ys, kde_thresh)
-    return fused_cost_cuda(cols, ys, kde_thresh)
+def fused_curve_cost(cols, ys, kde_thresh=0.0, want_transpose=False):
+    """``(line_integral, arc_length, samples_t)`` of every curve: K1 for
+    CUDA tensors, the plain version on the CPU (pallas_interp.py:430-454).
+    ``samples_t`` is ``ys`` transposed to (S, E) when ``want_transpose``
+    and S >= ``_TRANSPOSE_MIN_S``, else ``None``; the reference pads its
+    columns to E_pad, the port does not."""
+    wt = bool(want_transpose) and ys.shape[1] >= _TRANSPOSE_MIN_S
+    fn = fused_cost_plain if ys.device.type == "cpu" else fused_cost_cuda
+    out = fn(cols, ys, kde_thresh, with_transpose=wt)
+    return out if wt else (*out, None)

@@ -1,0 +1,124 @@
+"""KDE binning kernels K3 and K4 and their plain PyTorch version.
+
+Counterpart of ``gaussian_process_edge_trace_tpu/trace/pallas_kde.py``. Both
+kernels compute one function, the linear binning of the kept curves onto the
+padded (M+2)-row grid column by column,
+
+    H[m, e] = Σ_s w_s·max(0, 1 − |y[e,s] + 1 − m|),  w = 0 where y ∉ [0, M−1],
+
+returned as (M+2, E) float32:
+
+- **K3**, :func:`binning_2l_cuda` (``csrc/binning_2l_kernel.cu``): the
+  two-level adjoint, two taps per sample into its row block. Replaces
+  ``_binning_2l`` (pallas_kde.py:153). The main path runs it for every
+  number of kept curves.
+- **K4**, :func:`binning_dense_cuda` (``csrc/binning_dense_kernel.cu``): the
+  dense per-column hat GEMV. Replaces ``_binning_pallas`` (:199); reached
+  only with ``use_pallas=True``, as in the reference.
+- :func:`column_binning_plain`: the dense hat contraction of the reference's
+  ``_binning_dense_chunked`` (:259), in chunks of kept curves. The CPU runs
+  it; on the card only the checks do.
+
+The wrappers take CUDA tensors only and raise otherwise; ``LAUNCHES`` counts
+kernel launches. Neither kernel uses float atomics: reruns are bitwise
+equal.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gaussian_process_edge_trace_torch.ops import cuda_build
+
+LAUNCHES = {"binning_2l": 0, "binning_dense": 0}
+
+# Target size of one hat-contraction block, (M+2)·E·chunk elements; more
+# kept curves are binned in chunks of this size (pallas_kde.py:256).
+_CHUNK_ELEMS = 128 * 1024 * 1024
+
+# K3's columns per block and samples per staged tile (binning_2l_kernel.cu).
+_K3_COLS = 4
+_K3_TILE = 256
+
+
+def _hb_for(M: int) -> int:
+    """K3's row-block height (pallas_kde.py:49-56): 8/16/32 at
+    M = 500/1000/2000, so that NB = M//Hb + 1 stays near 63."""
+    return min(32, max(8, 1 << max(0, M.bit_length() - 6)))
+
+
+def column_binning_plain(y_curves, weights, M: int):
+    """Plain version of K3 and K4: the dense hat contraction, in chunks of
+    kept curves whose sums are added in order."""
+    E, S = y_curves.shape
+    rows = torch.arange(M + 2, dtype=y_curves.dtype, device=y_curves.device)
+    zero = torch.zeros((), dtype=y_curves.dtype, device=y_curves.device)
+
+    def block(yb, wb):
+        yp = yb + 1.0
+        w = torch.where((yb >= 0) & (yb <= M - 1), wb[None, :], zero)
+        hat = torch.clamp(1.0 - torch.abs(yp[None, :, :]
+                                          - rows[:, None, None]), min=0.0)
+        return (hat * w[None, :, :]).sum(-1)              # (M+2, E)
+
+    chunk = max(1, _CHUNK_ELEMS // ((M + 2) * E))
+    H = block(y_curves[:, :chunk], weights[:chunk])
+    for s0 in range(chunk, S, chunk):
+        H = H + block(y_curves[:, s0:s0 + chunk], weights[s0:s0 + chunk])
+    return H
+
+
+def _check(name, y_curves, weights, M):
+    if y_curves.dim() != 2 or weights.shape != (y_curves.shape[1],):
+        raise ValueError(f"{name}: y (E, S) and w (S,) expected, got "
+                         f"{tuple(y_curves.shape)} and {tuple(weights.shape)}")
+    if M < 1:
+        raise ValueError(f"{name}: M >= 1 expected, got {M}")
+    cuda_build.check_tensors(name, y_curves, weights)
+
+
+def binning_2l_cuda(y_curves, weights, M: int):
+    """K3 on the card: (M+2, E) float32."""
+    _check("binning_2l", y_curves, weights, M)
+    E, S = y_curves.shape
+    Hb = _hb_for(M)
+    NB = M // Hb + 1
+    smem = _K3_COLS * (NB * (Hb + 1) + 3 * _K3_TILE) * 4
+    if smem > 227 * 1024:
+        raise ValueError(f"binning_2l: M={M} does not fit shared memory")
+    H = torch.empty((M + 2, E), dtype=torch.float32, device=y_curves.device)
+    lib = cuda_build.library()
+    with torch.cuda.device(y_curves.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gpet_binning_2l(y_curves.data_ptr(), weights.data_ptr(),
+                                 H.data_ptr(), E, S, M, Hb, stream)
+    cuda_build.check(rc, "binning_2l")
+    LAUNCHES["binning_2l"] += 1
+    return H
+
+
+def binning_dense_cuda(y_curves, weights, M: int):
+    """K4 on the card: (M+2, E) float32."""
+    _check("binning_dense", y_curves, weights, M)
+    E, S = y_curves.shape
+    H = torch.empty((M + 2, E), dtype=torch.float32, device=y_curves.device)
+    lib = cuda_build.library()
+    with torch.cuda.device(y_curves.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gpet_binning_dense(y_curves.data_ptr(), weights.data_ptr(),
+                                    H.data_ptr(), E, S, M, stream)
+    cuda_build.check(rc, "binning_dense")
+    LAUNCHES["binning_dense"] += 1
+    return H
+
+
+def column_binning(y_curves, weights, M: int, use_pallas: bool = False):
+    """Binned column masses H (M+2, E) for the curve KDE
+    (pallas_kde.py:225): K3 for CUDA tensors, K4 with ``use_pallas``, the
+    plain version on the CPU. The reference's ``_2L_MIN_S`` gate is a TPU
+    crossover and is not carried over: K3 runs at every S."""
+    if y_curves.device.type == "cpu":
+        return column_binning_plain(y_curves, weights, M)
+    if use_pallas:
+        return binning_dense_cuda(y_curves, weights, M)
+    return binning_2l_cuda(y_curves, weights, M)

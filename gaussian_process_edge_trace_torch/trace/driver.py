@@ -355,9 +355,11 @@ def _iteration(cfg: TracerConfig, data: TracerData, state: TraceState, z, w,
     KDE, select. Returns the new state and the (E, S) samples."""
     x, y, mask, noise_w = _train_set(cfg, data, state)
     samples = _sample_round(cfg, data, x, y, mask, noise_w, z, w)
-    costs = curve_costs(data.grad_cols, samples, kde_thresh=cfg.kde_thresh,
-                        even="avg" if cfg.legacy_simpson else "simpson")
-    bc, bcosts = best_curves(samples, costs, cfg.N_keep)
+    costs, samples_t = curve_costs(
+        data.grad_cols, samples, kde_thresh=cfg.kde_thresh,
+        even="avg" if cfg.legacy_simpson else "simpson",
+        return_samples_t=True)
+    bc, bcosts = best_curves(samples, costs, cfg.N_keep, samples_t=samples_t)
     inv = 1.0 / bcosts
     weights = inv / inv.sum()                               # gpet.py:492-493
     kde_arr = curve_kde(bc, weights, cfg.M, cfg.N, cfg.x_st, blur=blur)

@@ -1,16 +1,16 @@
 """Kernel-density estimates on the pixel grid (reference: gpet.py:455-529,
 ``KDEpy.FFTKDE(kernel='gaussian', bw=1)``).
 
-Port of ``gaussian_process_edge_trace_tpu/trace/kde.py`` and of the dense
-form of ``trace/pallas_kde.py::column_binning``. FFTKDE is linear binning of
-the weighted points onto the grid ``[-1, N] x [-1, M]`` followed by a
-Gaussian convolution; the grid is cropped to (M, N) and min-max normalised,
-so only the shape matters.
+Port of ``gaussian_process_edge_trace_tpu/trace/kde.py``. FFTKDE is linear
+binning of the weighted points onto the grid ``[-1, N] x [-1, M]`` followed
+by a Gaussian convolution; the grid is cropped to (M, N) and min-max
+normalised, so only the shape matters.
 
 - :func:`curve_kde` — the best curves, each point weighted by its curve's
   normalised inverse cost; points with y outside [0, M-1] get weight 0.
   Curve x-coordinates are integer columns, so binning reduces to a per-column
-  1-D hat contraction (:func:`column_binning`).
+  1-D hat contraction (:func:`column_binning`, kernel K3 on the card, K4
+  with ``use_pallas_binning``; ``trace/cuda_kde.py``).
 - :func:`gradient_kde` — the gradient image's pixels above ``kde_thresh``,
   weighted by intensity: binning integer points is a masked copy.
 
@@ -22,16 +22,14 @@ from __future__ import annotations
 
 import torch
 
+from gaussian_process_edge_trace_torch.trace.cuda_kde import column_binning
+
 # Gaussian truncation radius in pixels (bw = 1): exp(-0.5·8²) ≈ 1.3e-14.
 DEFAULT_RADIUS = 8
 
 # An axis up to this length blurs as a banded Toeplitz matmul, a longer one
 # as shifted multiply-adds (the reference's per-axis gate, kde.py:73).
 _BLUR_MATMUL_MAX = 600
-
-# Target size of one hat-contraction block, (M+2)·E·chunk elements; more
-# kept curves are binned in chunks of this size (pallas_kde.py:256).
-_CHUNK_ELEMS = 128 * 1024 * 1024
 
 
 def gaussian_taps(radius: int, bw: float = 1.0, dtype=torch.float32,
@@ -94,35 +92,13 @@ def _minmax(grid):
     return (grid - lo) / (hi - lo)
 
 
-def column_binning(y_curves, weights, M: int):
-    """Binned column masses H (M+2, E) for the curve KDE:
-    ``H[m, e] = Σ_s w_s·max(0, 1 − |y[e,s] + 1 − m|)``, with w = 0 where
-    y ∉ [0, M−1]. The dense hat contraction of the reference's
-    ``_binning_dense_chunked`` (pallas_kde.py:259), in chunks of kept
-    curves; chunk sums are added in order."""
-    E, S = y_curves.shape
-    rows = torch.arange(M + 2, dtype=y_curves.dtype, device=y_curves.device)
-    zero = torch.zeros((), dtype=y_curves.dtype, device=y_curves.device)
-
-    def block(yb, wb):
-        yp = yb + 1.0
-        w = torch.where((yb >= 0) & (yb <= M - 1), wb[None, :], zero)
-        hat = torch.clamp(1.0 - torch.abs(yp[None, :, :]
-                                          - rows[:, None, None]), min=0.0)
-        return (hat * w[None, :, :]).sum(-1)              # (M+2, E)
-
-    chunk = max(1, _CHUNK_ELEMS // ((M + 2) * E))
-    H = block(y_curves[:, :chunk], weights[:chunk])
-    for s0 in range(chunk, S, chunk):
-        H = H + block(y_curves[:, s0:s0 + chunk], weights[s0:s0 + chunk])
-    return H
-
-
 def curve_kde_raw(y_curves, weights, M: int, N: int, x_start: int,
-                  radius: int = DEFAULT_RADIUS, bw: float = 1.0, blur=None):
+                  radius: int = DEFAULT_RADIUS, bw: float = 1.0,
+                  use_pallas_binning: bool = False, blur=None):
     """Un-normalised curve KDE: binning, placement, blur and crop."""
     E = y_curves.shape[0]
-    H = column_binning(y_curves, weights, M)               # (M+2, E)
+    H = column_binning(y_curves, weights, M,
+                       use_pallas=use_pallas_binning)      # (M+2, E)
     grid = torch.zeros((M + 2, N + 2), dtype=y_curves.dtype,
                        device=y_curves.device)
     grid[:, x_start + 1:x_start + 1 + E] = H
@@ -131,17 +107,21 @@ def curve_kde_raw(y_curves, weights, M: int, N: int, x_start: int,
 
 
 def curve_kde(y_curves, weights, M: int, N: int, x_start: int,
-              radius: int = DEFAULT_RADIUS, bw: float = 1.0, blur=None):
+              radius: int = DEFAULT_RADIUS, bw: float = 1.0,
+              use_pallas_binning: bool = False, blur=None):
     """KDE of the best curves on the (M, N) grid, min-max normalised.
 
     Args:
       y_curves: (E, S) y-values of the S kept curves at the columns
         ``x_start .. x_start+E-1``.
       weights: (S,) normalised inverse costs (gpet.py:492-493).
+      use_pallas_binning: bin with K4 instead of K3 on the card (the
+        reference's flag, kde.py:147); no effect on the CPU.
       blur: optional :func:`blur_matrices`, built once per trace.
     """
     return _minmax(curve_kde_raw(y_curves, weights, M, N, x_start, radius,
-                                 bw, blur=blur))
+                                 bw, use_pallas_binning=use_pallas_binning,
+                                 blur=blur))
 
 
 def gradient_kde(grad_img, kde_thresh: float = 1e-3,

@@ -9,7 +9,10 @@ on the unit-spaced x grid, ``cost = arc_length / line_integral`` with
 - ``arc_length = simpson(step, x[:-1])`` (gpet.py:400-405).
 
 Lower is better. Eligible shapes run the fused K1 kernel; the rest run the
-K2 interpolation kernel and the Simpson sums in PyTorch.
+K2 interpolation kernel and the Simpson sums in PyTorch. At S >= 8192 K1
+also writes the samples transposed, and :func:`best_curves` takes the kept
+curves as rows of that copy, as the reference driver does
+(driver.py:401-408).
 """
 
 from __future__ import annotations
@@ -21,8 +24,9 @@ from gaussian_process_edge_trace_torch.ops.cuda_interp import (
 
 
 def curve_costs(cols, y_samples, kde_thresh: float = 1e-3,
-                even: str = "simpson"):
-    """(S,) costs of all sampled curves.
+                even: str = "simpson", return_samples_t: bool = False):
+    """(S,) costs of all sampled curves, or ``(costs, samples_t)`` with
+    ``return_samples_t``.
 
     Args:
       cols: (E, M) gradient columns along the x grid (``grad_img.T`` sliced
@@ -31,22 +35,34 @@ def curve_costs(cols, y_samples, kde_thresh: float = 1e-3,
       y_samples: (E, S) curves.
       even: even-point Simpson rule; only reached on the unfused path with
         an odd E, since an even E gives both quadratures an odd count.
+      return_samples_t: also return the (S, E) transposed samples that K1
+        writes at S >= 8192 on the fused path, else ``None``
+        (scoring.py:61-65 of the reference).
     """
     E, S = y_samples.shape
+    samples_t = None
     if fused_cost_eligible(E, cols.shape[1], S):
-        line, arc = fused_curve_cost(cols, y_samples, kde_thresh)
+        line, arc, samples_t = fused_curve_cost(
+            cols, y_samples, kde_thresh, want_transpose=return_samples_t)
     else:
         line, arc = line_and_arc(
             column_interp(cols, y_samples, add_const=kde_thresh), y_samples,
             even)
-    return arc / line
+    costs = arc / line
+    return (costs, samples_t) if return_samples_t else costs
 
 
-def best_curves(y_samples, costs, n_keep: int):
+def best_curves(y_samples, costs, n_keep: int, samples_t=None):
     """The ``n_keep`` cheapest curves (gpet.py:443-449): ``(best (E, n_keep),
     best_costs (n_keep,))``, index 0 the optimum. A stable ascending sort
     gives ``lax.top_k``'s order on ties, lower index first, on every
-    device."""
+    device. With ``samples_t`` (the (S, E) copy from :func:`curve_costs`)
+    the curves are taken as rows of it, bitwise the same elements; the
+    result is made contiguous, the layout K3 takes."""
     order = torch.sort(costs, stable=True)
     idx = order.indices[:n_keep]
-    return y_samples.index_select(1, idx), order.values[:n_keep]
+    if samples_t is not None:
+        best = samples_t.index_select(0, idx).T.contiguous()
+    else:
+        best = y_samples.index_select(1, idx)
+    return best, order.values[:n_keep]

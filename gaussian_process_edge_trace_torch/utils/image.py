@@ -4,8 +4,9 @@ the gradient image.
 Port of ``kernel_builder``, ``normalise`` and ``comp_grad_img`` from
 ``gaussian_process_edge_trace_tpu/utils/image.py`` (reference:
 gpet_utils.py:10-119). Functions take numpy arrays or tensors and return
-float32 tensors on ``device`` (default: the input tensor's device, or the
-CPU for a numpy input).
+float32 tensors on ``device`` (default: the input tensor's device, or
+``"cuda"`` for a numpy input, as ``GP_Edge_Tracing`` defaults; pass
+``device="cpu"`` to run on the CPU).
 """
 
 from __future__ import annotations
@@ -44,10 +45,13 @@ def kernel_builder(size, b2d=False, normalize=False, vertical_edges=False,
 
 
 def _as_f32(img, device=None):
+    """A float32 tensor of ``img``: a tensor keeps its device unless
+    ``device`` is given; a numpy input goes to ``device``, ``"cuda"`` by
+    default, and raises where there is no card rather than fall back."""
     if isinstance(img, torch.Tensor):
         return img.to(device=device or img.device, dtype=torch.float32)
     return torch.as_tensor(np.array(img), dtype=torch.float32,
-                           device=device or "cpu")
+                           device=device or "cuda")
 
 
 def normalise(img, minmax_val=(0, 1), device=None):

@@ -1,6 +1,6 @@
-"""PyTorch port on the card: each hand-written kernel (K1, K2, K5, K6)
-against its plain PyTorch version on CUDA tensors, and the small slice
-traced on the card. Every test here carries the ``cuda`` marker and skips
+"""PyTorch port on the card: each hand-written kernel (K1 with its
+transposed-samples output, K2, K3, K4, K5, K6) against its plain PyTorch
+version on CUDA tensors, and the small slice traced on the card. Every test here carries the ``cuda`` marker and skips
 where ``torch.cuda.is_available()`` is false.
 
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -16,6 +16,7 @@ import torch
 import gaussian_process_edge_trace_torch as gpt
 from gaussian_process_edge_trace_torch.ops import cuda_chol as cc
 from gaussian_process_edge_trace_torch.ops import cuda_interp as ci
+from gaussian_process_edge_trace_torch.trace import cuda_kde as ck
 
 pytestmark = pytest.mark.cuda
 
@@ -53,11 +54,58 @@ def test_fused_cost_kernel_matches_plain(dev, E, M, S):
                         dtype=torch.float32, device=dev)
     ys = torch.tensor(_curves(E, M, S), device=dev)
     n0 = ci.LAUNCHES["fused_cost"]
-    line, arc = ci.fused_curve_cost(cols, ys, 1e-3)
-    assert ci.LAUNCHES["fused_cost"] == n0 + 1
+    line, arc, samples_t = ci.fused_curve_cost(cols, ys, 1e-3)
+    assert ci.LAUNCHES["fused_cost"] == n0 + 1 and samples_t is None
     pline, parc = ci.fused_cost_plain(cols, ys, 1e-3)
     torch.testing.assert_close(line, pline, rtol=1e-4, atol=0)
     torch.testing.assert_close(arc, parc, rtol=1e-5, atol=0)
+
+
+def test_fused_cost_transposed_copy(dev):
+    """K1's transposed copy equals ys.T bit for bit at a ragged E and an S
+    that is no multiple of the block; the quadratures do not change."""
+    E, M, S = 38, 61, 8197
+    cols = torch.tensor(np.random.default_rng(0).random((E, M)),
+                        dtype=torch.float32, device=dev)
+    ys = torch.tensor(_curves(E, M, S), device=dev)
+    line, arc, samples_t = ci.fused_curve_cost(cols, ys, 1e-3,
+                                               want_transpose=True)
+    assert samples_t.shape == (S, E)
+    assert torch.equal(samples_t, ys.T.contiguous())
+    line0, arc0, none = ci.fused_curve_cost(cols, ys, 1e-3)
+    assert none is None
+    assert torch.equal(line, line0) and torch.equal(arc, arc0)
+
+
+def _kept(dev, E, S, M, seed=3):
+    """Kept curves with exact integers, both image edges and rows just
+    outside it; normalised inverse-cost weights."""
+    rng = np.random.default_rng(seed)
+    y = M / 2 + np.cumsum(rng.normal(0, 1.5, (E, S)), axis=0)
+    y[:, :4] = [0.0, M - 1.0, M // 3, -1.0]
+    y[::3, 4] = float(M)
+    w = 1.0 / rng.uniform(0.5, 2.0, S)
+    return (torch.tensor(y, dtype=torch.float32, device=dev),
+            torch.tensor(w / w.sum(), dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("E,S,M", [(1000, 1000, 1000), (500, 100, 500),
+                                   (37, 33, 129)])
+def test_binning_kernels_match_plain(dev, E, S, M):
+    """K3 and K4 against the dense plain version: the same taps summed in
+    other orders; the reference test's bounds (rtol 1e-5, atol
+    1e-6·max|H|). A K3 rerun is bitwise equal."""
+    y, w = _kept(dev, E, S, M)
+    ref = ck.column_binning_plain(y, w, M)
+    atol = 1e-6 * ref.abs().max().item()
+    n0 = dict(ck.LAUNCHES)
+    H3 = ck.column_binning(y, w, M)
+    H4 = ck.column_binning(y, w, M, use_pallas=True)
+    assert ck.LAUNCHES["binning_2l"] == n0["binning_2l"] + 1
+    assert ck.LAUNCHES["binning_dense"] == n0["binning_dense"] + 1
+    for H in (H3, H4):
+        torch.testing.assert_close(H, ref, rtol=1e-5, atol=atol)
+    assert torch.equal(H3, ck.binning_2l_cuda(y, w, M))
 
 
 @pytest.mark.parametrize("S", [1, 1000])
@@ -115,13 +163,16 @@ def test_small_trace_on_the_card(dev):
                                        0.3)
     grad = gpt.comp_grad_img(img, gpt.kernel_builder((9, 5)), device=dev)
     init = np.array([[0, edge[0, 0]], [95, edge[95, 0]]])
-    for counts in (ci.LAUNCHES, cc.LAUNCHES):
+    for counts in (ci.LAUNCHES, cc.LAUNCHES, ck.LAUNCHES):
         for k in counts:
             counts[k] = 0
     args = (init, grad, {"kernel": "RBF", "sigma_f": 20, "length_scale": 8},
             1, np.array([]), 256, 1, 6, 0.1, 4, 1, False, True)
     out = gpt.GP_Edge_Tracing(*args, device=dev)()
-    assert all(n > 0 for n in ci.LAUNCHES.values())
+    # S = 256 < 8192: K1 writes no transposed copy; K4 is off the path.
+    assert ci.LAUNCHES["fused_cost"] > 0 and ci.LAUNCHES["column_interp"] > 0
+    assert ci.LAUNCHES["fused_cost_transpose"] == 0
+    assert ck.LAUNCHES["binning_2l"] > 0 and ck.LAUNCHES["binning_dense"] == 0
     assert all(n > 0 for n in cc.LAUNCHES.values())
     assert gpt.trace_dicecoef(out, edge) > 0.97
     np.testing.assert_array_equal(out,

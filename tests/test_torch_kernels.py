@@ -1,4 +1,5 @@
-"""PyTorch port, kernels K1, K2, K5 and K6: each kernel's plain PyTorch
+"""PyTorch port, kernels K1 (with its transposed-samples output), K2, K5 and
+K6: each kernel's plain PyTorch
 version against the JAX package's Pallas function, run in interpret mode on
 the CPU as ``test_ops_numerics.py`` runs it. The kernels themselves are
 held against their plain versions on a GPU by ``test_torch_cuda.py``."""
@@ -10,7 +11,8 @@ import torch
 
 from gaussian_process_edge_trace_torch.ops import cuda_chol as cc
 from gaussian_process_edge_trace_torch.ops import cuda_interp as ci
-from gaussian_process_edge_trace_torch.trace.scoring import curve_costs
+from gaussian_process_edge_trace_torch.trace.scoring import (
+    best_curves, curve_costs)
 from gaussian_process_edge_trace_tpu.ops import pallas_chol as pc
 from gaussian_process_edge_trace_tpu.ops import pallas_interp as pi
 from gaussian_process_edge_trace_tpu.trace import scoring as ref_scoring
@@ -82,6 +84,70 @@ def test_curve_costs_match_reference(E, M, S, even):
     np.testing.assert_allclose(got.numpy(), ref, rtol=2e-6)
 
 
+def test_fused_cost_transpose_matches_pallas_kernel():
+    """K1's transposed-samples output (the ``with_transpose`` arm, which
+    the reference itself does not test): E not a multiple of 8 and S >= 8192
+    not a multiple of the sample block. The reference pads the copy's
+    columns to E_pad; its first E columns must equal ``ys.T`` bit for bit,
+    and so must the port's (S, E) copy. The quadratures keep the bounds of
+    the test above."""
+    E, M, S = 38, 64, 8197
+    cols = np.random.default_rng(2).random((E, M)).astype(np.float32)
+    ys = _curves(E, M, S)
+    fl, fa, fyt = (np.asarray(a) for a in pi._fused_cost_jit(
+        j32(cols), j32(ys), 1e-3, with_transpose=True))
+    line, arc, samples_t = ci.fused_cost_plain(t32(cols), t32(ys), 1e-3,
+                                               with_transpose=True)
+    assert samples_t.shape == (S, E) and samples_t.is_contiguous()
+    np.testing.assert_array_equal(fyt[:, :E], ys.T)
+    np.testing.assert_array_equal(samples_t.numpy(), fyt[:, :E])
+    np.testing.assert_allclose(line.numpy(), fl, rtol=1e-4)
+    np.testing.assert_allclose(arc.numpy(), fa, rtol=1e-5)
+
+
+@pytest.mark.parametrize("S,want", [(8191, True), (8192, False),
+                                    (8192, True)])
+def test_fused_curve_cost_transpose_gate(S, want):
+    """``fused_curve_cost`` returns the transposed copy only when asked and
+    S >= 8192 (pallas_interp.py:427,450), from the plain version on the CPU,
+    and the quadratures do not depend on it."""
+    E, M = 16, 20
+    cols, ys = t32(np.random.default_rng(0).random((E, M))), t32(
+        _curves(E, M, S))
+    n0 = dict(ci.LAUNCHES)
+    line, arc, samples_t = ci.fused_curve_cost(cols, ys, 1e-3,
+                                               want_transpose=want)
+    assert ci.LAUNCHES == n0
+    if want and S >= ci._TRANSPOSE_MIN_S:
+        np.testing.assert_array_equal(samples_t.numpy(), ys.numpy().T)
+    else:
+        assert samples_t is None
+    pline, parc = ci.fused_cost_plain(cols, ys, 1e-3)
+    np.testing.assert_array_equal(line.numpy(), pline.numpy())
+    np.testing.assert_array_equal(arc.numpy(), parc.numpy())
+
+
+def test_best_curves_row_take_equals_column_take():
+    """``best_curves`` from the transposed copy gives bitwise the curves of
+    the column take (scoring.py:132-138 of the reference), contiguous, and
+    the costs with and without the copy are equal."""
+    E, M, S = 40, 30, 8200
+    cols = t32(np.random.default_rng(1).random((E, M)))
+    ys = t32(_curves(E, M, S))
+    costs, samples_t = curve_costs(cols, ys, 1e-3, return_samples_t=True)
+    assert samples_t.shape == (S, E)
+    np.testing.assert_array_equal(costs.numpy(),
+                                  curve_costs(cols, ys, 1e-3).numpy())
+    rows, rc = best_curves(ys, costs, 820, samples_t=samples_t)
+    cols_take, cc = best_curves(ys, costs, 820)
+    assert rows.is_contiguous() and rows.shape == (E, 820)
+    np.testing.assert_array_equal(rows.numpy(), cols_take.numpy())
+    np.testing.assert_array_equal(rc.numpy(), cc.numpy())
+    _, none = curve_costs(cols, ys[:, :100].contiguous(), 1e-3,
+                          return_samples_t=True)
+    assert none is None
+
+
 def test_fused_cost_gate():
     """The K1 gate is the reference's without its backend test."""
     assert ci.fused_cost_eligible(500, 500, 1000)
@@ -130,6 +196,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         ci.column_interp_cuda(t32(cols), t32(ys))
     with pytest.raises(ValueError, match="not cuda"):
         ci.fused_cost_cuda(t32(cols), t32(ys))
+    with pytest.raises(ValueError, match="not cuda"):
+        ci.fused_cost_cuda(t32(cols), t32(ys), with_transpose=True)
     K = torch.tensor(_spd(2, 5))
     with pytest.raises(ValueError, match="not cuda"):
         cc.cholesky_cuda(K)

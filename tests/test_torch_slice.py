@@ -14,8 +14,10 @@ import torch
 import gaussian_process_edge_trace_torch as gpt
 from gaussian_process_edge_trace_torch import interop
 from gaussian_process_edge_trace_torch.trace import driver as pd
+from gaussian_process_edge_trace_torch.trace import kde as pkde
 from gaussian_process_edge_trace_tpu.trace import driver as rd
-from torch_parity import SMALL_KW, JaxDraws, small_problem
+from torch_parity import (BIG_KW, SMALL_KW, WIDE_IMG, WIDE_KW, JaxDraws,
+                          big_problem, small_problem)
 
 torch.set_num_threads(1)
 
@@ -129,6 +131,105 @@ def test_final_fit_matches_batched_reference(traced, monkeypatch):
     got = traced["got"]
     np.testing.assert_array_equal(got.edge_trace[:, 0].numpy(),
                                   np.rint(p_mean.numpy()))
+
+
+def test_trajectory_matches_reference_at_large_sample_count(monkeypatch):
+    """The branches of the 1000² S=10⁴ config on a narrow image: S = 8192
+    (K1's transposed copy and the row take of the kept curves) and
+    n_train = 176 > 160 (the coarse-to-fine final fit over the blocked
+    Cholesky and solves). Given the reference's draws, the port accepts the
+    same pixels in the same number of iterations.
+
+    The reference's final fit runs its batched path, as on the TPU, with
+    its Cholesky and triangular solves on XLA's LAPACK calls in place of
+    the Pallas kernels, which interpret far too slowly at n = 176 (those
+    kernels are held to the port's by ``test_torch_kernels.py``). The
+    integer trace is identical in every column. The fit stops along a flat
+    ridge of the LML (ROADMAP queue 3), where f32 rounding in another order
+    moves log c by 0.12 here at an LML 3e-4 relative apart: θ is held to
+    0.15 in log c and 0.03 in log ℓ and log σn², the LML to 1e-3 relative
+    and the mean curve to 2e-2 px."""
+    from jax.scipy.linalg import solve_triangular
+
+    from gaussian_process_edge_trace_tpu.ops import pallas_chol as pc
+    monkeypatch.setattr(rd, "optimize_lml",
+                        functools.partial(rd.optimize_lml, use_batched=True))
+    monkeypatch.setattr(pc, "cholesky_auto", jnp.linalg.cholesky)
+    monkeypatch.setattr(pc, "forward_solve_auto",
+                        lambda L, R: solve_triangular(L, R, lower=True))
+    monkeypatch.setattr(pc, "backward_solve_auto",
+                        lambda L, R: solve_triangular(L, R, lower=True,
+                                                      trans="T"))
+    _, edge, grad, init = small_problem(WIDE_IMG)
+    cfg = rd.make_config(init, grad.shape, **WIDE_KW)
+    assert cfg.N_samples >= 8192 and cfg.n_train > 160
+    data = rd.make_data(cfg, jnp.asarray(grad), jnp.asarray(init))
+    state0 = rd.init_state(cfg)
+    ref = jax.device_get(rd.run_trace(cfg, data, state0))
+    pcfg, pdata, pstate0 = interop.from_reference(
+        cfg._asdict(), jax.device_get(data._asdict()),
+        jax.device_get(state0._asdict()))
+    got = pd.run_trace(pcfg, pdata, pstate0,
+                       draws=JaxDraws(pcfg, pdata.L_prior_unit.shape[1]))
+    assert got.n_iters == int(ref.n_iters) >= 2
+    for f in ("obs_x", "obs_y", "obs_valid", "iter_nobs"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(ref, f)), err_msg=f)
+    np.testing.assert_allclose(got.iter_costs.numpy(), ref.iter_costs,
+                               rtol=1e-5)
+    np.testing.assert_allclose(got.lml.numpy(), ref.lml, rtol=1e-3)
+    assert np.all(np.abs(got.theta.numpy() - ref.theta)
+                  <= [0.15, 0.03, 0.03]), (got.theta, ref.theta)
+    assert np.abs(got.y_mean.numpy() - np.asarray(ref.y_mean)).max() < 2e-2
+    np.testing.assert_array_equal(got.edge_trace.numpy(),
+                                  np.asarray(ref.edge_trace))
+    assert gpt.trace_dicecoef(got.edge_trace.numpy(), edge) > 0.97
+
+
+def test_first_iterations_match_reference_at_1000():
+    """The 1000² S=10⁴ config itself (``benchmarks/suite.py`` config 4,
+    uncut), for its first three iterations. The port's gradient image agrees
+    with the reference's, and its ``make_data`` on the same gradient image
+    with the reference's: the rank-48 prior
+    factor bitwise, the gradient KDE (shifted-multiply-add blur on both
+    axes of the 1002² grid) to f32 rounding. Then, from the reference's
+    draws, each iteration accepts the same pixels with the same threshold,
+    through K1's transposed copy, the row take of 1000 kept curves and the
+    curve KDE blurred the same way. The whole trace with its final fit is
+    compared by ``tests/torch_reference_1000.py`` (minutes per seed)."""
+    img, _, grad, init = big_problem()
+    np.testing.assert_allclose(
+        gpt.comp_grad_img(img, gpt.kernel_builder((11, 5)),
+                          device="cpu").numpy(), grad, rtol=2e-5, atol=2e-6)
+    cfg = rd.make_config(init, grad.shape, **BIG_KW)
+    data = rd.make_data(cfg, jnp.asarray(grad), jnp.asarray(init))
+    assert data.L_prior_unit.shape == (1000, 48) and cfg.n_train == 208
+    own = pd.make_data(pd.make_config(init, grad.shape, **BIG_KW), grad,
+                       init, "cpu")
+    for k in pd.TracerData._fields:
+        np.testing.assert_allclose(
+            getattr(own, k).numpy(), np.asarray(getattr(data, k)),
+            rtol=2e-5, atol=2e-6, err_msg=k)
+    np.testing.assert_array_equal(own.L_prior_unit.numpy(),
+                                  np.asarray(data.L_prior_unit))
+    assert pkde.blur_matrices(cfg.M, cfg.N) is None     # FMA on both axes
+
+    state = rd.init_state(cfg)
+    pcfg, pdata, pstate = interop.from_reference(
+        cfg._asdict(), jax.device_get(data._asdict()),
+        jax.device_get(state._asdict()))
+    draws = JaxDraws(pcfg, pdata.L_prior_unit.shape[1])
+    for it in range(3):
+        state, _ = rd.trace_step(cfg, data, state)
+        pstate, _ = pd._iteration(pcfg, pdata, pstate, *draws.normals(it))
+        ref = jax.device_get(state)
+        for f in ("obs_x", "obs_y", "obs_valid", "n_fobs", "score_thresh"):
+            np.testing.assert_array_equal(
+                getattr(pstate, f).numpy(), np.asarray(getattr(ref, f)),
+                err_msg=f"iteration {it}: {f}")
+        np.testing.assert_allclose(pstate.iter_costs[it].item(),
+                                   ref.iter_costs[it], rtol=1e-5)
+    assert int(ref.n_fobs) > 0
 
 
 def test_gp_edge_tracing_replays_reference_draws(traced):

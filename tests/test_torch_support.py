@@ -101,12 +101,31 @@ def test_image_preprocessing_matches(size, unit):
                                      0.3, gaps=True)
     k = pimg.kernel_builder(size, unit=unit)
     np.testing.assert_array_equal(k, rimg.kernel_builder(size, unit=unit))
-    np.testing.assert_allclose(pimg.normalise(img * 3 + 1).numpy(),
-                               np.asarray(rimg.normalise(img * 3 + 1)),
-                               rtol=1e-6, atol=1e-7)
-    got = pimg.comp_grad_img(img, k).numpy()
+    np.testing.assert_allclose(
+        pimg.normalise(img * 3 + 1, device="cpu").numpy(),
+        np.asarray(rimg.normalise(img * 3 + 1)), rtol=1e-6, atol=1e-7)
+    got = pimg.comp_grad_img(img, k, device="cpu").numpy()
     ref = np.asarray(rimg.comp_grad_img(img, k))
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_image_functions_default_to_the_card():
+    """A numpy input goes to ``"cuda"`` unless a device is given, as
+    ``GP_Edge_Tracing`` does: without a card the call raises instead of
+    running on the CPU. A tensor keeps its device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal")
+    img, _ = rsyn.construct_test_img((20, 30), 10, 2, 0.05, "sinusoidal",
+                                     0.3)
+    k = pimg.kernel_builder((5, 3))
+    for call in (lambda: pimg.comp_grad_img(img, k),
+                 lambda: pimg.normalise(img)):
+        with pytest.raises((RuntimeError, AssertionError)):
+            call()
+    got = pimg.comp_grad_img(torch.tensor(img), k)
+    assert got.device.type == "cpu"
+    np.testing.assert_array_equal(
+        got.numpy(), pimg.comp_grad_img(img, k, device="cpu").numpy())
 
 
 def test_metrics_match_including_negative_wrap():
@@ -245,9 +264,15 @@ def test_frame_arrays_match():
         np.testing.assert_allclose(g, r, rtol=2e-5, atol=2e-6)
 
 
-@pytest.mark.parametrize("M,N,x0,E", [(64, 96, 0, 96), (40, 70, 5, 51)])
+@pytest.mark.parametrize("M,N,x0,E", [
+    (64, 96, 0, 96), (40, 70, 5, 51),
+    (1000, 1000, 0, 1000),   # the 1000² config: multiply-adds on both axes
+    (700, 64, 3, 58),        # multiply-adds along y, a matmul along x
+    (48, 840, 0, 840)])      # a matmul along y, multiply-adds along x
 def test_curve_kde_matches(M, N, x0, E):
-    """Binning with the out-of-image rule, blur and min-max."""
+    """Binning with the out-of-image rule, blur and min-max. An axis of the
+    padded grid longer than 600 blurs as shifted multiply-adds, a shorter
+    one as a Toeplitz matmul, in both packages."""
     rng = np.random.default_rng(M)
     y = (M / 2 + np.cumsum(rng.normal(0, 2, (E, 25)), axis=0))
     y[:, 0] = -4.5                       # whole curve out of the image

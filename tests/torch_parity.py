@@ -58,15 +58,52 @@ SMALL_KW = dict(kernel_options={"kernel": "RBF", "sigma_f": 20,
                 keep_ratio=0.1, pixel_thresh=4, seed=1, fix_endpoints=True)
 
 
-def small_problem():
-    """``(img, edge, grad, init)`` of the small slice config, built by the
-    JAX package (the port's own image functions are tested against it)."""
+# A narrow config that takes the branches of the 1000² S=10⁴ config: S =
+# 8192 >= 8192 (K1's transposed copy, best_curves' row take) and 169 bins,
+# so n_train = 176 > 160 (the coarse-to-fine final fit and the blocked
+# Cholesky and solves).
+WIDE_IMG = dict(size=(48, 840), amplitude=30, curvature=1, noise_level=0.03,
+                ltype="sinusoidal", intensity=0.3, gaps=False)
+WIDE_KW = dict(kernel_options={"kernel": "RBF", "sigma_f": 20,
+                               "length_scale": 30},
+               noise_y=1, N_samples=8192, score_thresh=1, delta_x=5,
+               keep_ratio=0.1, pixel_thresh=5, seed=1, fix_endpoints=True)
+
+
+# The 1000² S=10⁴ config of ``benchmarks/suite.py`` (config 4), not cut.
+BIG_IMG = dict(size=(1000, 1000), amplitude=400, curvature=4,
+               noise_level=0.05, ltype="sinusoidal", intensity=0.3, gaps=True)
+BIG_KW = dict(kernel_options={"kernel": "RBF", "sigma_f": 200,
+                              "length_scale": 50},
+              noise_y=1, N_samples=10000, score_thresh=1, delta_x=5,
+              keep_ratio=0.1, pixel_thresh=5, seed=1, fix_endpoints=True)
+
+
+def big_problem():
+    """``(img, edge, grad, init)`` of the 1000² config, built by the JAX
+    package as ``benchmarks/suite.py`` builds it (an 11×5 extended Sobel)."""
     from gaussian_process_edge_trace_tpu.utils.image import (
         comp_grad_img, kernel_builder)
     from gaussian_process_edge_trace_tpu.utils.synthetic import (
         construct_test_img)
-    img, edge = construct_test_img(**SMALL_IMG)
+    img, edge = construct_test_img(**BIG_IMG)
+    grad = np.asarray(comp_grad_img(jnp.asarray(img),
+                                    kernel_builder((11, 5), unit=False)),
+                      np.float32)
+    return img, edge, grad, edge[[0, -1]][:, [1, 0]]
+
+
+def small_problem(img_kw=None):
+    """``(img, edge, grad, init)`` of the small slice config (or of
+    ``img_kw``), built by the JAX package (the port's own image functions
+    are tested against it)."""
+    from gaussian_process_edge_trace_tpu.utils.image import (
+        comp_grad_img, kernel_builder)
+    from gaussian_process_edge_trace_tpu.utils.synthetic import (
+        construct_test_img)
+    img_kw = img_kw or SMALL_IMG
+    img, edge = construct_test_img(**img_kw)
     grad = np.asarray(comp_grad_img(img, kernel_builder((9, 5))), np.float32)
-    N = SMALL_IMG["size"][1]
+    N = img_kw["size"][1]
     init = np.array([[0, edge[0, 0]], [N - 1, edge[N - 1, 0]]])
     return img, edge, grad, init
