@@ -14,31 +14,33 @@ Phases, one line or more each; any failure exits non-zero:
    output, K2 column interpolation, K3 two-level adjoint binning, K4 dense
    binning, K5 batched Cholesky, K6 batched triangular solves) against its
    plain PyTorch version on CUDA tensors, at the main paths' shapes, with
-   the tolerance stated beside each check; the kernel's time, the plain
-   version's, the time of one PyTorch library call that computes the same
-   function where there is one (CUDA events, median of warm runs), and the
-   least time the card could take (bytes over 3.35 TB/s or float32
-   operations over 67 TFLOP/s, whichever is larger);
+   the tolerance stated beside each check (K5 and K6 at every batch of the
+   final fit, n = 104 and 208 direct, n = 408 blocked, each rerun bitwise);
+   the kernel's time, the plain version's, the time of one PyTorch library
+   call that computes the same function where there is one (many calls
+   back to back in one CUDA graph between one event pair, over the count:
+   ``cuda_ms``), and the least time the card could take (bytes over
+   3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is larger);
 4. the README demo config (500×500, RBF σf=75 ℓ=20, 1000 samples, δx=5)
    traced through ``GP_Edge_Tracing(...)()`` for seeds 1-3: the launch
-   counts of every kernel during those traces, MSE and DICE against the true
-   edge with the accuracy gates of ``bench.py`` (median DICE > 0.985, every
-   seed > 0.97), a rerun of seed 1 that must give the same trace, and the
-   warm wall time per trace;
+   counts of every kernel during those traces (K5 and K6 per trace), MSE
+   and DICE against the true edge with the accuracy gates of ``bench.py``
+   (median DICE > 0.985, every seed > 0.97), a rerun of seed 1 that must
+   give the same trace, and the warm wall time per trace;
 5. the 1000² config (``benchmarks/suite.py`` config 4: RBF σf=200 ℓ=50,
    S=10⁴, δx=5) traced the same way for seeds 1-3: iterations, MSE, DICE
    (gates: median > 0.97, every seed > 0.95, the spread of the JAX package
    itself there: ``tests/torch_reference_1000.py`` reads DICE 0.963-0.980
    over its seeds 1-10 on a CPU, and the port's CPU path gives the
    reference's trace from the reference's draws), the launches of K1 (and
-   how many wrote the transposed copy), K2, K3, K5 and K6, peak device
-   memory, a rerun of seed 1 that must be identical and the warm wall
-   time;
+   how many wrote the transposed copy), K2, K3, K5 and K6 (per trace too),
+   peak device memory, a rerun of seed 1 that must be identical and the
+   warm wall time;
 6. ``curve_kde(..., use_pallas_binning=True)`` at that config's kept-curve
    shape, which launches K4, held against the K3 KDE;
 7. one ``torch.profiler`` trace of each config: device busy and idle share,
    the top device operations, K1, K3, K5 and K6 per launch, the final fit's
-   share of the wall time (host clock) and peak memory;
+   (``finish_trace``) host time and share of the wall time, and peak memory;
 8. one JSON line of kernel results, the card line again, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -48,6 +50,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -77,20 +80,37 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, warm=3, reps=25):
-    """Median device time of ``fn()`` in ms, one CUDA event pair per run."""
+def cuda_ms(fn, target_ms=10.0, rounds=5):
+    """Device time of one call of ``fn`` in ms: ``reps`` back-to-back calls
+    captured in one CUDA graph, the graph replayed between one CUDA event
+    pair, the elapsed time divided by ``reps``; the median of ``rounds``
+    replays. ``reps`` is set from one warm call so a replay lasts about
+    ``target_ms`` (3 to 400 calls). A graph keeps the host's launch gaps
+    out of kernels of a few µs, which the host cannot enqueue as fast as
+    the card runs them; the inputs stay in L2 between calls, as they are
+    for the caller, which has just written them."""
     import torch
-    for _ in range(warm):
-        fn()
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    reps = int(min(400, max(3, target_ms / max(a.elapsed_time(b), 1e-3))))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
     times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+    for _ in range(rounds):
         a.record()
-        fn()
+        graph.replay()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
@@ -121,12 +141,14 @@ def work_binning(E, S, M):
     return 4 * (E * S + S + (M + 2) * E), 10 * E * S
 
 
+# K5 and K6 need only the lower triangle of their input, n(n+1)/2 entries;
+# K5 writes the whole (n, n) factor, its upper triangle zero.
 def work_k5(B, n):
-    return 4 * 2 * B * n * n, B * n ** 3 / 3
+    return 4 * B * (n * (n + 1) // 2 + n * n), B * n ** 3 / 3
 
 
 def work_k6(B, n, m):
-    return 4 * (B * n * n + 2 * B * n * m), B * n * n * m
+    return 4 * B * (n * (n + 1) // 2 + 2 * n * m), B * n * n * m
 
 
 class Checks:
@@ -302,7 +324,7 @@ def check_binning(checks, rng, f32):
         w = torch.tensor(wn, **f32)
         ref = ck.column_binning_plain(y, w, M)
         scale = ref.abs().max().item()
-        plain_ms = cuda_ms(lambda: ck.column_binning_plain(y, w, M), reps=10)
+        plain_ms = cuda_ms(lambda: ck.column_binning_plain(y, w, M))
         for key, fn in (("K3", ck.binning_2l_cuda),
                         ("K4", ck.binning_dense_cuda)):
             H = fn(y, w, M)
@@ -326,79 +348,95 @@ def check_chol(checks, rng, f32, dev):
 
     def spd(B, n):
         A = rng.normal(size=(B, n, n))
-        return A @ np.transpose(A, (0, 2, 1)) / n + np.eye(n)
+        return torch.tensor(A @ np.transpose(A, (0, 2, 1)) / n + np.eye(n),
+                            **f32)
 
-    # K5. Right-looking Cholesky vs LAPACK-style blocked potrf: f32
-    # rounding in another order, ~n·eps relative on a well-conditioned
-    # batch; the bound is 2e-5 of max |L|. One non-PD matrix must give NaN
-    # on both sides. The library yardstick is cholesky_ex alone. Above
-    # n = 160 the timed "kernel" is the blocked orchestration: panels
-    # through K5 and K6, trailing updates as matmuls.
-    K = spd(109, 104)
-    K[7] = -K[7]
-    Kt = torch.tensor(K, **f32)
-    L = cc.cholesky_cuda(Kt)
-    Lp = cc.cholesky_plain(Kt)
-    torch.cuda.synchronize()
-    nan_k = torch.isnan(torch.diagonal(L[7])).any().item()
-    nan_p = torch.isnan(Lp[7]).all().item()
-    keep = torch.ones(109, dtype=torch.bool, device=dev)
-    keep[7] = False
-    e, r = rel_err(L[keep], Lp[keep])
-    checks.record("K5", "B=109 n=104 (+1 non-PD -> NaN)", e, "rel 2e-5",
-                  r <= 2e-5 and nan_k and nan_p and
-                  not torch.isnan(L[keep]).any().item(),
-                  ms=cuda_ms(lambda: cc.cholesky_cuda(Kt)),
-                  plain_ms=cuda_ms(lambda: cc.cholesky_plain(Kt)),
-                  library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(Kt)),
-                  work=work_k5(109, 104), main=True)
-    for B, n in ((8, 200), (2, 208)):
-        Kb = torch.tensor(spd(B, n), **f32)
-        Lb = cc.cholesky_auto(Kb)
+    # K5 at the final fit's batches: the screen (96 grid points + 13
+    # restarts), the gradient batch (7 points × 8 polished starts) and the
+    # candidate values (8 × 6) at n = 104, the 1000² config's fine fit at
+    # n = 208 (direct since this PR), and n = 408 (the 2000² config) through
+    # the blocked orchestration. Right-looking blocked Cholesky vs cuSOLVER's
+    # potrf: f32 rounding in another order, ~n·eps relative on a
+    # well-conditioned batch; the bound is 2e-5 of max |L|. In the screen
+    # batch one non-PD matrix must give NaN on both sides (on the kernel's
+    # diagonal) and leave the others finite. A rerun must be bitwise equal.
+    # The library yardstick is cholesky_ex alone.
+    for case, B, n, main in (("screen B=109 n=104 (+1 non-PD -> NaN)", 109,
+                              104, True),
+                             ("gradient B=56 n=104", 56, 104, False),
+                             ("candidates B=48 n=104", 48, 104, False),
+                             ("fine fit B=14 n=208 direct", 14, 208, False),
+                             ("blocked B=2 n=408", 2, 408, False)):
+        K = spd(B, n)
+        ok_nan = True
+        if main:
+            K[7] = -K[7]
+        L = cc.cholesky_auto(K)
+        Lp = cc.cholesky_plain(K)
         torch.cuda.synchronize()
-        e, r = rel_err(Lb, cc.cholesky_plain(Kb))
-        checks.record("K5", f"blocked n={n} B={B}", e, "rel 2e-5", r <= 2e-5,
-                      ms=cuda_ms(lambda: cc.cholesky_auto(Kb)),
-                      plain_ms=cuda_ms(lambda: cc.cholesky_plain(Kb)),
-                      library_ms=cuda_ms(
-                          lambda: torch.linalg.cholesky_ex(Kb)),
-                      work=work_k5(B, n))
+        keep = torch.ones(B, dtype=torch.bool, device=dev)
+        if main:
+            keep[7] = False
+            ok_nan = (torch.isnan(torch.diagonal(L[7])).any().item()
+                      and torch.isnan(Lp[7]).all().item())
+        e, r = rel_err(L[keep], Lp[keep])
+        same = torch.equal(cc.cholesky_auto(K).view(torch.int32),
+                           L.view(torch.int32))    # NaN bits too
+        log(f"[kernels] K5 {case}: rerun bitwise equal: {same}")
+        checks.record(
+            "K5", case, e, "rel 2e-5; rerun bitwise",
+            r <= 2e-5 and ok_nan and same
+            and not torch.isnan(L[keep]).any().item(),
+            ms=cuda_ms(lambda: cc.cholesky_auto(K)),
+            plain_ms=cuda_ms(lambda: cc.cholesky_plain(K)),
+            library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(K)),
+            work=work_k5(B, n), main=main)
 
-    # K6. Substitution in row order vs LAPACK trsm: f32 rounding in another
-    # order on well-conditioned factors; the bound is 2e-5 of max |Z|. The
-    # library yardstick is solve_triangular alone.
+    # K6 at the final fit's solves: m = 1 forward (the dual weights, every
+    # batch), m = 1 backward and m = n forward (the identity right-hand
+    # side that forms K⁻¹, the gradient batch), at n = 104 and at the fine
+    # fit's n = 208; m = n backward, which holds the wide kernel's
+    # transposed branch; n = 408 through the blocked orchestration. Blocked
+    # substitution vs cuBLAS trsm: f32 rounding in another order on
+    # well-conditioned factors; the bound is 2e-5 of max |Z|; a rerun must
+    # be bitwise equal. The library yardstick is solve_triangular alone.
     def library_solve(L, R, transpose):
         if transpose:
             return torch.linalg.solve_triangular(L.transpose(-1, -2), R,
                                                  upper=True)
         return torch.linalg.solve_triangular(L, R, upper=False)
 
-    Lw = cc.cholesky_plain(torch.tensor(spd(56, 104), **f32))
-    for m in (1, 104):
-        R = (torch.eye(104, **f32).expand(56, 104, 104).contiguous() if m > 1
-             else torch.tensor(rng.normal(size=(56, 104, 1)), **f32))
-        for name, transpose in (("forward", False), ("backward", True)):
-            Z = cc.solve_cuda(Lw, R, transpose)
-            Zp = cc.solve_plain(Lw, R, transpose)
-            torch.cuda.synchronize()
-            e, r = rel_err(Z, Zp)
-            checks.record(
-                "K6", f"{name} B=56 n=104 m={m}", e, "rel 2e-5", r <= 2e-5,
-                ms=cuda_ms(lambda: cc.solve_cuda(Lw, R, transpose)),
-                plain_ms=cuda_ms(lambda: cc.solve_plain(Lw, R, transpose)),
-                library_ms=cuda_ms(lambda: library_solve(Lw, R, transpose)),
-                work=work_k6(56, 104, m), main=m > 1 and not transpose)
-    Lb = cc.cholesky_plain(torch.tensor(spd(8, 208), **f32))
-    R = torch.tensor(rng.normal(size=(8, 208, 3)), **f32)
-    for name, fn, transpose in (("forward", cc.forward_solve_auto, False),
-                                ("backward", cc.backward_solve_auto, True)):
-        e, r = rel_err(fn(Lb, R), cc.solve_plain(Lb, R, transpose))
+    factors = {}
+    for case, B, n, m, transpose, main in (
+            ("screen forward B=109 n=104 m=1", 109, 104, 1, False, False),
+            ("forward B=56 n=104 m=1", 56, 104, 1, False, False),
+            ("backward B=56 n=104 m=1", 56, 104, 1, True, False),
+            ("forward B=56 n=104 m=104", 56, 104, 104, False, True),
+            ("backward B=56 n=104 m=104", 56, 104, 104, True, False),
+            ("fine fit forward B=14 n=208 m=1", 14, 208, 1, False, False),
+            ("fine fit backward B=14 n=208 m=1", 14, 208, 1, True, False),
+            ("fine fit forward B=14 n=208 m=208", 14, 208, 208, False,
+             False),
+            ("blocked forward B=2 n=408 m=1", 2, 408, 1, False, False),
+            ("blocked backward B=2 n=408 m=1", 2, 408, 1, True, False)):
+        if (B, n) not in factors:
+            factors[B, n] = cc.cholesky_plain(spd(B, n))
+        Lw = factors[B, n]
+        R = (torch.eye(n, **f32).expand(B, n, n).contiguous() if m == n
+             else torch.tensor(rng.normal(size=(B, n, m)), **f32))
+        fn = cc.backward_solve_auto if transpose else cc.forward_solve_auto
+        Z = fn(Lw, R)
+        Zp = cc.solve_plain(Lw, R, transpose)
+        torch.cuda.synchronize()
+        e, r = rel_err(Z, Zp)
+        same = torch.equal(fn(Lw, R), Z)
+        log(f"[kernels] K6 {case}: rerun bitwise equal: {same}")
         checks.record(
-            "K6", f"blocked {name} n=208 m=3", e, "rel 2e-5", r <= 2e-5,
-            ms=cuda_ms(lambda: fn(Lb, R)),
-            plain_ms=cuda_ms(lambda: cc.solve_plain(Lb, R, transpose)),
-            library_ms=cuda_ms(lambda: library_solve(Lb, R, transpose)),
-            work=work_k6(8, 208, 3))
+            "K6", case, e, "rel 2e-5; rerun bitwise", r <= 2e-5 and same,
+            ms=cuda_ms(lambda: fn(Lw, R)),
+            plain_ms=cuda_ms(lambda: cc.solve_plain(Lw, R, transpose)),
+            library_ms=cuda_ms(lambda: library_solve(Lw, R, transpose)),
+            work=work_k6(B, n, m), main=main)
 
 
 def check_kernels(checks, dev):
@@ -409,6 +447,14 @@ def check_kernels(checks, dev):
     check_k2(checks, rng, f32)
     check_binning(checks, rng, f32)
     check_chol(checks, rng, f32, dev)
+    # Release what the timing graphs left allocated before the traces, so
+    # the traces' peak memory does not carry it: their pools, and the cuBLAS
+    # workspace (32 MiB) made for the capture stream, which PyTorch keeps
+    # and counts as allocated.
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
 
 
 def reset_counts():
@@ -491,6 +537,11 @@ class Config:
             f"(runs {[round(w, 2) for w in walls]})")
 
 
+def per_trace(launches, tag, n_traces):
+    log(f"[{tag}] K5 launches per trace {launches['K5'] / n_traces:g}, K6 "
+        f"launches per trace {launches['K6'] / n_traces:g}")
+
+
 def require(checks, tag, launches, keys):
     for k in keys:
         if launches[k] <= 0:
@@ -506,6 +557,7 @@ def demo(checks, dev):
     launches = read_counts()
     log(f"[demo] kernel launches over seeds {DEMO_SEEDS}: "
         f"{json.dumps(launches)}")
+    per_trace(launches, "demo", len(DEMO_SEEDS))
     require(checks, "demo", launches, ("K1", "K2", "K3", "K5", "K6"))
 
     dices = [cfg.report(checks, "demo", seed, run)
@@ -533,14 +585,17 @@ def big(checks, dev):
     cfg = big_config(dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     reset_counts()
     runs = {seed: cfg.trace(seed) for seed in BIG_SEEDS}
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     log(f"[1000²] kernel launches over seeds {BIG_SEEDS}: "
         f"{json.dumps(launches)}")
+    per_trace(launches, "1000²", len(BIG_SEEDS))
     log(f"[1000²] peak device memory (max_memory_allocated): {peak} bytes "
-        f"({peak / 2**20:.1f} MiB)")
+        f"({peak / 2**20:.1f} MiB; {before / 2**20:.1f} MiB of it allocated "
+        f"before the traces)")
     require(checks, "1000²", launches,
             ("K1", "K1_transpose", "K2", "K3", "K5", "K6"))
     dices = [cfg.report(checks, "1000²", seed, run)
@@ -588,10 +643,10 @@ def _device_us(evt):
 
 
 def profile(checks, tag, cfg, seed):
-    """The loop and the final fit on the host clock and peak memory; then
-    one profiled trace: device busy time, the idle share of the unprofiled
-    and of the profiled wall time, top device ops, K1, K3, K5 and K6 per
-    launch."""
+    """The loop and the final fit (``finish_trace``) on the host clock and
+    peak memory; then one profiled trace: device busy time, the idle share
+    of the unprofiled and of the profiled wall time, top device ops, K1, K3,
+    K5 and K6 (its m > 1 and m = 1 kernels) per launch."""
     import torch
     from torch.profiler import ProfilerActivity
     from gaussian_process_edge_trace_torch.trace import driver as pd
@@ -641,7 +696,7 @@ def profile(checks, tag, cfg, seed):
             f"{1e3 * ms / count:9.2f} us/launch  {key[:90]}")
     for name in ("fused_cost_partial_kernel", "fused_cost_reduce_kernel",
                  "binning_2l_kernel", "batched_chol_kernel",
-                 "batched_trsm_kernel"):
+                 "batched_trsm_kernel", "batched_trsv_kernel"):
         for key, ms, count in rows:
             if name in key:
                 log(f"[profile {tag}] {name}: {count} launches, "

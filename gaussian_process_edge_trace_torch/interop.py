@@ -33,11 +33,12 @@ def _tensor(a, device):
 
 
 def from_reference(cfg_fields, data_arrays, state_arrays=None,
-                   device="cpu"):
+                   device="cuda"):
     """``(cfg, data, state)`` of the port from the reference's
     ``TracerConfig``/``TracerData``/``TraceState`` fields. ``state`` is
     ``None`` when ``state_arrays`` is. Integer arrays become int64, floats
-    float32, on ``device``."""
+    float32, on ``device``: the card unless the caller asks for the CPU;
+    without a card the default raises rather than fall back."""
     f = dict(cfg_fields)
     f["kernel"] = KernelSpec(**_fields(f["kernel"]))
     f["bins"] = BinSpec(**_fields(f["bins"]))

@@ -10,10 +10,16 @@ Counterpart of ``gaussian_process_edge_trace_tpu/ops/pallas_chol.py``:
   ``_solve_one_block`` (pallas_chol.py:274).
 
 The direct kernels hold a whole matrix in shared memory and take
-n <= ``_DIRECT_N``; :func:`cholesky_auto`, :func:`forward_solve_auto` and
+n <= ``_DIRECT_N`` (223: the largest n whose layout, :func:`launch_plan`,
+fits one block's shared memory in both kernels, so the 1000² config's
+n = 208 runs direct); :func:`cholesky_auto`, :func:`forward_solve_auto` and
 :func:`backward_solve_auto` run a blocked right-looking orchestration above
 that (pallas_chol.py:334-410): panels through the kernels, trailing updates
-as batched ``torch.matmul``, as the reference leaves them to XLA.
+as batched ``torch.matmul``, as the reference leaves them to XLA. On the
+CPU the plain versions run whole only up to ``_CPU_DIRECT_N`` = 160 and
+blocked above it: run whole at n = 176, the CPU parity test of the
+coarse-to-fine fit moves one column of the integer trace against the JAX
+package (:func:`runs_direct`).
 
 Extra leading axes flatten into the batch. Each wrapper takes its plain
 version only for tensors on the CPU; for CUDA tensors it launches the kernel
@@ -29,7 +35,76 @@ from gaussian_process_edge_trace_torch.ops import cuda_build
 LAUNCHES = {"cholesky": 0, "trsm": 0}
 
 _PANEL = 128        # panel width of the blocked orchestration
-_DIRECT_N = 160     # largest n the direct kernels take (shared memory)
+_CPU_DIRECT_N = 160  # largest n the plain versions take whole on the CPU
+
+# The launchers' constants (csrc/batched_chol_kernel.cu,
+# csrc/batched_trsm_kernel.cu): threads per block, the panel / row-tile
+# width, right-hand-side columns per block, and the dynamic shared memory
+# one block may use on sm_90.
+THREADS = 256
+TILE = 32
+CHUNK = 32
+SMEM_LIMIT = 232_448
+
+
+def _round4(x):
+    return (x + 3) // 4 * 4
+
+
+def smem_ld(n):
+    """Row stride (floats) of a matrix in shared memory: n rounded up to a
+    multiple of 4 with an odd number of float4s, so float4 reads of 8
+    consecutive rows at one column fall in 8 distinct bank groups."""
+    return 4 * (((n + 3) // 4) | 1)
+
+
+def _smem_bytes(n, m):
+    """Shared memory of one direct block: K5 when ``m`` is None, else K6
+    with ``m`` right-hand-side columns (its m = 1 kernel, or the wide one,
+    whose layout does not depend on m)."""
+    ld = smem_ld(n)
+    if m is None:
+        floats = (n * ld + TILE * _round4(max(n - TILE, 1)) + TILE * TILE
+                  + TILE)
+    elif m == 1:
+        floats = n * ld + ld + THREADS
+    else:
+        floats = n * (ld + CHUNK) + TILE
+    return 4 * floats
+
+
+def _largest_direct_n():
+    n = 1
+    while all(_smem_bytes(n + 1, m) <= SMEM_LIMIT for m in (None, 1, 2)):
+        n += 1
+    return n
+
+
+# Largest n the direct kernels take: both fit one block's shared memory.
+_DIRECT_N = _largest_direct_n()     # 223
+
+
+def runs_direct(n, device):
+    """Whether the ``*_auto`` functions take an (n, n) problem on ``device``
+    whole: on the card up to ``_DIRECT_N``; on the CPU up to
+    ``_CPU_DIRECT_N`` too, where the blocked form keeps the CPU parity with
+    the JAX package that the tests hold."""
+    limit = _DIRECT_N
+    if torch.device(device).type != "cuda":
+        limit = min(limit, _CPU_DIRECT_N)
+    return n <= limit
+
+
+def launch_plan(n, m=None):
+    """How an (n, n) problem runs on the card: K5 when ``m`` is None, K6
+    with ``m`` right-hand-side columns otherwise. A pure function of the
+    shapes that mirrors the launchers: ``direct`` (one kernel launch, else
+    the blocked orchestration in panels of ``_PANEL``), ``threads`` per
+    block, ``chunk`` (right-hand-side columns per block; None for K5) and
+    ``smem_bytes`` of one direct block."""
+    chunk = None if m is None else 1 if m == 1 else CHUNK
+    return {"direct": n <= _DIRECT_N, "threads": THREADS, "chunk": chunk,
+            "smem_bytes": _smem_bytes(n, m)}
 
 
 def _flat(x, tail):
@@ -129,12 +204,12 @@ def batched_backward_solve(L, R):
     return solve_cuda(L, R, True)
 
 
-# --- blocked orchestration for n > _DIRECT_N --------------------------------
+# --- blocked orchestration above the direct limit ----------------------------
 
 def cholesky_auto(K):
     """Batched lower Cholesky for any n: the direct kernel up to
-    ``_DIRECT_N``, blocked panels above it."""
-    if K.shape[-1] <= _DIRECT_N:
+    ``_DIRECT_N``, blocked panels above it (see :func:`runs_direct`)."""
+    if runs_direct(K.shape[-1], K.device):
         return batched_cholesky(K)
     return _cholesky_blocked(K)
 
@@ -162,7 +237,7 @@ def _cholesky_blocked(K):
 def forward_solve_auto(L, R):
     """Blocked-capable ``L Z = R`` (see :func:`cholesky_auto`)."""
     n = R.shape[-2]
-    if n <= _DIRECT_N:
+    if runs_direct(n, R.device):
         return batched_forward_solve(L, R)
     Z = torch.zeros_like(R)
     off = 0
@@ -179,7 +254,7 @@ def forward_solve_auto(L, R):
 def backward_solve_auto(L, R):
     """Blocked-capable ``Lᵀ Z = R``."""
     n = R.shape[-2]
-    if n <= _DIRECT_N:
+    if runs_direct(n, R.device):
         return batched_backward_solve(L, R)
     Z = torch.zeros_like(R)
     for off in reversed(range(0, n, _PANEL)):

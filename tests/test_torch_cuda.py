@@ -41,6 +41,11 @@ def _curves(E, M, S, seed=5):
     return y.astype(np.float32)
 
 
+def _bits_equal(a, b):
+    """Bitwise equality that holds NaN equal to the same NaN."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def _spd(B, n, seed=7):
     rng = np.random.default_rng(seed)
     A = rng.normal(size=(B, n, n))
@@ -121,34 +126,69 @@ def test_column_interp_kernel_matches_plain(dev, S):
                                rtol=1.2e-7, atol=0)
 
 
-def test_cholesky_and_solve_kernels_match_plain(dev):
-    """K5 and K6 at the final fit's shapes; a non-PD matrix gives NaN."""
-    K = _spd(109, 104)
-    K[3] = -K[3]
+@pytest.mark.parametrize("n", [17, 97, 104, 161, 208, cc._DIRECT_N])
+def test_cholesky_and_solve_kernels_match_plain(dev, n):
+    """K5 and K6 against their plain versions within 2e-5 of max |·| (f32
+    sums in other orders) at ragged n up to the direct limit. K5: a batch
+    with leading axes (2, 3) that flatten into the batch and one non-PD
+    matrix, which gives NaN on its diagonal and leaves the others finite.
+    K6: m = 1, 33 and n, forward and backward. A rerun of each is bitwise
+    equal."""
+    K = _spd(6, n).reshape(2, 3, n, n)
+    K[1, 0] = -K[1, 0]
     Kt = torch.tensor(K, device=dev)
-    L = cc.batched_cholesky(Kt)
-    Lp = cc.cholesky_plain(Kt)
-    assert torch.isnan(torch.diagonal(L[3])).any()
-    keep = [i for i in range(109) if i != 3]
-    Lk = Lp[keep].contiguous()
-    torch.testing.assert_close(L[keep], Lk, rtol=0,
-                               atol=2e-5 * Lk.abs().max().item())
-    for m in (1, 104):
-        R = torch.randn(108, 104, m, device=dev)
+    n0 = cc.LAUNCHES["cholesky"]
+    L = cc.cholesky_auto(Kt)
+    assert cc.LAUNCHES["cholesky"] == n0 + 1 and L.shape == K.shape
+    assert _bits_equal(L, cc.batched_cholesky(Kt))     # NaN included
+    assert torch.isnan(torch.diagonal(L[1, 0])).any()
+    keep = torch.ones(2, 3, dtype=torch.bool, device=dev)
+    keep[1, 0] = False
+    Lp = cc.cholesky_plain(Kt)[keep]
+    assert torch.isfinite(L[keep]).all()
+    torch.testing.assert_close(L[keep], Lp, rtol=0,
+                               atol=2e-5 * Lp.abs().max().item())
+    assert (torch.triu(L[keep], 1) == 0).all()
+    rng = np.random.default_rng(n)
+    for m in (1, 33, n):
+        R = torch.tensor(rng.normal(size=(5, n, m)), dtype=torch.float32,
+                         device=dev)
         for transpose in (False, True):
-            Z = cc.solve_cuda(Lk, R, transpose)
-            Zp = cc.solve_plain(Lk, R, transpose)
+            t0 = cc.LAUNCHES["trsm"]
+            Z = cc.solve_cuda(Lp, R, transpose)
+            assert cc.LAUNCHES["trsm"] == t0 + 1
+            Zp = cc.solve_plain(Lp, R, transpose)
             torch.testing.assert_close(Z, Zp, rtol=0,
                                        atol=2e-5 * Zp.abs().max().item())
+            assert torch.equal(Z, cc.solve_cuda(Lp, R, transpose))
+
+
+def test_launch_plan_matches_launchers(dev):
+    """``launch_plan``'s shared-memory bytes are the launchers' own for
+    every n up to the direct limit, and a direct call beyond it raises."""
+    from gaussian_process_edge_trace_torch.ops import cuda_build
+    lib = cuda_build.library()
+    for n in range(1, cc._DIRECT_N + 1):
+        assert lib.gpet_batched_cholesky_smem(n) == \
+            cc.launch_plan(n)["smem_bytes"]
+        for m in (1, 2, n):
+            assert lib.gpet_batched_trsm_smem(n, m) == \
+                cc.launch_plan(n, m)["smem_bytes"]
+    big = torch.eye(cc._DIRECT_N + 1, device=dev)[None]
+    with pytest.raises(ValueError):
+        cc.cholesky_cuda(big)
+    with pytest.raises(ValueError):
+        cc.solve_cuda(big, big, False)
 
 
 def test_blocked_kernels_match_plain(dev):
-    """n = 200 runs the blocked orchestration over the panel kernels."""
-    K = torch.tensor(_spd(4, 200), device=dev)
+    """n = 408 (the 2000² config's n_train) runs the blocked orchestration
+    over the direct kernels."""
+    K = torch.tensor(_spd(4, 408), device=dev)
     Lp = cc.cholesky_plain(K)
     torch.testing.assert_close(cc.cholesky_auto(K), Lp, rtol=0,
                                atol=2e-5 * Lp.abs().max().item())
-    R = torch.randn(4, 200, 3, device=dev)
+    R = torch.randn(4, 408, 3, device=dev)
     for fn, transpose in ((cc.forward_solve_auto, False),
                           (cc.backward_solve_auto, True)):
         Zp = cc.solve_plain(Lp, R, transpose)

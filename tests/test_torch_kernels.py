@@ -6,6 +6,7 @@ held against their plain versions on a GPU by ``test_torch_cuda.py``."""
 
 import jax.numpy as jnp
 import numpy as np
+from jax.scipy.linalg import solve_triangular as jsolve_triangular
 import pytest
 import torch
 
@@ -269,6 +270,56 @@ def test_blocked_variants_match_pallas(monkeypatch):
         ref = np.asarray(ref_fn(j32(Lr), j32(R)))
         got = fn(torch.tensor(Lr), torch.tensor(R)).numpy()
         np.testing.assert_allclose(got, ref, atol=2e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("m", [None, 1, 33, "n"])
+def test_launch_plan_fits_shared_memory(m):
+    """The direct kernels' layout (``launch_plan``, which mirrors the
+    launchers) fits one block's 232,448 bytes of shared memory for every
+    n <= ``_DIRECT_N``, for K5 (m None) and K6 at widths 1, 33 and n;
+    ``_DIRECT_N`` is the largest such n, so n = 208 (the 1000² config's
+    n_train) runs direct and n = 408 (the 2000² config's) blocked."""
+    def plan(n):
+        return cc.launch_plan(n, n if m == "n" else m)
+    for n in range(1, cc._DIRECT_N + 1):
+        p = plan(n)
+        assert p["direct"] and p["smem_bytes"] <= cc.SMEM_LIMIT, (n, p)
+        assert p["threads"] == cc.THREADS
+    assert plan(208)["direct"] and not plan(408)["direct"]
+    over = [cc.launch_plan(cc._DIRECT_N + 1, w)["smem_bytes"]
+            for w in (None, 1, 2)]
+    assert max(over) > cc.SMEM_LIMIT
+    assert plan(cc._DIRECT_N)["chunk"] == {None: None, 1: 1}.get(m, cc.CHUNK)
+
+
+@pytest.mark.parametrize("op,m", [("cholesky", None), ("forward", 1),
+                                  ("forward", 208), ("backward", 1)])
+def test_auto_at_208_matches_jax(op, m):
+    """At n = 208 the ``*_auto`` functions agree with JAX's ``cholesky`` /
+    ``solve_triangular`` on the same float32 inputs within 2e-5 of max |·|
+    (f32 sums in other orders on a well-conditioned batch). On the card
+    n = 208 runs the direct kernels; on the CPU it stays on the blocked
+    form over the plain versions (``runs_direct``)."""
+    assert cc.runs_direct(208, "cuda") and not cc.runs_direct(208, "cpu")
+    assert cc.runs_direct(160, "cpu") and not cc.runs_direct(408, "cuda")
+    n = 208
+    K = _spd(2, n)
+    if op == "cholesky":
+        ref = np.asarray(jnp.linalg.cholesky(j32(K)))
+        got = cc.cholesky_auto(torch.tensor(K)).numpy()
+    else:
+        L = np.asarray(jnp.linalg.cholesky(j32(K)))
+        R = (np.broadcast_to(np.eye(n, dtype=np.float32), (2, n, n)).copy()
+             if m == n else
+             np.random.default_rng(8).normal(size=(2, n, m)).astype(
+                 np.float32))
+        trans = "T" if op == "backward" else 0
+        ref = np.asarray(jsolve_triangular(j32(L), j32(R), lower=True,
+                                           trans=trans))
+        fn = cc.backward_solve_auto if trans else cc.forward_solve_auto
+        got = fn(torch.tensor(L), torch.tensor(R)).numpy()
+    assert ref.dtype == np.float32
+    np.testing.assert_allclose(got, ref, atol=2e-5 * np.abs(ref).max())
 
 
 def test_leading_axes_flatten_into_batch():

@@ -32,7 +32,7 @@ def traced():
     ref = jax.device_get(rd.run_trace(cfg, data, state0))
     pcfg, pdata, pstate0 = interop.from_reference(
         cfg._asdict(), jax.device_get(data._asdict()),
-        jax.device_get(state0._asdict()))
+        jax.device_get(state0._asdict()), device="cpu")
     draws = JaxDraws(pcfg, pdata.L_prior_unit.shape[1])
     got = pd.run_trace(pcfg, pdata, pstate0, draws=draws)
     return dict(cfg=cfg, data=data, ref=ref, pcfg=pcfg, pdata=pdata,
@@ -48,6 +48,20 @@ def test_interop_carries_config_and_data(traced):
         np.testing.assert_array_equal(
             getattr(traced["pdata"], k).numpy(),
             np.asarray(getattr(traced["data"], k)), err_msg=k)
+
+
+def test_interop_defaults_to_the_card(traced):
+    """``from_reference`` builds its tensors on ``"cuda"`` unless asked for
+    the CPU, like every other entry point of the port: without a card the
+    default raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal")
+    fields = traced["cfg"]._asdict()
+    arrays = jax.device_get(traced["data"]._asdict())
+    with pytest.raises((RuntimeError, AssertionError)):
+        interop.from_reference(fields, arrays)
+    _, data, state = interop.from_reference(fields, arrays, device="cpu")
+    assert state is None and data.L_prior_unit.device.type == "cpu"
 
 
 def test_port_data_matches_reference_data(traced):
@@ -168,7 +182,7 @@ def test_trajectory_matches_reference_at_large_sample_count(monkeypatch):
     ref = jax.device_get(rd.run_trace(cfg, data, state0))
     pcfg, pdata, pstate0 = interop.from_reference(
         cfg._asdict(), jax.device_get(data._asdict()),
-        jax.device_get(state0._asdict()))
+        jax.device_get(state0._asdict()), device="cpu")
     got = pd.run_trace(pcfg, pdata, pstate0,
                        draws=JaxDraws(pcfg, pdata.L_prior_unit.shape[1]))
     assert got.n_iters == int(ref.n_iters) >= 2
@@ -217,7 +231,7 @@ def test_first_iterations_match_reference_at_1000():
     state = rd.init_state(cfg)
     pcfg, pdata, pstate = interop.from_reference(
         cfg._asdict(), jax.device_get(data._asdict()),
-        jax.device_get(state._asdict()))
+        jax.device_get(state._asdict()), device="cpu")
     draws = JaxDraws(pcfg, pdata.L_prior_unit.shape[1])
     for it in range(3):
         state, _ = rd.trace_step(cfg, data, state)

@@ -109,7 +109,7 @@ def lockstep(cfg, data, state0):
     to selection also runs on the reference's samples of that iteration."""
     pcfg, pdata, pstate = interop.from_reference(
         cfg._asdict(), jax.device_get(data._asdict()),
-        jax.device_get(state0._asdict()))
+        jax.device_get(state0._asdict()), device="cpu")
     draws = JaxDraws(pcfg, pdata.L_prior_unit.shape[1])
     rstate, info = state0, {"first_diff_iter": None}
     while True:
