@@ -14,8 +14,10 @@ Phases, one line or more each; any failure exits non-zero:
    output, K2 column interpolation, K3 two-level adjoint binning, K4 dense
    binning, K5 batched Cholesky, K6 batched triangular solves) against its
    plain PyTorch version on CUDA tensors, at the main paths' shapes, with
-   the tolerance stated beside each check (K5 and K6 at every batch of the
-   final fit, n = 104 and 208 direct, n = 408 blocked, each rerun bitwise);
+   the tolerance stated beside each check (K1 and K3 at both traces'
+   shapes, K3 also at its worst cases: every sample in one row, every
+   sample outside the image, S = 1; K5 and K6 at every batch of the final
+   fit, n = 104 and 208 direct, n = 408 blocked; each rerun bitwise);
    the kernel's time, the plain version's, the time of one PyTorch library
    call that computes the same function where there is one (many calls
    back to back in one CUDA graph between one event pair, over the count:
@@ -39,7 +41,8 @@ Phases, one line or more each; any failure exits non-zero:
 6. ``curve_kde(..., use_pallas_binning=True)`` at that config's kept-curve
    shape, which launches K4, held against the K3 KDE;
 7. one ``torch.profiler`` trace of each config: device busy and idle share,
-   the top device operations, K1, K3, K5 and K6 per launch, the final fit's
+   the top device operations, K1, K3, K5 and K6 per launch, K1 + K3 device
+   time per trace, the final fit's
    (``finish_trace``) host time and share of the wall time, and peak memory;
 8. one JSON line of kernel results, the card line again, and as the last
    line ``{"ok": true, "device": {...}}``.
@@ -157,14 +160,18 @@ class Checks:
         self.kernels = {}
 
     def record(self, kernel, case, err, tol, ok, ms, plain_ms, work,
-               library_ms=None, main=False):
+               library_ms=None, main=False, also_main=False):
+        """``main``: the case whose numbers stand in the kernel's row of
+        the JSON line; ``also_main``: another main-path shape, listed in
+        that row's ``main_path_cases``."""
         entry = self.kernels.setdefault(kernel, {"max_abs_err": 0.0,
                                                  "cases": []})
         entry["max_abs_err"] = max(entry["max_abs_err"], float(err))
         b_ms, b_by = bound(*work)
         entry["cases"].append({
             "case": case, "max_abs_err": float(err), "tol": tol,
-            "main": main, "ms": ms, "plain_ms": plain_ms,
+            "main": main, "also_main": also_main, "ms": ms,
+            "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by})
         lib = f"{library_ms:.4f} ms" if library_ms is not None else "none"
         log(f"[kernels] {kernel} {case}: max_abs_err={err:.3e} ({tol}) "
@@ -199,15 +206,27 @@ def curve_samples(rng, E, M, S):
     return y
 
 
-def kept_curves(rng, E, S, M):
-    """Kept curves for the binning kernels: random walks around the middle
-    row, exact integers, both image edges, just-outside values and
-    out-of-image sentinels; weights are normalised inverse costs."""
-    y = M / 2 + np.cumsum(rng.normal(0, 1.5, (E, S)), axis=0)
-    y[:, :4] = [0.0, M - 1.0, np.floor(M / 3), -1.0]
-    y[::3, 4 % S] = float(M)
-    y[1::3, 5 % S] = -10.0
-    y[::7] = np.rint(y[::7])
+def kept_curves(rng, E, S, M, kind="walk"):
+    """Kept curves for the binning kernels; weights are normalised inverse
+    costs. ``walk``: random walks around the middle row, with exact
+    integers, both image edges, just-outside values and out-of-image
+    sentinels. K3's worst cases: ``one row`` (every sample in one row, the
+    largest group), ``outside`` (every sample outside the image, zero
+    weight, the rows just beyond both edges included)."""
+    if kind == "walk":
+        y = M / 2 + np.cumsum(rng.normal(0, 1.5, (E, S)), axis=0)
+        y[:, :4] = [0.0, M - 1.0, np.floor(M / 3), -1.0][:S]
+        y[::3, 4 % S] = float(M)
+        y[1::3, 5 % S] = -10.0
+        y[::7] = np.rint(y[::7])
+    elif kind == "one row":
+        y = np.full((E, S), np.floor(M / 2) + 0.25)
+    else:
+        y = np.where(rng.random((E, S)) < 0.5,
+                     rng.uniform(-40, -1e-3, (E, S)),
+                     rng.uniform(M - 1 + 1e-3, M + 40, (E, S)))
+        y[:, 0] = -1.0
+        y[:, -1] = float(M)
     w = 1.0 / rng.uniform(0.5, 2.0, S)
     return y, w / w.sum()
 
@@ -220,26 +239,30 @@ def check_k1(checks, rng, f32):
     # the gap is f32 rounding, ~1e-6 relative; the bound is the reference's
     # own interpret-mode test bound (rtol 1e-4 line, 1e-5 arc). The
     # transposed copy must equal ys.T bit for bit, and the quadratures with
-    # and without it must be bitwise equal. No single PyTorch call computes
-    # this function, so there is no library time.
-    for case, (E, M, S), transpose, main in (
-            ("demo E=M=500 S=1000", (500, 500, 1000), False, False),
-            ("ragged E=38 M=61 S=130", (38, 61, 130), False, False),
+    # and without it must be bitwise equal, and so must a rerun. No single
+    # PyTorch call computes this function, so there is no library time.
+    # Role "main": the kernel's row of the JSON line; "also": another
+    # main-path shape (the demo trace's), listed in that row.
+    for case, (E, M, S), transpose, role in (
+            ("demo E=M=500 S=1000", (500, 500, 1000), False, "also"),
+            ("ragged E=38 M=61 S=130", (38, 61, 130), False, ""),
             ("1000² E=M=1000 S=10⁴ +transpose", (1000, 1000, 10000), True,
-             True),
-            ("ragged E=38 M=61 S=8197 +transpose", (38, 61, 8197), True,
-             False),
-            ("M=2000 (2 pairs per chunk) E=2000 S=8200 +transpose",
-             (2000, 2000, 8200), True, False)):
+             "main"),
+            ("ragged E=38 M=61 S=8197 +transpose", (38, 61, 8197), True, ""),
+            ("M=2000 E=2000 S=8200 +transpose", (2000, 2000, 8200), True,
+             "")):
         cols = torch.tensor(rng.random((E, M)), **f32)
         ys = torch.tensor(curve_samples(rng, E, M, S), **f32)
         out = ci.fused_cost_cuda(cols, ys, 1e-3, with_transpose=transpose)
         pline, parc = ci.fused_cost_plain(cols, ys, 1e-3)
+        again = ci.fused_cost_cuda(cols, ys, 1e-3, with_transpose=transpose)
         torch.cuda.synchronize()
         el, rl = rel_err(out[0], pline)
         ea, ra = rel_err(out[1], parc)
-        ok = rl <= 1e-4 and ra <= 1e-5
-        tol = "rel 1e-4 line, 1e-5 arc"
+        same_r = all(torch.equal(a, b) for a, b in zip(out, again))
+        log(f"[kernels] K1 {case}: rerun bitwise equal: {same_r}")
+        ok = rl <= 1e-4 and ra <= 1e-5 and same_r
+        tol = "rel 1e-4 line, 1e-5 arc; rerun bitwise"
         if transpose:
             line0, arc0 = ci.fused_cost_cuda(cols, ys, 1e-3)
             same_t = torch.equal(out[2], ys.T.contiguous())
@@ -249,7 +272,7 @@ def check_k1(checks, rng, f32):
             log(f"[kernels] K1 {case}: samples_t {tuple(out[2].shape)} "
                 f"equals ys.T: {same_t}; line/arc unchanged by the copy: "
                 f"{same_q}")
-            if main:
+            if role == "main":
                 checks.record(
                     "K1", case.replace("+transpose", "without the copy"),
                     max(el, ea), "as above", rl <= 1e-4 and ra <= 1e-5,
@@ -263,7 +286,8 @@ def check_k1(checks, rng, f32):
                 cols, ys, 1e-3, with_transpose=transpose)),
             plain_ms=cuda_ms(lambda: ci.fused_cost_plain(
                 cols, ys, 1e-3, with_transpose=transpose)),
-            work=work_k1(E, M, S, transpose), main=main)
+            work=work_k1(E, M, S, transpose), main=role == "main",
+            also_main=role == "also")
 
 
 def check_k2(checks, rng, f32):
@@ -313,13 +337,23 @@ def check_binning(checks, rng, f32):
     # orders; the bound is the reference's own test bound (test_trace.py:74):
     # |H - plain| <= 1e-5·|plain| + 1e-6·max|plain|. A K3 rerun must be
     # bitwise equal (no atomics). No single PyTorch call computes this
-    # function, so there is no library time.
-    for case, (E, S, M), main in (
-            ("1000² kept curves E=S=M=1000", (1000, 1000, 1000), True),
-            ("demo kept curves E=500 S=100 M=500", (500, 100, 500), False),
-            ("E=2000 S=100 M=2000", (2000, 100, 2000), False),
-            ("ragged E=37 S=33 M=129", (37, 33, 129), False)):
-        yn, wn = kept_curves(rng, E, S, M)
+    # function, so there is no library time. Roles as in check_k1; the demo
+    # trace's shape is a main-path shape of K3 only (K4 is off the path).
+    # The last three are K3's worst cases: one group of 32 lanes per batch,
+    # no weight at all, S = 1.
+    for case, (E, S, M), role, kind in (
+            ("1000² kept curves E=S=M=1000", (1000, 1000, 1000), "main",
+             "walk"),
+            ("demo kept curves E=500 S=100 M=500", (500, 100, 500), "also",
+             "walk"),
+            ("E=2000 S=100 M=2000", (2000, 100, 2000), "", "walk"),
+            ("ragged E=37 S=33 M=129", (37, 33, 129), "", "walk"),
+            ("every sample in one row E=S=M=1000", (1000, 1000, 1000), "",
+             "one row"),
+            ("every sample outside the image E=S=M=1000", (1000, 1000, 1000),
+             "", "outside"),
+            ("one kept curve E=M=1000 S=1", (1000, 1, 1000), "", "walk")):
+        yn, wn = kept_curves(rng, E, S, M, kind)
         y = torch.tensor(yn, **f32)
         w = torch.tensor(wn, **f32)
         ref = ck.column_binning_plain(y, w, M)
@@ -339,7 +373,8 @@ def check_binning(checks, rng, f32):
                 log(f"[kernels] K3 {case}: rerun bitwise equal: {same}")
             checks.record(key, case, err.max().item(), tol, ok,
                           ms=cuda_ms(lambda: fn(y, w, M)), plain_ms=plain_ms,
-                          work=work_binning(E, S, M), main=main)
+                          work=work_binning(E, S, M), main=role == "main",
+                          also_main=role == "also" and key == "K3")
 
 
 def check_chol(checks, rng, f32, dev):
@@ -694,6 +729,7 @@ def profile(checks, tag, cfg, seed):
     for key, ms, count in rows[:14]:
         log(f"[profile {tag}]   {ms:8.3f} ms  {count:5d}x  "
             f"{1e3 * ms / count:9.2f} us/launch  {key[:90]}")
+    k1_k3 = 0.0
     for name in ("fused_cost_partial_kernel", "fused_cost_reduce_kernel",
                  "binning_2l_kernel", "batched_chol_kernel",
                  "batched_trsm_kernel", "batched_trsv_kernel"):
@@ -701,6 +737,9 @@ def profile(checks, tag, cfg, seed):
             if name in key:
                 log(f"[profile {tag}] {name}: {count} launches, "
                     f"{1e3 * ms / count:.2f} us each, {ms:.3f} ms in all")
+                if name.startswith(("fused_cost", "binning_2l")):
+                    k1_k3 += ms
+    log(f"[profile {tag}] K1 + K3 device time per trace: {k1_k3:.3f} ms")
 
 
 KERNEL_ROWS = {
@@ -781,7 +820,10 @@ def main() -> int:
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
-            "timed_case": main_case["case"]})
+            "timed_case": main_case["case"],
+            "main_path_cases": [
+                {f: c[f] for f in ("case", "ms", "plain_ms", "bound_ms")}
+                for c in k["cases"] if c["main"] or c["also_main"]]})
     if checks.failed:
         log(f"chip_smoke: FAILED: {checks.failed}")
         return 1

@@ -6,6 +6,8 @@
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace gpet_chol {
 
 constexpr int kSmemLimit = 232448;  // dynamic shared memory of one block
@@ -21,23 +23,6 @@ __host__ __device__ inline int smem_ld(int n) {
   return 4 * (q | 1);
 }
 
-// cp.async helpers
-__device__ inline void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ inline void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ inline void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-// end cp.async helpers
 
 // Start the copy of the lower triangle of the (n, n) row-major matrix src
 // into dst with row stride ld: row i, columns < round4(i + 1) with 16-byte

@@ -29,6 +29,13 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "gpet_torch_kernels"
 
+# The card the kernels are planned for (H100 SXM): streaming multiprocessors,
+# the shared memory one block can use, and that of one SM, of which every
+# resident block also reserves 1 KB.
+SMS = 132
+SMEM_LIMIT = 232_448
+SMEM_PER_SM = 233_472
+
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
@@ -37,15 +44,18 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every entry point; a launcher returns its cudaError_t as int.
 _SIGNATURES = {
-    "gpet_fused_cost": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    "gpet_fused_cost": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I,
+                        _I, _P],
     "gpet_column_interp": [_P, _P, _P, _I, _I, _I, _F, _P],
-    "gpet_binning_2l": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "gpet_binning_2l": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gpet_binning_dense": [_P, _P, _P, _I, _I, _I, _P],
     "gpet_batched_cholesky": [_P, _P, _I, _I, _P],
     "gpet_batched_trsm": [_P, _P, _P, _I, _I, _I, _I, _P],
     # Shared-memory bytes of one block (not kernels: ints, not cudaError_t).
     "gpet_batched_cholesky_smem": [_I],
     "gpet_batched_trsm_smem": [_I, _I],
+    "gpet_fused_cost_smem": [_I, _I, _I, _I],
+    "gpet_binning_2l_smem": [_I, _I, _I],
 }
 
 _lock = threading.Lock()
@@ -117,6 +127,19 @@ def build() -> Path:
     os.replace(tmp, lib_path)
     build_seconds = time.perf_counter() - t0
     return lib_path
+
+
+def compile_library(cu: Path, so: Path):
+    """Compile one ``.cu`` file with the kernels' flags into a shared
+    library of its own and load it: for the measurement scripts under
+    ``tests/`` that build instrumented or altered copies of a source."""
+    done = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR),
+                           "-shared", "-o", str(so), str(cu)],
+                          capture_output=True, text=True)
+    if done.returncode:
+        raise RuntimeError(f"nvcc failed for {cu}:\n{done.stdout}"
+                           f"{done.stderr}")
+    return ctypes.CDLL(str(so))
 
 
 def library():

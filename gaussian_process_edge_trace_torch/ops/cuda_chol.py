@@ -44,7 +44,7 @@ _CPU_DIRECT_N = 160  # largest n the plain versions take whole on the CPU
 THREADS = 256
 TILE = 32
 CHUNK = 32
-SMEM_LIMIT = 232_448
+SMEM_LIMIT = cuda_build.SMEM_LIMIT
 
 
 def _round4(x):

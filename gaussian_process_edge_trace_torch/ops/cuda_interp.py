@@ -4,7 +4,8 @@ Counterpart of ``gaussian_process_edge_trace_tpu/ops/pallas_interp.py``:
 
 - **K1**, :func:`fused_curve_cost` (``csrc/fused_cost_kernel.cu``): per
   sample, the non-uniform Simpson line integral of the interpolated gradient
-  column plus ``kde_thresh`` and the uniform Simpson arc length, in one pass.
+  column plus ``kde_thresh`` and the uniform Simpson arc length, in one pass
+  (:func:`k1_launch_plan` sizes its launch).
   Replaces ``_fused_cost_call`` (pallas_interp.py:230), including its
   ``with_transpose`` arm: at S >= 8192 it can also write ``ys`` transposed,
   which ``best_curves`` then takes rows from.
@@ -30,16 +31,18 @@ from gaussian_process_edge_trace_torch.ops.integrate import (
 # "fused_cost_transpose" counts the K1 launches that also wrote samples_t.
 LAUNCHES = {"fused_cost": 0, "fused_cost_transpose": 0, "column_interp": 0}
 
-# Pair windows per K1 chunk (gridDim.y), shrunk for tall columns so the
-# staged rows of cols stay within 48 KB of shared memory.
-_PAIRS_PER_CHUNK = 8
-
 # K1 writes the transposed samples only from this S up, as the reference
 # does (pallas_interp.py:427).
 _TRANSPOSE_MIN_S = 8192
 
-# K1's block width (threads per block, one sample each).
-_K1_THREADS = 128
+# K1 (csrc/fused_cost_kernel.cu): threads per block (one sample each at a
+# time), the most pair windows of one chunk (kPairs), the transpose tile's
+# row stride, and the blocks per SM its plan aims for (each block holds its
+# chunk's rows of cols in shared memory).
+_K1_THREADS = 256
+_K1_PAIRS = 8
+_K1_TILE_LD = 34
+_K1_BLOCKS_PER_SM = 2
 
 
 def fused_cost_eligible(E: int, M: int, S: int) -> bool:
@@ -127,9 +130,53 @@ def fused_cost_plain(cols, ys, kde_thresh=0.0, with_transpose=False):
     return line, arc
 
 
-def _pairs_per_chunk(M: int) -> int:
-    rows = (48 * 1024) // (4 * M)           # rows of cols in 48 KB
-    return max(1, min(_PAIRS_PER_CHUNK, (rows - 1) // 2))
+def k1_launch_plan(E: int, M: int, S: int, with_transpose: bool = False):
+    """K1's launch: ``pairs_per_chunk`` pair windows per chunk
+    (gridDim.y = ``n_chunks``), ``samples_per_block`` samples per block
+    (gridDim.x = ``sample_groups``), ``threads`` per block, so each thread
+    takes ``samples_per_thread`` samples in turn, ``blocks`` in all and the
+    dynamic shared memory of one block (``smem_bytes``: the chunk's
+    2·pairs_per_chunk+1 rows of cols and, with the copy, one transpose tile
+    per warp; the launcher's own count is ``gpet_fused_cost_smem``).
+
+    The grid is one wave of ``_K1_BLOCKS_PER_SM`` blocks per SM: chunks of
+    up to ``_K1_PAIRS`` pairs, a multiple of 4 so that every chunk
+    starts on an 8-row (32-byte) boundary of ``samples_t``, fewer where
+    the samples alone cannot fill the wave, and the samples split into
+    groups of whole thread tiles. Tall columns take fewer pairs per chunk,
+    then one block per SM. Raises where nothing fits."""
+    if E % 2 or E < 4:
+        raise ValueError(f"fused cost kernel requires even E >= 4, got {E}")
+    if M < 2 or S < 1:
+        raise ValueError(f"fused cost kernel requires M >= 2 and S >= 1, "
+                         f"got M={M}, S={S}")
+    P = (E - 2) // 2
+    threads = _K1_THREADS
+    # The chunks do not depend on the copy, so neither do the sums.
+    tiles = (threads // 32) * 2 * _K1_PAIRS * _K1_TILE_LD * 4
+    per_sm = cuda_build.SMEM_PER_SM // _K1_BLOCKS_PER_SM - 1024
+    cap = ((per_sm - tiles) // (4 * M) - 1) // 2
+    if cap < 1:                        # tall columns: one block per SM
+        cap = ((cuda_build.SMEM_LIMIT - tiles) // (4 * M) - 1) // 2
+    if cap < 1:
+        raise ValueError(f"fused cost kernel: M={M} rows do not fit shared "
+                         f"memory")
+    target = _K1_BLOCKS_PER_SM * cuda_build.SMS
+    groups_max = -(-S // threads)
+    want = -(-P * groups_max // target)       # pairs for chunks × groups
+    ppc = min(_K1_PAIRS, max(4, -(-want // 4) * 4),
+              cap if cap < 4 else cap // 4 * 4, P)
+    n_chunks = -(-P // ppc)
+    groups = min(groups_max, max(1, round(target / n_chunks)))
+    spb = threads * -(-groups_max // groups)
+    groups = -(-S // spb)
+    smem = 4 * (2 * ppc + 1) * M + (tiles if with_transpose else 0)
+    if n_chunks > 65535:
+        raise ValueError(f"fused cost kernel: no launch fits E={E}")
+    return {"pairs_per_chunk": ppc, "n_chunks": n_chunks,
+            "samples_per_block": spb, "sample_groups": groups,
+            "threads": threads, "samples_per_thread": spb // threads,
+            "blocks": groups * n_chunks, "smem_bytes": smem}
 
 
 def fused_cost_cuda(cols, ys, kde_thresh=0.0, with_transpose=False):
@@ -140,17 +187,9 @@ def fused_cost_cuda(cols, ys, kde_thresh=0.0, with_transpose=False):
     cuda_build.check_tensors("fused_cost", cols, ys)
     E, M = cols.shape
     S = ys.shape[1]
-    if E % 2 or E < 4:
-        raise ValueError(f"fused cost kernel requires even E >= 4, got {E}")
-    ppc = _pairs_per_chunk(M)
-    smem = (2 * ppc + 1) * M * 4
-    if with_transpose:
-        smem += (2 * ppc + 2) * (_K1_THREADS + 1) * 4
-    if smem > 227 * 1024:
-        raise ValueError(f"M={M} rows do not fit the kernel's shared memory")
-    n_chunks = -(-((E - 2) // 2) // ppc)
+    plan = k1_launch_plan(E, M, S, with_transpose)
     f32 = dict(dtype=torch.float32, device=ys.device)
-    partial = torch.empty((n_chunks, 2, S), **f32)
+    partial = torch.empty((plan["n_chunks"], 2, S), **f32)
     line = torch.empty((S,), **f32)
     arc = torch.empty((S,), **f32)
     samples_t = torch.empty((S, E), **f32) if with_transpose else None
@@ -161,7 +200,8 @@ def fused_cost_cuda(cols, ys, kde_thresh=0.0, with_transpose=False):
             cols.data_ptr(), ys.data_ptr(), partial.data_ptr(),
             line.data_ptr(), arc.data_ptr(),
             samples_t.data_ptr() if with_transpose else None, E, M, S,
-            float(kde_thresh), ppc, n_chunks, stream)
+            float(kde_thresh), plan["pairs_per_chunk"], plan["n_chunks"],
+            plan["samples_per_block"], plan["threads"], stream)
     cuda_build.check(rc, "fused_cost")
     LAUNCHES["fused_cost"] += 1
     if with_transpose:

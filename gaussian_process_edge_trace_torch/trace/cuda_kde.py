@@ -9,9 +9,10 @@ padded (M+2)-row grid column by column,
 returned as (M+2, E) float32:
 
 - **K3**, :func:`binning_2l_cuda` (``csrc/binning_2l_kernel.cu``): the
-  two-level adjoint, two taps per sample into its row block. Replaces
-  ``_binning_2l`` (pallas_kde.py:153). The main path runs it for every
-  number of kept curves.
+  adjoint of linear interpolation, two taps per sample, summed per row by
+  a warp 32 samples at a time (:func:`k3_launch_plan` sizes its launch).
+  Replaces ``_binning_2l`` (pallas_kde.py:153). The main path runs it for
+  every number of kept curves.
 - **K4**, :func:`binning_dense_cuda` (``csrc/binning_dense_kernel.cu``): the
   dense per-column hat GEMV. Replaces ``_binning_pallas`` (:199); reached
   only with ``use_pallas=True``, as in the reference.
@@ -36,15 +37,37 @@ LAUNCHES = {"binning_2l": 0, "binning_dense": 0}
 # kept curves are binned in chunks of this size (pallas_kde.py:256).
 _CHUNK_ELEMS = 128 * 1024 * 1024
 
-# K3's columns per block and samples per staged tile (binning_2l_kernel.cu).
+# K3 (binning_2l_kernel.cu): columns per block, at most, and the warps its
+# plan aims for, about sixteen per SM.
 _K3_COLS = 4
-_K3_TILE = 256
+_K3_TARGET_WARPS = 16 * cuda_build.SMS
 
 
-def _hb_for(M: int) -> int:
-    """K3's row-block height (pallas_kde.py:49-56): 8/16/32 at
-    M = 500/1000/2000, so that NB = M//Hb + 1 stays near 63."""
-    return min(32, max(8, 1 << max(0, M.bit_length() - 6)))
+def k3_launch_plan(E: int, S: int, M: int):
+    """K3's launch: ``cols`` columns per block, ``warps_per_col`` warps
+    per column, each over ``batches_per_warp`` batches of 32 samples (the
+    last warp of a column may have fewer), ``threads`` per block, ``blocks``
+    and the dynamic shared memory of one block (``smem_bytes``: each warp's
+    M+3 accumulators and its 3 × 32 group-order entries; the launcher's own
+    count is ``gpet_binning_2l_smem``). The warps per column are raised,
+    up to 8 and to one per batch, until the grid holds about
+    ``_K3_TARGET_WARPS``; they, then the columns, are lowered where shared
+    memory does not fit. Raises where nothing fits."""
+    if E < 1 or S < 0 or M < 1:
+        raise ValueError(f"binning_2l: no launch for E={E}, S={S}, M={M}")
+    batches = max(1, -(-S // 32))
+    want = max(1, min(8, batches, -(-_K3_TARGET_WARPS // E)))
+    for cols in range(min(_K3_COLS, E), 0, -1):
+        for wpc in range(want, 0, -1):
+            per_warp = -(-batches // wpc)
+            wpc = -(-batches // per_warp)        # no warp without samples
+            smem = 4 * cols * wpc * (M + 3 + 3 * 32)
+            if smem <= cuda_build.SMEM_LIMIT:
+                return {"cols": cols, "warps_per_col": wpc,
+                        "batches_per_warp": per_warp,
+                        "threads": 32 * cols * wpc,
+                        "blocks": -(-E // cols), "smem_bytes": smem}
+    raise ValueError(f"binning_2l: M={M} does not fit shared memory")
 
 
 def column_binning_plain(y_curves, weights, M: int):
@@ -81,17 +104,15 @@ def binning_2l_cuda(y_curves, weights, M: int):
     """K3 on the card: (M+2, E) float32."""
     _check("binning_2l", y_curves, weights, M)
     E, S = y_curves.shape
-    Hb = _hb_for(M)
-    NB = M // Hb + 1
-    smem = _K3_COLS * (NB * (Hb + 1) + 3 * _K3_TILE) * 4
-    if smem > 227 * 1024:
-        raise ValueError(f"binning_2l: M={M} does not fit shared memory")
+    plan = k3_launch_plan(E, S, M)
     H = torch.empty((M + 2, E), dtype=torch.float32, device=y_curves.device)
     lib = cuda_build.library()
     with torch.cuda.device(y_curves.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gpet_binning_2l(y_curves.data_ptr(), weights.data_ptr(),
-                                 H.data_ptr(), E, S, M, Hb, stream)
+                                 H.data_ptr(), E, S, M, plan["cols"],
+                                 plan["warps_per_col"],
+                                 plan["batches_per_warp"], stream)
     cuda_build.check(rc, "binning_2l")
     LAUNCHES["binning_2l"] += 1
     return H

@@ -1,7 +1,8 @@
 """PyTorch port on the card: each hand-written kernel (K1 with its
 transposed-samples output, K2, K3, K4, K5, K6) against its plain PyTorch
-version on CUDA tensors, and the small slice traced on the card. Every test here carries the ``cuda`` marker and skips
-where ``torch.cuda.is_available()`` is false.
+version on CUDA tensors, the launch plans against the launchers, and the
+small slice traced on the card. Every test here carries the ``cuda``
+marker and skips where ``torch.cuda.is_available()`` is false.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -82,6 +83,33 @@ def test_fused_cost_transposed_copy(dev):
     assert torch.equal(line, line0) and torch.equal(arc, arc0)
 
 
+@pytest.mark.parametrize("E,M,S", [
+    (1000, 1000, 10000),   # 16 chunks of 32 pairs: two whole steps each
+    (600, 100, 8200),      # 19 chunks of 16 pairs, the last of 11
+    (2000, 2000, 8200),    # M = 2000
+    (500, 500, 1),         # S = 1
+    (38, 61, 8197),        # S no multiple of the 128 samples of a block
+])
+def test_fused_cost_kernel_at_chunk_boundaries(dev, E, M, S):
+    """K1 at the new plan's chunk boundaries, partial steps and ragged S:
+    within the reference test's bounds of the plain version; the
+    transposed copy equals ys.T; line and arc are bitwise the same with and
+    without the copy and on a rerun."""
+    cols = torch.tensor(np.random.default_rng(2).random((E, M)),
+                        dtype=torch.float32, device=dev)
+    ys = torch.tensor(_curves(E, M, S) if S >= 4 else np.random.default_rng(
+        3).uniform(-3, M + 3, (E, S)), dtype=torch.float32, device=dev)
+    line, arc, samples_t = ci.fused_cost_cuda(cols, ys, 1e-3,
+                                              with_transpose=True)
+    pline, parc = ci.fused_cost_plain(cols, ys, 1e-3)
+    torch.testing.assert_close(line, pline, rtol=1e-4, atol=0)
+    torch.testing.assert_close(arc, parc, rtol=1e-5, atol=0)
+    assert torch.equal(samples_t, ys.T.contiguous())
+    for _ in range(2):
+        line0, arc0 = ci.fused_cost_cuda(cols, ys, 1e-3)
+        assert torch.equal(line0, line) and torch.equal(arc0, arc)
+
+
 def _kept(dev, E, S, M, seed=3):
     """Kept curves with exact integers, both image edges and rows just
     outside it; normalised inverse-cost weights."""
@@ -111,6 +139,60 @@ def test_binning_kernels_match_plain(dev, E, S, M):
     for H in (H3, H4):
         torch.testing.assert_close(H, ref, rtol=1e-5, atol=atol)
     assert torch.equal(H3, ck.binning_2l_cuda(y, w, M))
+
+
+@pytest.mark.parametrize("case", ["one row", "one integer row", "outside",
+                                  "S=1", "edges"])
+def test_binning_2l_worst_cases(dev, case):
+    """K3 where its groups are largest or empty: every sample in one row
+    (32 lanes in one group), on one exact integer row (the f = 0 tap),
+    every sample outside the image (weight 0, taps at rows 0 and M+1),
+    one kept curve, and rows at and just beyond both edges. Within the
+    reference test's bounds of the plain version; a rerun is bitwise."""
+    E, S, M = 300, 1000, 400
+    rng = np.random.default_rng(9)
+    if case == "one row":
+        y = np.full((E, S), M / 2 + 0.25)
+    elif case == "one integer row":
+        y = np.full((E, S), M - 1.0)
+    elif case == "outside":
+        y = np.where(rng.random((E, S)) < 0.5, rng.uniform(-40, -1e-3, (E, S)),
+                     rng.uniform(M - 1 + 1e-3, M + 40, (E, S)))
+        y[:, 0], y[:, 1] = -1.0, float(M)
+    elif case == "S=1":
+        S = 1
+        y = rng.uniform(-3, M + 2, (E, S))
+    else:
+        y = rng.choice([-1.0, -1e-3, 0.0, 1e-3, M - 1.0, M - 1 + 1e-3,
+                        float(M), 0.5, M - 1.5], (E, S))
+    w = rng.uniform(0.5, 2.0, S)
+    y = torch.tensor(y, dtype=torch.float32, device=dev)
+    w = torch.tensor(w / w.sum(), dtype=torch.float32, device=dev)
+    H = ck.binning_2l_cuda(y, w, M)
+    ref = ck.column_binning_plain(y, w, M)
+    torch.testing.assert_close(H, ref, rtol=1e-5,
+                               atol=1e-6 * ref.abs().max().item())
+    if case == "outside":
+        assert not H.any()
+    assert torch.equal(H, ck.binning_2l_cuda(y, w, M))
+
+
+def test_k1_k3_plans_match_launchers(dev):
+    """The plans' shared-memory bytes are the launchers' own."""
+    from gaussian_process_edge_trace_torch.ops import cuda_build
+    lib = cuda_build.library()
+    for E, M, S in ((1000, 1000, 10000), (500, 500, 1000), (38, 61, 130)):
+        for transpose in (False, True):
+            plan = ci.k1_launch_plan(E, M, S, transpose)
+            assert lib.gpet_fused_cost_smem(
+                M, plan["pairs_per_chunk"], plan["threads"], transpose) == \
+                plan["smem_bytes"]
+    for E, S, M in ((1000, 1000, 1000), (500, 100, 500), (37, 33, 129),
+                    (100, 1000, 20000), (1, 1, 1)):
+        plan = ck.k3_launch_plan(E, S, M)
+        assert lib.gpet_binning_2l_smem(M, plan["cols"],
+                                        plan["warps_per_col"]) == \
+            plan["smem_bytes"]
 
 
 @pytest.mark.parametrize("S", [1, 1000])

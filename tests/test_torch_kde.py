@@ -1,6 +1,6 @@
 """PyTorch port, KDE binning kernels K3 and K4: their plain PyTorch version
 against the JAX package's Pallas functions, run in interpret mode on the CPU,
-and the routing of ``column_binning``. The kernels themselves are held
+the routing of ``column_binning`` and K3's launch plan. The kernels themselves are held
 against the plain version on a GPU by ``test_torch_cuda.py``."""
 
 import functools
@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from gaussian_process_edge_trace_torch.ops import cuda_build
 from gaussian_process_edge_trace_torch.trace import cuda_kde as ck
 from gaussian_process_edge_trace_torch.trace import kde as pkde
 from gaussian_process_edge_trace_tpu.trace import pallas_kde as pk
@@ -81,9 +82,47 @@ def test_plain_binning_chunks_agree(monkeypatch):
                                atol=1e-7 * np.abs(whole).max())
 
 
-@pytest.mark.parametrize("M", [5, 33, 129, 500, 1000, 2000, 4097])
-def test_row_block_height_matches_reference(M):
-    assert ck._hb_for(M) == pk._hb_for(M)
+@pytest.mark.parametrize("E,S,M", [
+    (1000, 1000, 1000),   # the 1000² config's kept curves
+    (500, 100, 500),      # the demo's
+    (2000, 100, 2000),
+    (37, 33, 129),        # ragged
+    (64, 1000, 200),      # eight warps per column
+    (5, 1, 7),            # S = 1
+    (1, 1, 1),
+    (3, 0, 5),            # no kept curve: H is zero
+])
+def test_k3_launch_plan_covers_columns_and_samples_once(E, S, M):
+    """K3's plan: every column lies in exactly one block, every sample of a
+    column in exactly one warp's batches, no warp is without samples, and
+    one block fits 1024 threads and the card's 232,448 bytes of shared
+    memory."""
+    plan = ck.k3_launch_plan(E, S, M)
+    assert plan["smem_bytes"] <= cuda_build.SMEM_LIMIT
+    assert plan["threads"] == 32 * plan["cols"] * plan["warps_per_col"] <= 1024
+    cols = np.zeros(E, int)
+    for b in range(plan["blocks"]):
+        e = np.arange(b * plan["cols"], (b + 1) * plan["cols"])
+        cols[e[e < E]] += 1
+    assert (cols == 1).all()
+    span = 32 * plan["batches_per_warp"]
+    samples = np.zeros(S, int)
+    for p in range(plan["warps_per_col"]):
+        assert p * span < max(S, 1)
+        samples[p * span:(p + 1) * span] += 1
+    assert (samples == 1).all()
+
+
+def test_k3_launch_plan_lowers_then_refuses_tall_columns():
+    """Tall columns take fewer warps per column, then fewer columns per
+    block; beyond one warp's accumulators in shared memory there is no
+    launch, and the wrapper's check raises before any kernel."""
+    assert ck.k3_launch_plan(100, 1000, 1000)["warps_per_col"] == 8
+    tall = ck.k3_launch_plan(100, 1000, 20000)
+    assert (tall["cols"], tall["warps_per_col"]) == (2, 1)
+    assert tall["smem_bytes"] <= cuda_build.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.k3_launch_plan(100, 1000, 60000)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])

@@ -1,8 +1,9 @@
 """PyTorch port, kernels K1 (with its transposed-samples output), K2, K5 and
 K6: each kernel's plain PyTorch
 version against the JAX package's Pallas function, run in interpret mode on
-the CPU as ``test_ops_numerics.py`` runs it. The kernels themselves are
-held against their plain versions on a GPU by ``test_torch_cuda.py``."""
+the CPU as ``test_ops_numerics.py`` runs it, and the launch plans the
+wrappers hand the kernels. The kernels themselves are held against their
+plain versions on a GPU by ``test_torch_cuda.py``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -159,6 +160,71 @@ def test_fused_cost_gate():
     for M in (16, 17, 128, 129, 500, 1000, 4097):
         H = pi._H_for(M)
         assert ci.fused_cost_eligible(64, M, 128) == (M >= 4 * H)
+
+
+@pytest.mark.parametrize("E,M,S,transpose", [
+    (500, 500, 1000, False),      # the demo
+    (1000, 1000, 10000, True),    # 1000², with the copy
+    (1000, 1000, 10000, False),
+    (2000, 2000, 8200, True),     # M = 2000
+    (600, 100, 8200, True),       # whole steps, a shorter last chunk
+    (38, 61, 130, False),         # ragged
+    (38, 61, 8197, True),
+    (4, 2, 1, False),             # the smallest launch
+])
+def test_k1_launch_plan_covers_windows_and_rows_once(E, M, S, transpose):
+    """K1's plan: every pair window of (E-2)/2 lies in exactly one chunk,
+    every row of ``samples_t`` is written by exactly one chunk, no chunk is
+    empty or longer than the kernel takes, chunks start on 8-row (32-byte)
+    boundaries of ``samples_t``, every sample lies in one block of whole
+    thread tiles, one block's shared memory fits the card's 232,448 bytes,
+    and the chunks are the same with and without the copy (so are the
+    sums)."""
+    plan = ci.k1_launch_plan(E, M, S, transpose)
+    P = (E - 2) // 2
+    windows = np.zeros(P, int)
+    rows = np.zeros(E, int)
+    for c in range(plan["n_chunks"]):
+        # The kernel's chunk c: its pair windows [j0, j1) and the rows of
+        # samples_t it writes, those its windows begin (the last chunk also
+        # rows E-2 and E-1).
+        j0 = c * plan["pairs_per_chunk"]
+        j1 = min(P, j0 + plan["pairs_per_chunk"])
+        assert j0 < j1 and j0 % 4 == 0
+        windows[j0:j1] += 1
+        rows[2 * j0:E if j1 == P else 2 * j1] += 1
+    assert (windows == 1).all() and (rows == 1).all()
+    assert plan["pairs_per_chunk"] <= ci._K1_PAIRS
+    assert plan["smem_bytes"] <= cc.SMEM_LIMIT
+    spb = plan["samples_per_block"]
+    assert spb == plan["threads"] * plan["samples_per_thread"]
+    assert (plan["sample_groups"] - 1) * spb < S <= plan["sample_groups"] * spb
+    assert plan["blocks"] == plan["sample_groups"] * plan["n_chunks"]
+    other = ci.k1_launch_plan(E, M, S, not transpose)
+    keys = ("pairs_per_chunk", "n_chunks", "samples_per_block")
+    assert [other[k] for k in keys] == [plan[k] for k in keys]
+    assert (other["smem_bytes"] < plan["smem_bytes"]) == transpose
+
+
+def test_k1_launch_plan_sizes():
+    """One wave of two blocks per SM: 63 chunks of 8 pairs × 4 groups of
+    2560 samples at the 1000² shape, 63 chunks of 4 pairs × 4 groups of
+    256 at the demo's S = 1000; odd or short E has no launch; columns too
+    tall for two blocks per SM take one, and taller ones none."""
+    big = ci.k1_launch_plan(1000, 1000, 10000, True)
+    assert (big["pairs_per_chunk"], big["n_chunks"], big["sample_groups"],
+            big["samples_per_block"]) == (8, 63, 4, 2560)
+    demo = ci.k1_launch_plan(500, 500, 1000)
+    assert (demo["pairs_per_chunk"], demo["n_chunks"],
+            demo["sample_groups"]) == (4, 63, 4)
+    for E in (3, 2, 499):
+        with pytest.raises(ValueError, match="even E"):
+            ci.k1_launch_plan(E, 10, 100)
+    tall = ci.k1_launch_plan(100, 10000, 1000, True)   # one block per SM
+    assert tall["pairs_per_chunk"] == 2
+    assert cc.SMEM_LIMIT // 2 < tall["smem_bytes"] <= cc.SMEM_LIMIT
+    with pytest.raises(ValueError, match="do not fit"):
+        ci.k1_launch_plan(100, 20000, 1000)
 
 
 # --- K2 ----------------------------------------------------------------------

@@ -69,12 +69,9 @@ def instrumented(name):
                          f"{barriers} barriers carry no phase marker")
     src += READ
     OUT.mkdir(parents=True, exist_ok=True)
-    cu, so = OUT / f"{name}.cu", OUT / f"lib{name}.so"
+    cu = OUT / f"{name}.cu"
     cu.write_text(src)
-    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
-                    str(cuda_build.CSRC_DIR), "-shared", "-o", str(so),
-                    str(cu)], check=True, capture_output=True, text=True)
-    return ctypes.CDLL(str(so)), names
+    return cuda_build.compile_library(cu, OUT / f"lib{name}.so"), names
 
 
 def phases(built, launch):
