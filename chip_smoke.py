@@ -14,37 +14,45 @@ Phases, one line or more each; any failure exits non-zero:
    output, K2 column interpolation, K3 two-level adjoint binning, K4 dense
    binning, K5 batched Cholesky, K6 batched triangular solves) against its
    plain PyTorch version on CUDA tensors, at the main paths' shapes, with
-   the tolerance stated beside each check (K1 and K3 at both traces'
-   shapes, K3 also at its worst cases: every sample in one row, every
-   sample outside the image, S = 1; K5 and K6 at every batch of the final
-   fit, n = 104 and 208 direct, n = 408 blocked; each rerun bitwise);
-   the kernel's time, the plain version's, the time of one PyTorch library
-   call that computes the same function where there is one (many calls
-   back to back in one CUDA graph between one event pair, over the count:
-   ``cuda_ms``), and the least time the card could take (bytes over
-   3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is larger);
-4. the README demo config (500×500, RBF σf=75 ℓ=20, 1000 samples, δx=5)
-   traced through ``GP_Edge_Tracing(...)()`` for seeds 1-3: the launch
-   counts of every kernel during those traces (K5 and K6 per trace), MSE
-   and DICE against the true edge with the accuracy gates of ``bench.py``
-   (median DICE > 0.985, every seed > 0.97), a rerun of seed 1 that must
-   give the same trace, and the warm wall time per trace;
-5. the 1000² config (``benchmarks/suite.py`` config 4: RBF σf=200 ℓ=50,
-   S=10⁴, δx=5) traced the same way for seeds 1-3: iterations, MSE, DICE
-   (gates: median > 0.97, every seed > 0.95, the spread of the JAX package
-   itself there: ``tests/torch_reference_1000.py`` reads DICE 0.963-0.980
-   over its seeds 1-10 on a CPU, and the port's CPU path gives the
-   reference's trace from the reference's draws), the launches of K1 (and
-   how many wrote the transposed copy), K2, K3, K5 and K6 (per trace too),
-   peak device memory, a rerun of seed 1 that must be identical and the
-   warm wall time;
-6. ``curve_kde(..., use_pallas_binning=True)`` at that config's kept-curve
-   shape, which launches K4, held against the K3 KDE;
-7. one ``torch.profiler`` trace of each config: device busy and idle share,
-   the top device operations, K1, K3, K5 and K6 per launch, K1 + K3 device
-   time per trace, the final fit's
-   (``finish_trace``) host time and share of the wall time, and peak memory;
-8. one JSON line of kernel results, the card line again, and as the last
+   the tolerance stated beside each check (K1 and K3 at both even traces'
+   shapes; K2 at the odd-E trace's unfused cost, the odd demo shape, the
+   final cost and a ragged S, bitwise; K3 and K4 also at their worst
+   cases: every sample in one row, every sample outside the image, S = 1,
+   K4 bitwise equal to the sequential plain version; K5 and K6 at every
+   batch of the final fit, n = 104 and 208 direct, n = 408 blocked; each
+   rerun bitwise); the kernel's time, the plain version's, the time of one
+   PyTorch library call that computes the same function where there is one
+   (many calls back to back in one CUDA graph between one event pair, over
+   the count: ``cuda_ms``), and the least time the card could take (bytes
+   over 3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is
+   larger);
+4. three configurations traced through ``GP_Edge_Tracing(...)()`` for seeds
+   1-3, each with every kernel's launches per trace (counts set to 0 before
+   each trace and read after it; K2 must run once per trace where K1
+   scores, n_iters + 1 times where it cannot), peak device memory, MSE and
+   DICE against the true edge with its gates, a rerun of seed 1 that must
+   give the same trace, and the warm wall time per trace:
+   - the README demo config (500×500, RBF σf=75 ℓ=20, 1000 samples, δx=5),
+     gates of ``bench.py``: median DICE > 0.985, every seed > 0.97;
+   - the 1000² config (``benchmarks/suite.py`` config 4: RBF σf=200 ℓ=50,
+     S=10⁴, δx=5): gates median > 0.97, every seed > 0.95, the spread of
+     the JAX package itself there (``tests/torch_reference_1000.py`` reads
+     DICE 0.963-0.980 over its seeds 1-10 on a CPU, and the port's CPU path
+     gives the reference's trace from the reference's draws);
+   - the same image with the right endpoint at column 998, so the edge
+     length E = 999 is odd and every iteration scores through K2 and the
+     PyTorch Simpson sums (K1 never runs): the same gates (the reference
+     reads DICE 0.966-0.980 over seeds 1-10 there,
+     ``tests/torch_reference_1000.py --right-end 998``);
+5. ``curve_kde(..., use_pallas_binning=True)`` at the 1000² config's
+   kept-curve shape, which launches K4, held against the K3 KDE;
+6. one ``torch.profiler`` trace of each configuration: device busy and idle
+   share, the top device operations, K1, K2, K3, K5 and K6 per launch, K1 +
+   K3 device time per trace, the device time of the unfused path's passes
+   (``line_and_arc``, the Simpson tail, ``best_curves`` and its column
+   take), the final fit's (``finish_trace``) host time and share of the
+   wall time, and peak memory;
+7. one JSON line of kernel results, the card line again, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -64,6 +72,7 @@ import numpy as np
 
 DEMO_SEEDS = (1, 2, 3)
 BIG_SEEDS = (1, 2, 3)
+ODD_SEEDS = (1, 2, 3)
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
 # device memory bytes/s and float32 operations/s outside the tensor cores.
@@ -290,57 +299,77 @@ def check_k1(checks, rng, f32):
             also_main=role == "also")
 
 
-def check_k2(checks, rng, f32):
+def grid_sample_interp(cols, ys, add_const):
+    """K2's library yardstick: ``grid_sample`` (bilinear, align_corners,
+    border padding) on the (1, 1, E, M) columns at the points (row e,
+    clip(ys[e, s], 0, M-1)), plus ``add_const``; a function of no
+    arguments."""
     import torch
     import torch.nn.functional as F
+    E, M = cols.shape
+    S = ys.shape[1]
+    img = cols[None, None]
+    gx = 2.0 * torch.clamp(ys, 0, M - 1) / (M - 1) - 1.0
+    gy = (2.0 * torch.arange(E, dtype=cols.dtype, device=cols.device)
+          / (E - 1) - 1.0)[:, None]
+    grid = torch.stack([gx, gy.expand(E, S)], dim=-1)[None]
+    return lambda: F.grid_sample(img, grid, mode="bilinear",
+                                 padding_mode="border",
+                                 align_corners=True)[0, 0] + add_const
+
+
+def check_k2(checks, rng, f32):
+    import torch
     from gaussian_process_edge_trace_torch.ops import cuda_interp as ci
 
     # Same arithmetic, each op rounded once on both sides (the kernel uses
-    # the _rn intrinsics): bitwise equal is expected; the bound allows one
-    # ulp. The library yardstick is grid_sample (bilinear, align_corners,
+    # the _rn intrinsics): the kernel must equal the plain version bit for
+    # bit. The library yardstick is grid_sample (bilinear, align_corners,
     # border padding) on the (1, 1, E, M) columns at the same points; it is
-    # timed only, the port never calls it.
-    for case, (E, M, S), main in (
-            ("final cost E=M=500 S=1", (500, 500, 1), False),
-            ("final cost E=M=1000 S=1", (1000, 1000, 1), True),
-            ("E=M=500 S=1000", (500, 500, 1000), False)):
+    # timed only, the port never calls it. Roles as in check_k1: the odd-E
+    # trace's unfused cost is the main case, the odd demo shape and the
+    # final cost (S = 1, every trace) are main-path shapes too.
+    for case, (E, M, S), role in (
+            ("unfused cost E=999 M=1000 S=10⁴", (999, 1000, 10000), "main"),
+            ("odd demo E=499 M=500 S=1000", (499, 500, 1000), "also"),
+            ("final cost E=M=1000 S=1", (1000, 1000, 1), "also"),
+            ("final cost E=M=500 S=1", (500, 500, 1), ""),
+            ("E=M=500 S=1000", (500, 500, 1000), ""),
+            ("ragged E=37 M=61 S=10003", (37, 61, 10003), "")):
         cols = torch.tensor(rng.random((E, M)), **f32)
         ys = torch.tensor(curve_samples(rng, E, M, S), **f32)
         out = ci.column_interp_cuda(cols, ys, 1e-3)
         ref = ci.column_interp_plain(cols, ys, 1e-3)
         torch.cuda.synchronize()
-        e, r = rel_err(out, ref)
-        img = cols[None, None]
-        gx = 2.0 * torch.clamp(ys, 0, M - 1) / (M - 1) - 1.0
-        gy = (2.0 * torch.arange(E, **f32) / (E - 1) - 1.0)[:, None]
-        grid = torch.stack([gx, gy.expand(E, S)], dim=-1)[None]
-
-        def library():
-            return F.grid_sample(img, grid, mode="bilinear",
-                                 padding_mode="border",
-                                 align_corners=True)[0, 0] + 1e-3
+        e, _ = rel_err(out, ref)
+        same = torch.equal(out, ref)
+        library = grid_sample_interp(cols, ys, 1e-3)
         le, _ = rel_err(library(), ref)
-        log(f"[kernels] K2 {case}: grid_sample yardstick max_abs_err "
-            f"{le:.3e} (not a gate)")
+        log(f"[kernels] K2 {case}: launch plan {ci.k2_launch_plan(E, M, S)}"
+            f"; grid_sample yardstick max_abs_err {le:.3e} (not a gate)")
         checks.record(
-            "K2", case, e, "rel 1.2e-7 (1 ulp)", r <= 1.2e-7,
+            "K2", case, e, "bitwise", same,
             ms=cuda_ms(lambda: ci.column_interp_cuda(cols, ys, 1e-3)),
             plain_ms=cuda_ms(lambda: ci.column_interp_plain(cols, ys, 1e-3)),
-            library_ms=cuda_ms(library), work=work_k2(E, M, S), main=main)
+            library_ms=cuda_ms(library), work=work_k2(E, M, S),
+            main=role == "main", also_main=role == "also")
 
 
 def check_binning(checks, rng, f32):
     import torch
     from gaussian_process_edge_trace_torch.trace import cuda_kde as ck
 
-    # K3 and K4 sum the same taps as the dense plain version in other
-    # orders; the bound is the reference's own test bound (test_trace.py:74):
-    # |H - plain| <= 1e-5·|plain| + 1e-6·max|plain|. A K3 rerun must be
-    # bitwise equal (no atomics). No single PyTorch call computes this
-    # function, so there is no library time. Roles as in check_k1; the demo
-    # trace's shape is a main-path shape of K3 only (K4 is off the path).
-    # The last three are K3's worst cases: one group of 32 lanes per batch,
-    # no weight at all, S = 1.
+    # K3 sums the same taps as the dense plain version in another order; the
+    # bound is the reference's own test bound (test_trace.py:74):
+    # |H - plain| <= 1e-5·|plain| + 1e-6·max|plain|; a K3 rerun must be
+    # bitwise equal (no atomics). K4 adds each row's terms in sample order,
+    # so it must equal the sequential plain version bit for bit, and a rerun
+    # too, besides the bound. No single PyTorch call computes this function,
+    # so there is no library time. Roles as in check_k1; the demo trace's
+    # shape is a main-path shape of K3 only (K4 is off the traces). The last
+    # three are the worst cases: every sample in one row (K3: one group of
+    # 32 lanes per batch; K4: two rows that add all S terms in a chain), no
+    # weight at all, S = 1.
     for case, (E, S, M), role, kind in (
             ("1000² kept curves E=S=M=1000", (1000, 1000, 1000), "main",
              "walk"),
@@ -357,6 +386,7 @@ def check_binning(checks, rng, f32):
         y = torch.tensor(yn, **f32)
         w = torch.tensor(wn, **f32)
         ref = ck.column_binning_plain(y, w, M)
+        seq = ck.column_binning_sequential(y, w, M)
         scale = ref.abs().max().item()
         plain_ms = cuda_ms(lambda: ck.column_binning_plain(y, w, M))
         for key, fn in (("K3", ck.binning_2l_cuda),
@@ -365,12 +395,17 @@ def check_binning(checks, rng, f32):
             torch.cuda.synchronize()
             err = (H - ref).abs()
             ok = bool((err <= 1e-5 * ref.abs() + 1e-6 * scale).all().item())
-            tol = "1e-5·|H| + 1e-6·max|H|"
-            if key == "K3":
-                same = torch.equal(H, fn(y, w, M))
-                ok = ok and same
-                tol += "; rerun bitwise"
-                log(f"[kernels] K3 {case}: rerun bitwise equal: {same}")
+            tol = "1e-5·|H| + 1e-6·max|H|; rerun bitwise"
+            same = torch.equal(H, fn(y, w, M))
+            ok = ok and same
+            if key == "K4":
+                in_order = torch.equal(H, seq)
+                ok = ok and in_order
+                tol += "; == sequential bitwise"
+                log(f"[kernels] K4 {case}: launch plan "
+                    f"{ck.k4_launch_plan(E, S, M)}; equals the sequential "
+                    f"version bit for bit: {in_order}")
+            log(f"[kernels] {key} {case}: rerun bitwise equal: {same}")
             checks.record(key, case, err.max().item(), tol, ok,
                           ms=cuda_ms(lambda: fn(y, w, M)), plain_ms=plain_ms,
                           work=work_binning(E, S, M), main=role == "main",
@@ -514,17 +549,19 @@ def read_counts():
 
 
 class Config:
-    """One traced configuration: its image, truth and tracer arguments."""
+    """One traced configuration: its image, truth and tracer arguments. The
+    endpoints are the true edge's first column and column ``right`` (the
+    last by default), so the edge length E is right + 1 columns."""
 
-    def __init__(self, dev, size, amplitude, ko, n_samples):
+    def __init__(self, dev, size, amplitude, ko, n_samples, right=-1):
         import gaussian_process_edge_trace_torch as gpt
         self.img, self.true_edge = gpt.construct_test_img(
             size, amplitude, 4, 0.05, "sinusoidal", 0.3, gaps=True)
         self.grad = gpt.comp_grad_img(
             self.img, gpt.kernel_builder((11, 5), unit=False), device=dev)
-        self.init = self.true_edge[[0, -1]][:, [1, 0]]
+        self.init = self.true_edge[[0, right]][:, [1, 0]]
+        self.E = int(self.init[1, 0] - self.init[0, 0]) + 1
         self.ko, self.n_samples, self.dev = ko, n_samples, dev
-        self.size = size
 
     def tracer(self, seed):
         import gaussian_process_edge_trace_torch as gpt
@@ -543,12 +580,12 @@ class Config:
         import gaussian_process_edge_trace_torch as gpt
         import torch
         edge, cred, res = run
-        mse = gpt.trace_MSE(edge, self.true_edge)
-        dice = gpt.trace_dicecoef(edge, self.true_edge)
+        truth = self.true_edge[:self.E]
+        mse = gpt.trace_MSE(edge, truth)
+        dice = gpt.trace_dicecoef(edge, truth)
         finite = bool(np.isfinite(cred[0]).all() and np.isfinite(cred[1]).all()
                       and torch.isfinite(res.y_mean).all().item())
-        shape_ok = (edge.shape == (self.size[1], 2)
-                    and cred[0].shape == (self.size[1],))
+        shape_ok = edge.shape == (self.E, 2) and cred[0].shape == (self.E,)
         log(f"[{tag}] seed {seed}: n_iters={res.n_iters} MSE={mse} "
             f"DICE={dice} theta={res.theta.tolist()} "
             f"final_cost={res.final_cost.item():.6f} finite={finite}")
@@ -572,77 +609,64 @@ class Config:
             f"(runs {[round(w, 2) for w in walls]})")
 
 
-def per_trace(launches, tag, n_traces):
-    log(f"[{tag}] K5 launches per trace {launches['K5'] / n_traces:g}, K6 "
-        f"launches per trace {launches['K6'] / n_traces:g}")
-
-
-def require(checks, tag, launches, keys):
-    for k in keys:
-        if launches[k] <= 0:
-            checks.failed.append(f"{tag} did not launch {k}")
-
-
-def demo(checks, dev):
-    """The README demo through GP_Edge_Tracing on the card."""
-    cfg = Config(dev, (500, 500), 200,
-                 {"kernel": "RBF", "sigma_f": 75, "length_scale": 20}, 1000)
-    reset_counts()
-    runs = {seed: cfg.trace(seed) for seed in DEMO_SEEDS}
-    launches = read_counts()
-    log(f"[demo] kernel launches over seeds {DEMO_SEEDS}: "
-        f"{json.dumps(launches)}")
-    per_trace(launches, "demo", len(DEMO_SEEDS))
-    require(checks, "demo", launches, ("K1", "K2", "K3", "K5", "K6"))
-
-    dices = [cfg.report(checks, "demo", seed, run)
-             for seed, run in runs.items()]
-    median = sorted(dices)[len(dices) // 2]
-    gates = median > 0.985 and min(dices) > 0.97
-    log(f"[demo] DICE median={median} min={min(dices)} "
-        f"(gates: median > 0.985, min > 0.97) {'ok' if gates else 'FAIL'}")
-    if not gates:
-        checks.failed.append("demo DICE gates")
-    cfg.rerun_and_wall(checks, "demo", DEMO_SEEDS[0],
-                       runs[DEMO_SEEDS[0]][0])
-    return cfg, launches
-
-
-def big_config(dev):
-    return Config(dev, (1000, 1000), 400,
-                  {"kernel": "RBF", "sigma_f": 200, "length_scale": 50},
-                  10000)
-
-
-def big(checks, dev):
-    """The 1000² S=10⁴ config through GP_Edge_Tracing on the card."""
+def traced(checks, tag, cfg, seeds, need, absent, gates):
+    """``cfg`` through GP_Edge_Tracing for ``seeds``: the kernels' launches
+    (counts set to 0 before each trace and read after it), which must
+    include every kernel of ``need`` and none of ``absent``, K2's per
+    trace (n_iters + 1 where K1 is absent, else 1), peak device memory, MSE and
+    DICE against the truth with ``gates`` = (median, every seed), a rerun
+    of the first seed that must be identical and the warm wall time.
+    Returns the summed launches."""
     import torch
-    cfg = big_config(dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
-    reset_counts()
-    runs = {seed: cfg.trace(seed) for seed in BIG_SEEDS}
-    launches = read_counts()
+    runs, launches = {}, None
+    for seed in seeds:
+        reset_counts()
+        runs[seed] = cfg.trace(seed)
+        got = read_counts()
+        n_iters = runs[seed][2].n_iters
+        log(f"[{tag}] seed {seed}: launches {json.dumps(got)} (n_iters + 1 "
+            f"= {n_iters + 1})")
+        # K2 scores every iteration where K1 does not, and the final cost.
+        want = n_iters + 1 if "K1" in absent else 1
+        if got["K2"] != want:
+            checks.failed.append(f"{tag} seed {seed}: K2 launches "
+                                 f"{got['K2']}, {want} expected")
+        launches = got if launches is None else {
+            k: launches[k] + got[k] for k in got}
     peak = torch.cuda.max_memory_allocated()
-    log(f"[1000²] kernel launches over seeds {BIG_SEEDS}: "
-        f"{json.dumps(launches)}")
-    per_trace(launches, "1000²", len(BIG_SEEDS))
-    log(f"[1000²] peak device memory (max_memory_allocated): {peak} bytes "
+    log(f"[{tag}] kernel launches over seeds {seeds}: {json.dumps(launches)}")
+    log(f"[{tag}] peak device memory (max_memory_allocated): {peak} bytes "
         f"({peak / 2**20:.1f} MiB; {before / 2**20:.1f} MiB of it allocated "
         f"before the traces)")
-    require(checks, "1000²", launches,
-            ("K1", "K1_transpose", "K2", "K3", "K5", "K6"))
-    dices = [cfg.report(checks, "1000²", seed, run)
-             for seed, run in runs.items()]
+    for k in need:
+        if launches[k] <= 0:
+            checks.failed.append(f"{tag} did not launch {k}")
+    for k in absent:
+        if launches[k] != 0:
+            checks.failed.append(f"{tag} launched {k}")
+    dices = [cfg.report(checks, tag, seed, run) for seed, run in runs.items()]
     median = sorted(dices)[len(dices) // 2]
-    ok = median > 0.97 and min(dices) > 0.95
-    log(f"[1000²] DICE median={median} min={min(dices)} (gates: median > "
-        f"0.97, min > 0.95) {'ok' if ok else 'FAIL'}")
+    ok = median > gates[0] and min(dices) > gates[1]
+    log(f"[{tag}] DICE median={median} min={min(dices)} (gates: median > "
+        f"{gates[0]}, min > {gates[1]}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        checks.failed.append("1000² DICE gates")
-    cfg.rerun_and_wall(checks, "1000²", BIG_SEEDS[0], runs[BIG_SEEDS[0]][0])
-    return cfg, launches
+        checks.failed.append(f"{tag} DICE gates")
+    cfg.rerun_and_wall(checks, tag, seeds[0], runs[seeds[0]][0])
+    return launches
+
+
+def demo_config(dev):
+    return Config(dev, (500, 500), 200,
+                  {"kernel": "RBF", "sigma_f": 75, "length_scale": 20}, 1000)
+
+
+def big_config(dev, right=-1):
+    return Config(dev, (1000, 1000), 400,
+                  {"kernel": "RBF", "sigma_f": 200, "length_scale": 50},
+                  10000, right)
 
 
 def pallas_binning_kde(checks, dev):
@@ -677,13 +701,34 @@ def _device_us(evt):
     return 0.0
 
 
+def _subtree_us(evt):
+    """Device time of the kernels that ``evt`` and the ops under it
+    launched, in µs."""
+    return _device_us(evt) + sum(_subtree_us(c) for c in evt.cpu_children)
+
+
+# Host-side ranges put around the unfused path's PyTorch passes for the
+# profiled trace only (module, attribute): the Simpson sums of the cost,
+# the Cartwright tail of an even point count inside them, the ranking with
+# its column take of the kept curves.
+PROFILED_RANGES = (
+    ("gaussian_process_edge_trace_torch.trace.scoring", "line_and_arc"),
+    ("gaussian_process_edge_trace_torch.ops.integrate", "_cartwright_tail"),
+    ("gaussian_process_edge_trace_torch.trace.driver", "best_curves"))
+
+
 def profile(checks, tag, cfg, seed):
     """The loop and the final fit (``finish_trace``) on the host clock and
     peak memory; then one profiled trace: device busy time, the idle share
-    of the unprofiled and of the profiled wall time, top device ops, K1, K3,
-    K5 and K6 (its m > 1 and m = 1 kernels) per launch."""
+    of the unprofiled and of the profiled wall time, top device ops, K1, K2,
+    K3, K5 and K6 (its m > 1 and m = 1 kernels) per launch, and the device
+    time of the passes in ``PROFILED_RANGES`` (for ``best_curves``, also its
+    ``index_select``)."""
+    import functools
+    import importlib
+
     import torch
-    from torch.profiler import ProfilerActivity
+    from torch.profiler import ProfilerActivity, record_function
     from gaussian_process_edge_trace_torch.trace import driver as pd
 
     tracer = cfg.tracer(seed)
@@ -707,17 +752,33 @@ def profile(checks, tag, cfg, seed):
         f"fit {fm:.2f} ms ({100 * fm / (lm + fm):.1f}% of the trace); peak "
         f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tracer()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    # Device-side events only: a CPU op's own row repeats its kernels' time.
+    def ranged(fn, name):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return wrapper
+
+    saved = [(importlib.import_module(m), a) for m, a in PROFILED_RANGES]
+    saved = [(mod, a, getattr(mod, a)) for mod, a in saved]
+    for mod, a, fn in saved:
+        setattr(mod, a, ranged(fn, f"gpet::{a}"))
+    try:
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tracer()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for mod, a, fn in saved:
+            setattr(mod, a, fn)
+    # Device-side events only: a CPU op's own row repeats its kernels' time,
+    # and so does a range's device-side span.
     rows = [(e.key, _device_us(e) / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and _device_us(e) > 0]
+            and _device_us(e) > 0 and not e.key.startswith("gpet::")]
     busy = sum(r[1] for r in rows)
     if busy <= 0:
         checks.failed.append(f"{tag} profile shows no device time")
@@ -731,15 +792,26 @@ def profile(checks, tag, cfg, seed):
             f"{1e3 * ms / count:9.2f} us/launch  {key[:90]}")
     k1_k3 = 0.0
     for name in ("fused_cost_partial_kernel", "fused_cost_reduce_kernel",
-                 "binning_2l_kernel", "batched_chol_kernel",
+                 "column_interp", "binning_2l_kernel", "batched_chol_kernel",
                  "batched_trsm_kernel", "batched_trsv_kernel"):
         for key, ms, count in rows:
             if name in key:
-                log(f"[profile {tag}] {name}: {count} launches, "
+                log(f"[profile {tag}] {key[:60]}: {count} launches, "
                     f"{1e3 * ms / count:.2f} us each, {ms:.3f} ms in all")
                 if name.startswith(("fused_cost", "binning_2l")):
                     k1_k3 += ms
     log(f"[profile {tag}] K1 + K3 device time per trace: {k1_k3:.3f} ms")
+    for _, a, _ in saved:
+        evts = [e for e in prof.events() if e.name == f"gpet::{a}"
+                and e.device_type == torch.autograd.DeviceType.CPU]
+        us = sum(_subtree_us(e) for e in evts)
+        line = (f"[profile {tag}] {a}: {len(evts)} calls, device "
+                f"{us / 1e3:.3f} ms per trace")
+        if a == "best_curves":
+            take = sum(_subtree_us(c) for e in evts for c in e.cpu_children
+                       if c.name == "aten::index_select")
+            line += f" (its index_select {take / 1e3:.3f} ms)"
+        log(line)
 
 
 KERNEL_ROWS = {
@@ -794,14 +866,27 @@ def main() -> int:
 
     checks = Checks()
     check_kernels(checks, dev)
-    demo_cfg, demo_launches = demo(checks, dev)
-    big_cfg, big_launches = big(checks, dev)
-    kde_launches = pallas_binning_kde(checks, dev)
-    profile(checks, "demo", demo_cfg, DEMO_SEEDS[0])
-    profile(checks, "1000²", big_cfg, BIG_SEEDS[0])
+    # Each path: its configuration, seeds, the kernels it must launch and
+    # those it must not, and its DICE gates (median, every seed).
+    paths, configs = {}, {}
+    for path, tag, make, seeds, need, absent, gates in (
+            ("demo", "demo", demo_config, DEMO_SEEDS,
+             ("K1", "K2", "K3", "K5", "K6"), ("K1_transpose", "K4"),
+             (0.985, 0.97)),
+            ("1000_S1e4", "1000²", big_config, BIG_SEEDS,
+             ("K1", "K1_transpose", "K2", "K3", "K5", "K6"), ("K4",),
+             (0.97, 0.95)),
+            ("1000_S1e4_oddE", "1000² odd E",
+             lambda dev: big_config(dev, right=-2), ODD_SEEDS,
+             ("K2", "K3", "K5", "K6"), ("K1", "K1_transpose", "K4"),
+             (0.97, 0.95))):
+        cfg = make(dev)
+        paths[path] = traced(checks, tag, cfg, seeds, need, absent, gates)
+        configs[tag] = (cfg, seeds[0])
+    paths["curve_kde_pallas_binning"] = pallas_binning_kde(checks, dev)
+    for tag, (cfg, seed) in configs.items():
+        profile(checks, tag, cfg, seed)
 
-    paths = {"demo": demo_launches, "1000_S1e4": big_launches,
-             "curve_kde_pallas_binning": kde_launches}
     rows = []
     for key, (name, source, replaces) in KERNEL_ROWS.items():
         k = checks.kernels.get(key, {"max_abs_err": float("nan"),

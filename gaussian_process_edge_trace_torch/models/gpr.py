@@ -138,12 +138,20 @@ def fit_and_sample(spec: KernelSpec, x, y, length_scale, variance, diag_noise,
 
 
 def log_marginal_likelihood(spec: KernelSpec, x, yc, mask, theta,
-                            noise_weight, jitter=1e-6):
-    """LML of θ = (log c, log ℓ, log σn²) for centred targets (one θ);
-    NaN where the Gram is not positive definite. Padded slots contribute
-    zero; the −n/2·log 2π term counts valid points only."""
-    return batched_lml(spec, x, yc, mask, theta[None], noise_weight,
-                       jitter=jitter)[0]
+                            noise_weight, jitter=1e-6, pd_guard=True):
+    """LML of θ = (log c, log ℓ, log σn²) for centred targets (one θ).
+    Padded slots contribute zero; the −n/2·log 2π term counts valid points
+    only. With ``pd_guard`` (the default, as in the reference,
+    gpr.py:274-313) a Gram that is not positive definite gives −inf: its
+    factor's diagonal is not finite and positive. With ``pd_guard=False``
+    it gives NaN, as :func:`batched_lml` does."""
+    val, L = _batched_lml(spec, x, yc, mask, theta[None], noise_weight,
+                          jitter, with_grad=False)
+    if not pd_guard:
+        return val[0]
+    d = torch.diagonal(L[0])
+    ok = (torch.isfinite(d) & (d > 0)).all()
+    return torch.where(ok, val[0], torch.full_like(val[0], -math.inf))
 
 
 def batched_lml(spec: KernelSpec, x, yc, mask, thetas, noise_weight,
@@ -158,6 +166,12 @@ def batched_lml(spec: KernelSpec, x, yc, mask, thetas, noise_weight,
     Args:
       thetas: (B, 3). Returns (B,) values, or (values, (B, 3) gradients).
     """
+    return _batched_lml(spec, x, yc, mask, thetas, noise_weight, jitter,
+                        with_grad)[0]
+
+
+def _batched_lml(spec, x, yc, mask, thetas, noise_weight, jitter, with_grad):
+    """:func:`batched_lml`'s result and the (B, n, n) factors."""
     dt = thetas.dtype
     dev = thetas.device
     zero = torch.zeros((), dtype=dt, device=dev)
@@ -191,7 +205,7 @@ def batched_lml(spec: KernelSpec, x, yc, mask, thetas, noise_weight,
     n_valid = mask.sum().to(dt)
     vals = -0.5 * quad - logdet - 0.5 * n_valid * math.log(2.0 * math.pi)
     if not with_grad:
-        return vals
+        return vals, L
 
     alpha = backward_solve_auto(L, w1)[..., 0]              # (B, n)
     alpha = torch.where(mask[None, :], alpha, zero)
@@ -205,4 +219,4 @@ def batched_lml(spec: KernelSpec, x, yc, mask, thetas, noise_weight,
     diagA = torch.diagonal(A, dim1=1, dim2=2)
     g2 = 0.5 * (diagA * (nz[:, None] * noise_weight[None, :])
                 * mask[None, :]).sum(1)
-    return vals, torch.stack([g0, g1, g2], dim=1)
+    return (vals, torch.stack([g0, g1, g2], dim=1)), L

@@ -46,9 +46,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "gpet_fused_cost": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I,
                         _I, _P],
-    "gpet_column_interp": [_P, _P, _P, _I, _I, _I, _F, _P],
+    "gpet_column_interp": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
     "gpet_binning_2l": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "gpet_binning_dense": [_P, _P, _P, _I, _I, _I, _P],
+    "gpet_binning_dense": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gpet_batched_cholesky": [_P, _P, _I, _I, _P],
     "gpet_batched_trsm": [_P, _P, _P, _I, _I, _I, _I, _P],
     # Shared-memory bytes of one block (not kernels: ints, not cudaError_t).
@@ -56,6 +56,8 @@ _SIGNATURES = {
     "gpet_batched_trsm_smem": [_I, _I],
     "gpet_fused_cost_smem": [_I, _I, _I, _I],
     "gpet_binning_2l_smem": [_I, _I, _I],
+    "gpet_column_interp_smem": [_I, _I],
+    "gpet_binning_dense_smem": [_I, _I, _I],
 }
 
 _lock = threading.Lock()

@@ -10,9 +10,11 @@ Counterpart of ``gaussian_process_edge_trace_tpu/ops/pallas_interp.py``:
   ``with_transpose`` arm: at S >= 8192 it can also write ``ys`` transposed,
   which ``best_curves`` then takes rows from.
 - **K2**, :func:`column_interp` (``csrc/column_interp_kernel.cu``):
-  ``out[e, s] = lerp(cols[e, :], clip(ys[e, s], 0, M-1)) + add_const``.
-  Replaces ``_column_interp_pallas_2l`` (:167) and ``_column_interp_pallas``
-  (:57), two TPU forms of one function.
+  ``out[e, s] = lerp(cols[e, :], clip(ys[e, s], 0, M-1)) + add_const``
+  (:func:`k2_launch_plan` sizes its launch). Replaces
+  ``_column_interp_pallas_2l`` (:167) and ``_column_interp_pallas`` (:57),
+  two TPU forms of one function. It scores the curves of an odd edge
+  length, which K1 does not serve, and every trace's final cost.
 
 Each wrapper takes its plain version only for tensors on the CPU. For a CUDA
 tensor it launches the kernel, or raises if the kernel cannot run; it never
@@ -43,6 +45,13 @@ _K1_THREADS = 256
 _K1_PAIRS = 8
 _K1_TILE_LD = 34
 _K1_BLOCKS_PER_SM = 2
+
+# K2 (csrc/column_interp_kernel.cu): threads per block, the blocks its tiled
+# layout aims for (eight blocks of _K2_THREADS per SM), and the fewest
+# samples a tile of one column may hold.
+_K2_THREADS = 256
+_K2_TARGET_BLOCKS = 8 * cuda_build.SMS
+_K2_MIN_SPAN = 1024
 
 
 def fused_cost_eligible(E: int, M: int, S: int) -> bool:
@@ -76,19 +85,50 @@ def column_interp_plain(cols, ys, add_const=0.0):
     return res + add_const if add_const else res
 
 
+def k2_launch_plan(E: int, M: int, S: int):
+    """K2's launch. ``layout`` "tiled" where a column's samples outweigh
+    the column (S >= 64 and 2·S >= M, the column fitting shared memory): an
+    (E, ``tiles``) grid, block (e, t) staging cols[e, :] (``smem_bytes``;
+    the launcher's own count is ``gpet_column_interp_smem``) and taking the
+    ``span`` samples from t·span of row e. The rows are split into tiles
+    only as far as the grid falls short of ``_K2_TARGET_BLOCKS``, and no
+    tile holds fewer than ``_K2_MIN_SPAN`` samples. Else ``layout`` "flat":
+    one thread per element in ``blocks`` blocks (the final cost, S = 1).
+    Raises where neither fits an int index."""
+    if E < 1 or M < 2 or S < 1:
+        raise ValueError(f"column_interp: no launch for E={E}, M={M}, S={S}")
+    threads = _K2_THREADS
+    smem = 4 * M
+    if S >= 64 and 2 * S >= M and smem <= cuda_build.SMEM_LIMIT:
+        tiles = min(max(1, _K2_TARGET_BLOCKS // E),
+                    max(1, S // _K2_MIN_SPAN), 65535)
+        span = -(-S // tiles)
+        span = -(-span // 4) * 4
+        tiles = -(-S // span)
+        return {"layout": "tiled", "tiles": tiles, "span": span,
+                "threads": threads, "blocks": E * tiles, "smem_bytes": smem}
+    if E * S >= 2 ** 31:
+        raise ValueError(f"column_interp: E*S = {E * S} elements do not fit "
+                         f"the flat layout's int index")
+    return {"layout": "flat", "tiles": 0, "span": S, "threads": threads,
+            "blocks": -(-E * S // threads), "smem_bytes": 0}
+
+
 def column_interp_cuda(cols, ys, add_const=0.0):
     """K2 on the card."""
     _check_shapes(cols, ys)
     cuda_build.check_tensors("column_interp", cols, ys)
     E, M = cols.shape
     S = ys.shape[1]
+    plan = k2_launch_plan(E, M, S)
     out = torch.empty((E, S), dtype=torch.float32, device=ys.device)
     lib = cuda_build.library()
     with torch.cuda.device(ys.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gpet_column_interp(cols.data_ptr(), ys.data_ptr(),
                                     out.data_ptr(), E, M, S,
-                                    float(add_const), stream)
+                                    float(add_const), plan["tiles"],
+                                    plan["span"], plan["threads"], stream)
     cuda_build.check(rc, "column_interp")
     LAUNCHES["column_interp"] += 1
     return out

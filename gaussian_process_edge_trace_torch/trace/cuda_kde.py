@@ -14,11 +14,16 @@ returned as (M+2, E) float32:
   Replaces ``_binning_2l`` (pallas_kde.py:153). The main path runs it for
   every number of kept curves.
 - **K4**, :func:`binning_dense_cuda` (``csrc/binning_dense_kernel.cu``): the
-  dense per-column hat GEMV. Replaces ``_binning_pallas`` (:199); reached
-  only with ``use_pallas=True``, as in the reference.
+  dense per-column hat GEMV's order, every row summed over the samples in
+  index order, with the exact zeros skipped (:func:`k4_launch_plan` sizes
+  its launch). Replaces ``_binning_pallas`` (:199); reached only with
+  ``use_pallas=True``, as in the reference.
 - :func:`column_binning_plain`: the dense hat contraction of the reference's
   ``_binning_dense_chunked`` (:259), in chunks of kept curves. The CPU runs
   it; on the card only the checks do.
+- :func:`column_binning_sequential`: the same terms added one sample at a
+  time in sample order, the order K4 keeps; only the tests and
+  ``chip_smoke.py`` call it.
 
 The wrappers take CUDA tensors only and raise otherwise; ``LAUNCHES`` counts
 kernel launches. Neither kernel uses float atomics: reruns are bitwise
@@ -41,6 +46,13 @@ _CHUNK_ELEMS = 128 * 1024 * 1024
 # plan aims for, about sixteen per SM.
 _K3_COLS = 4
 _K3_TARGET_WARPS = 16 * cuda_build.SMS
+
+# K4 (binning_dense_kernel.cu): threads per column (two warps), the most
+# columns per block, and the most samples of a column a block takes at a
+# time.
+_K4_COL_THREADS = 64
+_K4_COLS = 4
+_K4_TILE = 4096
 
 
 def k3_launch_plan(E: int, S: int, M: int):
@@ -70,6 +82,42 @@ def k3_launch_plan(E: int, S: int, M: int):
     raise ValueError(f"binning_2l: M={M} does not fit shared memory")
 
 
+def k4_smem_bytes(M: int, tile: int, cols: int) -> int:
+    """Shared memory of one K4 block of ``cols`` columns (the launcher's own
+    count is ``gpet_binning_dense_smem``): the tile's weights, then a slice
+    per column, in 4-byte words: the tile's samples and their two taps in
+    row order, the rows' sums and two 16-bit counts per row, two warp
+    totals and two warps' lane masks by lo>>1 (M/2 + 2 keys); each part
+    16-byte aligned."""
+    words = 3 * tile + 2 * (M + 2) + 2 + 2 * (M // 2 + 2)
+    return (((tile + 3) & ~3) + cols * ((words + 3) & ~3)) * 4
+
+
+def k4_launch_plan(E: int, S: int, M: int):
+    """K4's launch: ``cols`` consecutive columns per block, a power of two
+    (so a row's stores are ``cols`` consecutive floats), each column with
+    two warps (``threads`` = 64·cols), ``blocks`` blocks, each column's
+    samples taken ``tile`` at a time in ``tiles`` steps, and ``smem_bytes``
+    of shared memory. The tile is the whole column up to ``_K4_TILE``
+    samples; where shared memory does not fit, the columns per block are
+    halved, then the tile. Raises where nothing fits."""
+    if E < 1 or S < 0 or M < 1:
+        raise ValueError(f"binning_dense: no launch for E={E}, S={S}, M={M}")
+    tile = max(1, min(S, _K4_TILE))
+    cols = 1 << (min(_K4_COLS, E).bit_length() - 1)
+    while k4_smem_bytes(M, tile, cols) > cuda_build.SMEM_LIMIT:
+        if cols > 1:
+            cols //= 2
+        elif tile > 1:
+            tile = -(-tile // 2)
+        else:
+            raise ValueError(f"binning_dense: M={M} does not fit shared "
+                             f"memory")
+    return {"cols": cols, "threads": _K4_COL_THREADS * cols, "tile": tile,
+            "tiles": -(-S // tile), "blocks": -(-E // cols),
+            "smem_bytes": k4_smem_bytes(M, tile, cols)}
+
+
 def column_binning_plain(y_curves, weights, M: int):
     """Plain version of K3 and K4: the dense hat contraction, in chunks of
     kept curves whose sums are added in order."""
@@ -88,6 +136,27 @@ def column_binning_plain(y_curves, weights, M: int):
     H = block(y_curves[:, :chunk], weights[:chunk])
     for s0 in range(chunk, S, chunk):
         H = H + block(y_curves[:, s0:s0 + chunk], weights[s0:s0 + chunk])
+    return H
+
+
+def column_binning_sequential(y_curves, weights, M: int):
+    """The binning as a loop over the samples in index order: each sample's
+    (M+2, E) term ``hat·w``, rounded on its own, is added to the running
+    sum. K4 adds the same terms in the same order, so for finite weights it
+    equals this bit for bit (it skips the terms that are exactly zero,
+    which leave a sum that starts at +0 unchanged). S steps of a few
+    elementwise passes each: for the tests and ``chip_smoke.py`` only."""
+    E, S = y_curves.shape
+    rows = torch.arange(M + 2, dtype=y_curves.dtype,
+                        device=y_curves.device)[:, None]
+    zero = torch.zeros((), dtype=y_curves.dtype, device=y_curves.device)
+    H = torch.zeros((M + 2, E), dtype=y_curves.dtype, device=y_curves.device)
+    for s in range(S):
+        y = y_curves[:, s]
+        w = torch.where((y >= 0) & (y <= M - 1), weights[s], zero)
+        hat = torch.clamp(1.0 - torch.abs((y + 1.0)[None, :] - rows),
+                          min=0.0)
+        H = H + hat * w[None, :]
     return H
 
 
@@ -122,12 +191,14 @@ def binning_dense_cuda(y_curves, weights, M: int):
     """K4 on the card: (M+2, E) float32."""
     _check("binning_dense", y_curves, weights, M)
     E, S = y_curves.shape
+    plan = k4_launch_plan(E, S, M)
     H = torch.empty((M + 2, E), dtype=torch.float32, device=y_curves.device)
     lib = cuda_build.library()
     with torch.cuda.device(y_curves.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gpet_binning_dense(y_curves.data_ptr(), weights.data_ptr(),
-                                    H.data_ptr(), E, S, M, stream)
+                                    H.data_ptr(), E, S, M, plan["tile"],
+                                    plan["cols"], stream)
     cuda_build.check(rc, "binning_dense")
     LAUNCHES["binning_dense"] += 1
     return H

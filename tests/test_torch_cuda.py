@@ -1,8 +1,9 @@
 """PyTorch port on the card: each hand-written kernel (K1 with its
 transposed-samples output, K2, K3, K4, K5, K6) against its plain PyTorch
 version on CUDA tensors, the launch plans against the launchers, and the
-small slice traced on the card. Every test here carries the ``cuda``
-marker and skips where ``torch.cuda.is_available()`` is false.
+small slice traced on the card, at an even and at an odd edge length.
+Every test here carries the ``cuda`` marker and skips where
+``torch.cuda.is_available()`` is false.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -127,7 +128,8 @@ def _kept(dev, E, S, M, seed=3):
 def test_binning_kernels_match_plain(dev, E, S, M):
     """K3 and K4 against the dense plain version: the same taps summed in
     other orders; the reference test's bounds (rtol 1e-5, atol
-    1e-6·max|H|). A K3 rerun is bitwise equal."""
+    1e-6·max|H|). K4 adds each row's terms in sample order, so it equals
+    the sequential plain version bit for bit. Reruns are bitwise equal."""
     y, w = _kept(dev, E, S, M)
     ref = ck.column_binning_plain(y, w, M)
     atol = 1e-6 * ref.abs().max().item()
@@ -138,7 +140,48 @@ def test_binning_kernels_match_plain(dev, E, S, M):
     assert ck.LAUNCHES["binning_dense"] == n0["binning_dense"] + 1
     for H in (H3, H4):
         torch.testing.assert_close(H, ref, rtol=1e-5, atol=atol)
+    assert torch.equal(H4, ck.column_binning_sequential(y, w, M))
     assert torch.equal(H3, ck.binning_2l_cuda(y, w, M))
+    assert torch.equal(H4, ck.binning_dense_cuda(y, w, M))
+
+
+@pytest.mark.parametrize("case", ["one row", "outside", "S=1", "S=0",
+                                  "ragged", "several tiles"])
+def test_binning_dense_worst_cases(dev, case):
+    """K4 where its groups are largest or empty: every sample in one row
+    (32 lanes in one group, two rows add all S terms), every sample outside
+    the image (no term at all), one kept curve, none, a block whose last
+    columns lie past E with S no multiple of 32, and more samples than one
+    tile holds (the rows' sums carry over from tile to tile). Bitwise equal
+    to the sequential plain version and to a rerun; within the reference
+    test's bounds of the dense one."""
+    E, S, M = 300, 1000, 400
+    rng = np.random.default_rng(11)
+    if case == "one row":
+        y = np.full((E, S), M / 2 + 0.25)
+    elif case == "outside":
+        y = np.where(rng.random((E, S)) < 0.5, rng.uniform(-40, -1e-3, (E, S)),
+                     rng.uniform(M - 1 + 1e-3, M + 40, (E, S)))
+    elif case in ("S=1", "S=0"):
+        S = int(case[2])
+        y = rng.uniform(-3, M + 2, (E, S))
+    else:
+        E, M = 21, 100
+        S = 1001 if case == "ragged" else 2 * ck._K4_TILE + 77
+        y = M / 2 + np.cumsum(rng.normal(0, 1.5, (E, S)), axis=0)
+    assert ck.k4_launch_plan(E, S, M)["tiles"] == (
+        3 if case == "several tiles" else 1 if S else 0)
+    w = rng.uniform(0.5, 2.0, S)
+    y = torch.tensor(y, dtype=torch.float32, device=dev)
+    w = torch.tensor(w / max(w.sum(), 1.0), dtype=torch.float32, device=dev)
+    H = ck.binning_dense_cuda(y, w, M)
+    assert torch.equal(H, ck.column_binning_sequential(y, w, M))
+    assert torch.equal(H, ck.binning_dense_cuda(y, w, M))
+    ref = ck.column_binning_plain(y, w, M)
+    torch.testing.assert_close(H, ref, rtol=1e-5,
+                               atol=1e-6 * ref.abs().max().item())
+    if case in ("outside", "S=0"):
+        assert not H.any()
 
 
 @pytest.mark.parametrize("case", ["one row", "one integer row", "outside",
@@ -195,17 +238,44 @@ def test_k1_k3_plans_match_launchers(dev):
             plan["smem_bytes"]
 
 
-@pytest.mark.parametrize("S", [1, 1000])
+@pytest.mark.parametrize("S", [1, 3, 1000, 10003])
 def test_column_interp_kernel_matches_plain(dev, S):
-    """K2: each op rounded once on both sides; one ulp allowed."""
-    rng = np.random.default_rng(1)
-    cols = torch.tensor(rng.random((500, 500)), dtype=torch.float32,
-                        device=dev)
-    ys = torch.tensor(rng.uniform(-20, 520, (500, S)), dtype=torch.float32,
-                      device=dev)
-    out = ci.column_interp(cols, ys, 1e-3)
-    torch.testing.assert_close(out, ci.column_interp_plain(cols, ys, 1e-3),
-                               rtol=1.2e-7, atol=0)
+    """K2: each op rounded once on both sides, so bitwise equal to the
+    plain version, with and without add_const; an odd E, so at S = 10003
+    most rows start off a 16-byte boundary (the scalar head and tail), and
+    samples taken from a slice whose start is 4 bytes past one (no float4
+    at all). A rerun is bitwise equal."""
+    E, M = 499, 500
+    rng = np.random.default_rng(S)
+    cols = torch.tensor(rng.random((E, M)), dtype=torch.float32, device=dev)
+    big = torch.tensor(rng.uniform(-20, M + 20, (E + 1, S)),
+                       dtype=torch.float32, device=dev)
+    for ys in (big[:E], big[1:]):
+        for add in (1e-3, 0.0):
+            n0 = ci.LAUNCHES["column_interp"]
+            out = ci.column_interp(cols, ys, add)
+            assert ci.LAUNCHES["column_interp"] == n0 + 1
+            assert torch.equal(out, ci.column_interp_plain(cols, ys, add))
+            assert torch.equal(out, ci.column_interp(cols, ys, add))
+
+
+def test_k2_k4_plans_match_launchers(dev):
+    """K2's and K4's plans: their shared-memory bytes are the launchers'
+    own (K2 flat and tiled; K4 at 4 columns per block, fewer for tall
+    columns, and in several tiles)."""
+    from gaussian_process_edge_trace_torch.ops import cuda_build
+    lib = cuda_build.library()
+    for E, M, S in ((999, 1000, 10000), (499, 500, 1000), (1000, 1000, 1),
+                    (37, 61, 10003), (95, 64, 256)):
+        plan = ci.k2_launch_plan(E, M, S)
+        assert lib.gpet_column_interp_smem(
+            M, plan["layout"] == "tiled") == plan["smem_bytes"]
+    for E, S, M in ((1000, 1000, 1000), (500, 100, 500), (37, 33, 129),
+                    (20, 9000, 100), (3, 0, 5), (10, 100, 9000)):
+        plan = ck.k4_launch_plan(E, S, M)
+        assert lib.gpet_binning_dense_smem(M, plan["tile"],
+                                           plan["cols"]) == \
+            plan["smem_bytes"]
 
 
 @pytest.mark.parametrize("n", [17, 97, 104, 161, 208, cc._DIRECT_N])
@@ -297,5 +367,30 @@ def test_small_trace_on_the_card(dev):
     assert ck.LAUNCHES["binning_2l"] > 0 and ck.LAUNCHES["binning_dense"] == 0
     assert all(n > 0 for n in cc.LAUNCHES.values())
     assert gpt.trace_dicecoef(out, edge) > 0.97
+    np.testing.assert_array_equal(out,
+                                  gpt.GP_Edge_Tracing(*args, device=dev)())
+
+
+def test_small_odd_edge_trace_on_the_card(dev):
+    """An odd edge length on the card (E = 95): K1 never runs, K2 scores
+    every iteration and the final cost (n_iters + 1 launches), the trace is
+    accurate and a rerun is bitwise identical."""
+    img, edge = gpt.construct_test_img((64, 96), 40, 2, 0.03, "sinusoidal",
+                                       0.3)
+    grad = gpt.comp_grad_img(img, gpt.kernel_builder((9, 5)), device=dev)
+    init = np.array([[0, edge[0, 0]], [94, edge[94, 0]]])
+    for counts in (ci.LAUNCHES, cc.LAUNCHES, ck.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    args = (init, grad, {"kernel": "RBF", "sigma_f": 20, "length_scale": 8},
+            1, np.array([]), 256, 1, 6, 0.1, 4, 1, False, True)
+    tracer = gpt.GP_Edge_Tracing(*args, device=dev)
+    out = tracer()
+    assert out.shape == (95, 2)
+    assert ci.LAUNCHES["fused_cost"] == 0
+    assert ci.LAUNCHES["column_interp"] == tracer.last_result.n_iters + 1
+    assert ck.LAUNCHES["binning_2l"] > 0 and ck.LAUNCHES["binning_dense"] == 0
+    # The CPU path reads DICE 0.977 here; the card draws other normals.
+    assert gpt.trace_dicecoef(out, edge[:95]) > 0.95
     np.testing.assert_array_equal(out,
                                   gpt.GP_Edge_Tracing(*args, device=dev)())

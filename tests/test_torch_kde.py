@@ -1,6 +1,7 @@
-"""PyTorch port, KDE binning kernels K3 and K4: their plain PyTorch version
-against the JAX package's Pallas functions, run in interpret mode on the CPU,
-the routing of ``column_binning`` and K3's launch plan. The kernels themselves are held
+"""PyTorch port, KDE binning kernels K3 and K4: their plain PyTorch versions
+(dense and sequential) against the JAX package's Pallas functions, run in
+interpret mode on the CPU, the routing of ``column_binning`` and the K3 and
+K4 launch plans. The kernels themselves are held
 against the plain version on a GPU by ``test_torch_cuda.py``."""
 
 import functools
@@ -71,6 +72,38 @@ def test_binning_plain_matches_binning_pallas(E, S, M, monkeypatch):
                                atol=1e-6 * np.abs(ref).max())
 
 
+@pytest.mark.parametrize("E,S,M", [(37, 40, 61), (12, 129, 30)])
+def test_binning_sequential_matches_plain_and_pallas(E, S, M, monkeypatch):
+    """The sequential plain version (K4's order: each sample's term added
+    in index order) against the dense plain version and ``_binning_pallas``
+    run in interpret mode, within the reference test's bounds; and, where
+    every sample falls in one row, equal to a float32 loop in numpy that
+    adds one rounded term at a time."""
+    monkeypatch.setattr(
+        jax.experimental.pallas, "pallas_call",
+        functools.partial(jax.experimental.pallas.pallas_call,
+                          interpret=True))
+    y, w = _binning_inputs(E, S, M, seed=5)
+    got = ck.column_binning_sequential(t32(y), t32(w), M).numpy()
+    ref = np.asarray(pk._binning_pallas.__wrapped__(jnp.asarray(y),
+                                                     jnp.asarray(w), M))
+    plain = ck.column_binning_plain(t32(y), t32(w), M).numpy()
+    for other in (ref, plain):
+        np.testing.assert_allclose(got, other, rtol=1e-5,
+                                   atol=1e-6 * np.abs(other).max())
+    one = np.full((E, S), np.float32(M / 2 + 0.25))
+    row = int(np.floor(one[0, 0] + 1))
+    acc = np.zeros((2, E), np.float32)
+    for s in range(S):
+        for j, m in enumerate((row, row + 1)):
+            hat = np.maximum(np.float32(0), np.float32(1) - np.abs(
+                (one[:, s] + np.float32(1)) - np.float32(m)))
+            acc[j] = acc[j] + hat * w[s]
+    seq = ck.column_binning_sequential(t32(one), t32(w), M).numpy()
+    np.testing.assert_array_equal(seq[row:row + 2], acc)
+    assert not np.delete(seq, [row, row + 1], axis=0).any()
+
+
 def test_plain_binning_chunks_agree(monkeypatch):
     """The plain version's chunked sum equals its one-block sum to f32
     rounding (the chunk size only splits the sum over kept curves)."""
@@ -110,6 +143,39 @@ def test_k3_launch_plan_covers_columns_and_samples_once(E, S, M):
     for p in range(plan["warps_per_col"]):
         assert p * span < max(S, 1)
         samples[p * span:(p + 1) * span] += 1
+    assert (samples == 1).all()
+
+
+@pytest.mark.parametrize("E,S,M", [
+    (1000, 1000, 1000),   # the 1000² config's kept curves
+    (500, 100, 500),      # the demo's
+    (21, 8269, 100),      # several tiles
+    (37, 33, 129),        # ragged: the last block's columns past E
+    (3, 0, 5),            # no kept curve
+    (10, 100, 9000),      # tall columns: fewer columns per block
+])
+def test_k4_launch_plan_covers_columns_and_samples_once(E, S, M):
+    """K4's plan: every column lies in exactly one block of a power-of-two
+    number of columns, two warps each; every sample in exactly one tile,
+    and within a tile in exactly one of its two halves; one block fits the
+    card's shared memory."""
+    plan = ck.k4_launch_plan(E, S, M)
+    cols, tile = plan["cols"], plan["tile"]
+    assert cols & (cols - 1) == 0 and plan["threads"] == 64 * cols
+    assert plan["smem_bytes"] == ck.k4_smem_bytes(M, tile, cols)
+    assert plan["smem_bytes"] <= cuda_build.SMEM_LIMIT
+    seen = np.zeros(E, int)
+    for b in range(plan["blocks"]):
+        e = np.arange(b * cols, (b + 1) * cols)
+        seen[e[e < E]] += 1
+    assert (seen == 1).all()
+    samples = np.zeros(S, int)
+    for t in range(plan["tiles"]):
+        n = min(tile, S - t * tile)
+        span = -(-n // 2)
+        for h in range(2):      # the kernel's halves of the tile
+            k0 = t * tile + h * span
+            samples[k0:t * tile + min(n, (h + 1) * span)] += 1
     assert (samples == 1).all()
 
 

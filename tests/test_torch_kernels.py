@@ -247,6 +247,41 @@ def test_column_interp_plain_matches_pallas_kernels(E, M, S):
         np.testing.assert_allclose(got, ref, rtol=2e-6, atol=2e-7)
 
 
+@pytest.mark.parametrize("E,M,S", [
+    (999, 1000, 10000),   # the odd-E trace's unfused cost: one tile a row
+    (499, 500, 1000),     # the odd demo shape
+    (37, 61, 10003),      # few rows: rows split into tiles, ragged S
+    (95, 64, 256),        # the small odd-E test trace
+    (1000, 1000, 1),      # the final cost: flat
+    (500, 500, 3),        # few samples: flat
+    (100, 1000, 400),     # samples do not outweigh the column: flat
+])
+def test_k2_launch_plan_covers_every_sample_once(E, M, S):
+    """K2's plan: in the tiled layout every (e, s) lies in exactly one
+    block's span, tiles start on 4-sample boundaries, no tile is empty and
+    the staged column fits shared memory; in the flat layout the threads
+    cover the E·S elements with less than one block left over. The layout
+    follows the sample count: flat for a few samples per column, tiled
+    where they outweigh the column."""
+    plan = ci.k2_launch_plan(E, M, S)
+    tiled = S >= 64 and 2 * S >= M
+    assert plan["layout"] == ("tiled" if tiled else "flat")
+    if tiled:
+        covered = np.zeros(S, int)
+        for t in range(plan["tiles"]):
+            s0 = t * plan["span"]
+            assert s0 < S and s0 % 4 == 0
+            covered[s0:s0 + plan["span"]] += 1
+        assert (covered == 1).all()         # the same for every row e
+        assert plan["blocks"] == E * plan["tiles"]
+        assert plan["smem_bytes"] == 4 * M <= cc.SMEM_LIMIT
+        assert plan["tiles"] == 1 or plan["span"] >= ci._K2_MIN_SPAN
+    else:
+        n = plan["blocks"] * plan["threads"]
+        assert E * S <= n < E * S + plan["threads"]
+        assert plan["smem_bytes"] == 0
+
+
 def test_column_interp_dispatches_plain_on_cpu():
     cols, ys = _cols_ys(8, 40, 32)
     n0 = ci.LAUNCHES["column_interp"]

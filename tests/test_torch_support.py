@@ -450,6 +450,34 @@ def test_log_marginal_likelihood_matches():
     assert torch.isnan(bad).all()
 
 
+@pytest.mark.parametrize("theta", [[10.0, 8.0, -30.0], [5.0, 8.0, -30.0],
+                                   [0.5, 0.0, -1.0]])
+def test_log_marginal_likelihood_pd_guard(theta):
+    """The PD guard, the default in both packages: duplicate inputs, a long
+    length scale and a vanishing noise make the float32 Gram c·11ᵀ, which
+    is not positive definite, and both give −inf; with ``pd_guard=False``
+    both give NaN. Where the Gram is PD (the last θ) the guarded values are
+    the unguarded ones, equal across the packages to 1e-5 relative."""
+    x = np.array([3.0, 3.0, 3.0, 7.0, 7.0, 11.0, 11.0, 11.0, 0.0, 0.0])
+    mask = np.arange(10) < 8
+    yc = np.where(mask, np.sin(x), 0.0)
+    nw = np.ones(10)
+    args_r = (rk.KernelSpec("RBF"), j32(x), j32(yc), jnp.asarray(mask),
+              j32(theta), j32(nw))
+    args_p = (pk.KernelSpec("RBF"), t32(x), t32(yc), torch.as_tensor(mask),
+              t32(theta), t32(nw))
+    ref = float(rgpr.log_marginal_likelihood(*args_r))
+    got = pgpr.log_marginal_likelihood(*args_p).item()
+    ref_nan = float(rgpr.log_marginal_likelihood(*args_r, pd_guard=False))
+    got_nan = pgpr.log_marginal_likelihood(*args_p, pd_guard=False).item()
+    if theta[2] == -30.0:
+        assert ref == got == -np.inf
+        assert np.isnan(ref_nan) and np.isnan(got_nan)
+    else:
+        assert np.isfinite(ref) and ref == ref_nan and got == got_nan
+        np.testing.assert_allclose(got, ref, rtol=1e-5)
+
+
 def test_optimize_lml_coarse_to_fine_branch():
     """Above 160 training points the fit screens and polishes on a
     stride-subsampled set, then re-polishes at full size from the coarse

@@ -1,21 +1,22 @@
 #!/usr/bin/env python3
-"""Where the time of K1 and K3 goes, phase by phase, on an NVIDIA GPU.
+"""Where the time of K1, K3 and K4 goes, phase by phase, on an NVIDIA GPU.
 
 Not collected by pytest. Run from the repository root on a machine with a
 CUDA card and ``nvcc``:
 
     python3 tests/torch_kernel_phases.py
 
-It copies ``csrc/fused_cost_kernel.cu`` and ``csrc/binning_2l_kernel.cu``
-into ``build/kernel_phases/``, adds a ``clock64()`` stamp after every line
-that carries a phase marker (``// phase: <name>``), builds the copies into
-their own libraries and, at the main path's shapes, prints the SM cycles
-from the previous stamp to each marker, read by thread 0 of every block,
-summed over the loops and averaged over the blocks (kept in registers
-and added to the global sums once per block, as the kernel returns). A
-stamp marks where thread 0 issues that point; a load is paid where its
-value is first used, so a phase that only issues loads looks short and
-the phase that reads them carries their latency. The same method as ``torch_chol_phases.py``,
+It copies ``csrc/fused_cost_kernel.cu``, ``csrc/binning_2l_kernel.cu`` and
+``csrc/binning_dense_kernel.cu`` into ``build/kernel_phases/``, adds a
+``clock64()`` stamp after every line that carries a phase marker
+(``// phase: <name>``), builds the copies into their own libraries and, at
+the main path's shapes, prints the SM cycles from the previous stamp to
+each marker, read by thread 0 of every block, summed over the loops and
+averaged over the blocks (kept in registers and added to the global sums
+once per block, as the kernel returns). A stamp marks where thread 0
+issues that point; a load is paid where its value is first used, so a
+phase that only issues loads looks short and the phase that reads them
+carries their latency. The same method as ``torch_chol_phases.py``,
 which stamps K5's and K6's block barriers in block 0.
 
 The shipped kernels are not changed; a stamp costs a few cycles, and the
@@ -78,8 +79,9 @@ def instrumented(name):
     src = (cuda_build.CSRC_DIR / f"{name}.cu").read_text()
     src = src.replace("#include <cuda_runtime.h>",
                       "#include <cuda_runtime.h>\n" + STAMP)
-    src, n = re.subn(r"(extern __shared__ float \w+\[\];)",
-                     r"\1\n  PhaseClock phase_clock;", src)
+    src, n = re.subn(
+        r"(extern __shared__ (?:__align__\(16\) )?float \w+\[\];)",
+        r"\1\n  PhaseClock phase_clock;", src)
     if n != 1:
         raise SystemExit(f"{name}.cu: expected one kernel with dynamic "
                          f"shared memory, found {n}")
@@ -130,8 +132,10 @@ def main() -> int:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     k1 = instrumented("fused_cost_kernel")
     k3 = instrumented("binning_2l_kernel")
+    k4 = instrumented("binning_dense_kernel")
     k1[0].gpet_fused_cost.argtypes = [P] * 6 + [I, I, I, F, I, I, I, I, P]
     k3[0].gpet_binning_2l.argtypes = [P] * 3 + [I] * 6 + [P]
+    k4[0].gpet_binning_dense.argtypes = [P] * 3 + [I] * 5 + [P]
 
     for E, M, S, transpose in ((1000, 1000, 10000, True),
                                (1000, 1000, 10000, False),
@@ -166,6 +170,18 @@ def main() -> int:
         print(f"[K3] E={E} S={S} M={M} ({plan['blocks']} blocks, "
               f"{plan['warps_per_col']} warps per column): {c} cycles per "
               f"block")
+    import chip_smoke as cs
+    for kind in ("walk", "one row", "outside"):
+        E = S = M = 1000
+        yn, wn = cs.kept_curves(rng, E, S, M, kind)
+        y, w = torch.tensor(yn, **f32), torch.tensor(wn, **f32)
+        H = torch.empty(M + 2, E, **f32)
+        plan = ck.k4_launch_plan(E, S, M)
+        c = phases(k4, lambda: k4[0].gpet_binning_dense(
+            y.data_ptr(), w.data_ptr(), H.data_ptr(), E, S, M, plan["tile"],
+            plan["cols"], stream()), plan["blocks"])
+        print(f"[K4] E=S=M=1000 {kind} ({plan['blocks']} blocks of "
+              f"{plan['cols']} columns): {c} cycles per block")
     return 0
 
 

@@ -1,15 +1,28 @@
 #!/usr/bin/env python3
-"""K1 and K3 against the design alternatives they were chosen over, on an
-NVIDIA GPU, at inputs taken from the traces themselves.
+"""The port's kernels against the designs they were chosen over, on an
+NVIDIA GPU: K1 and K3 at inputs taken from the traces themselves, K2 and
+K4 at ``chip_smoke.py``'s check shapes.
 
 Not collected by pytest. Run from the repository root on a machine with a
 CUDA card and ``nvcc``:
 
-    python3 tests/torch_kernel_variants.py
+    python3 tests/torch_kernel_variants.py [--only K1K3|K2K4]
+        [--previous DIR]
 
-It traces the README demo and the 1000² S=10⁴ config once each (seed 1,
-``chip_smoke.py``'s configurations), keeps the inputs of the fourth K1 and
-K3 launch of each, and times, as ``chip_smoke.cuda_ms`` does:
+``--previous DIR`` names the ``csrc`` directory of an earlier tree (for
+example one unpacked with ``git archive``): its ``column_interp_kernel.cu``
+and ``binning_dense_kernel.cu``, whose launchers take no launch plan, are
+built and timed beside the shipped K2 and K4 in the same run.
+
+K2 and K4: K2 at the odd-E trace's unfused cost (E=999, M=1000, S=10⁴),
+the odd demo shape (E=499, M=500, S=1000) and the final cost (S = 1),
+beside ``grid_sample``; K4 at the 1000² kept-curve shape and its worst
+cases, also with fewer columns per block than its plan's; each held
+bitwise to the plain version (K2) or the sequential plain version (K4).
+
+K1 and K3: it traces the README demo and the 1000² S=10⁴ config once each
+(seed 1, ``chip_smoke.py``'s configurations), keeps the inputs of the
+fourth K1 and K3 launch of each, and times, as ``chip_smoke.cuda_ms`` does:
 
 - K1 as shipped; with the interpolation taps read from device memory (L2)
   instead of the chunk's rows staged in shared memory; with IEEE square
@@ -124,9 +137,7 @@ def captured_inputs(dev):
     ci.fused_cost_cuda, ck.binning_2l_cuda = k1_spy, k3_spy
     inputs = {}
     try:
-        for tag, cfg in (("demo", cs.Config(
-                dev, (500, 500), 200,
-                {"kernel": "RBF", "sigma_f": 75, "length_scale": 20}, 1000)),
+        for tag, cfg in (("demo", cs.demo_config(dev)),
                          ("1000²", cs.big_config(dev))):
             for key in seen:
                 seen[key].clear()
@@ -205,12 +216,129 @@ def k1_plan(E, M, S, transpose, threads, per_sm):
         ci._K1_THREADS, ci._K1_BLOCKS_PER_SM = saved
 
 
-def main() -> int:
+K2_CASES = (("unfused cost E=999 M=1000 S=10⁴", (999, 1000, 10000)),
+            ("odd demo E=499 M=500 S=1000", (499, 500, 1000)),
+            ("final cost E=M=1000 S=1", (1000, 1000, 1)))
+# K4's plan at other columns per block than the shipped one.
+K4_COLS = (1, 2, 4, 8)
+K4_CASES = (("1000² kept curves E=S=M=1000", "walk"),
+            ("every sample in one row E=S=M=1000", "one row"),
+            ("every sample outside the image E=S=M=1000", "outside"))
+
+
+def previous_kernels(csrc):
+    """K2 and K4 built from an earlier tree's sources, with that tree's
+    launchers: (cols, ys, out, E, M, S, add_const, stream) and (y, w, H, E,
+    S, M, stream)."""
+    libs = {}
+    for name, fn, argtypes in (
+            ("column_interp_kernel", "gpet_column_interp",
+             [P, P, P, I, I, I, F, P]),
+            ("binning_dense_kernel", "gpet_binning_dense",
+             [P, P, P, I, I, I, P])):
+        OUT.mkdir(parents=True, exist_ok=True)
+        lib = cuda_build.compile_library(Path(csrc) / f"{name}.cu",
+                                         OUT / f"libprevious_{name}.so")
+        getattr(lib, fn).argtypes = argtypes
+        libs[fn] = getattr(lib, fn)
+    return libs
+
+
+def k2_k4(dev, previous):
+    """Shipped K2 and K4 (and, with ``previous``, the earlier tree's) at
+    their check shapes; returns the names of the runs that failed."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def stream():      # read at each call: cuda_ms captures on its own stream
+        return torch.cuda.current_stream().cuda_stream
+    failed = []
+    lib = cuda_build.library()
+    for case, (E, M, S) in K2_CASES:
+        cols = torch.tensor(rng.random((E, M)), **f32)
+        ys = torch.tensor(cs.curve_samples(rng, E, M, S), **f32)
+        ref = ci.column_interp_plain(cols, ys, 1e-3)
+        runs = {"shipped": lambda: ci.column_interp_cuda(cols, ys, 1e-3)}
+        if previous:
+            out = torch.empty_like(ys)
+
+            def old():
+                cuda_build.check(previous["gpet_column_interp"](
+                    cols.data_ptr(), ys.data_ptr(), out.data_ptr(), E, M, S,
+                    1e-3, stream()), "previous column_interp")
+                return out
+            runs["previous"] = old
+        runs["grid_sample"] = cs.grid_sample_interp(cols, ys, 1e-3)
+        for name, fn in runs.items():
+            got = fn()
+            torch.cuda.synchronize()
+            same = torch.equal(got, ref)
+            print(f"[K2 {case}] {name}: {cs.cuda_ms(fn):.4f} ms, bitwise "
+                  f"equal to the plain version: {same}")
+            if not same and name != "grid_sample":
+                failed.append(f"K2 {case} {name}")
+    for case, kind in K4_CASES:
+        yn, wn = cs.kept_curves(rng, 1000, 1000, 1000, kind)
+        y = torch.tensor(yn, **f32)
+        w = torch.tensor(wn, **f32)
+        seq = ck.column_binning_sequential(y, w, 1000)
+        runs = {"shipped": lambda: ck.binning_dense_cuda(y, w, 1000)}
+        if previous:
+            H = torch.empty(1002, 1000, **f32)
+
+            def old():
+                cuda_build.check(previous["gpet_binning_dense"](
+                    y.data_ptr(), w.data_ptr(), H.data_ptr(), 1000, 1000,
+                    1000, stream()), "previous binning_dense")
+                return H
+            runs["previous"] = old
+        for cols in K4_COLS:
+            Hc = torch.empty(1002, 1000, **f32)
+
+            def other(cols=cols, Hc=Hc):
+                cuda_build.check(lib.gpet_binning_dense(
+                    y.data_ptr(), w.data_ptr(), Hc.data_ptr(), 1000, 1000,
+                    1000, 1000, cols, stream()), "binning_dense")
+                return Hc
+            runs[f"shipped at {cols} columns per block"] = other
+        for name, fn in runs.items():
+            got = fn()
+            torch.cuda.synchronize()
+            same = torch.equal(got, seq)
+            print(f"[K4 {case}] {name}: {cs.cuda_ms(fn):.4f} ms, bitwise "
+                  f"equal to the sequential version: {same}")
+            if not same:
+                failed.append(f"K4 {case} {name}")
+    return failed
+
+
+def main(argv=None) -> int:
+    import argparse
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--only", choices=("K1K3", "K2K4"))
+    p.add_argument("--previous", help="an earlier tree's csrc directory")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_kernel_variants: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     print(f"[card] {cs.card_line()}")
+    failed = []
+    if args.only != "K1K3":
+        failed += k2_k4(dev, args.previous and previous_kernels(
+            args.previous))
+    if args.only != "K2K4":
+        failed += k1_k3(dev)
+    if failed:
+        print(f"torch_kernel_variants: FAILED {failed}")
+        return 1
+    return 0
+
+
+def k1_k3(dev):
+    """K1 and K3 against their variants on the traces' inputs; returns the
+    names of the runs that failed."""
     k1_src = (cuda_build.CSRC_DIR / "fused_cost_kernel.cu").read_text()
     k3_src = (cuda_build.CSRC_DIR / "binning_2l_kernel.cu").read_text()
     a = k3_src.index("      // Group order:")
@@ -249,10 +377,7 @@ def main() -> int:
             print(f"[{tag}]   K3 {name}: {ms:.4f} ms {'ok' if ok else 'FAIL'}")
             if not ok:
                 failed.append(f"{tag} K3 {name}")
-    if failed:
-        print(f"torch_kernel_variants: FAILED {failed}")
-        return 1
-    return 0
+    return failed
 
 
 if __name__ == "__main__":

@@ -7,6 +7,12 @@ Run from the repository root on a CPU (about 75 s per replayed seed and
     JAX_PLATFORMS=cpu python tests/torch_reference_1000.py --seeds 1 2 3 \
         --reference-only 4 5 6 7 8 9 10
 
+``--right-end 998`` puts the right endpoint at column 998 instead of the
+last one, so the edge length E = 999 is odd and both packages score the
+curves on their unfused path (column interpolation, then the Simpson sums
+with their even-count tails); MSE and DICE are then taken against the true
+edge's first 999 columns.
+
 For each seed of ``--seeds`` the reference's loop (``trace_step``) and the
 port's (``_iteration``, on the reference's data with the reference's draws
 replayed by ``torch_parity.JaxDraws``) run one iteration at a time, then
@@ -144,6 +150,7 @@ def lockstep(cfg, data, state0):
 
 
 def run_seed(seed, edge, grad, init, replay):
+    edge = edge[:init[1, 0] + 1]
     cfg = rd.make_config(init, grad.shape, **dict(BIG_KW, seed=seed))
     data = rd.make_data(cfg, jnp.asarray(grad), jnp.asarray(init))
     state0 = rd.init_state(cfg)
@@ -178,15 +185,19 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seeds", type=int, nargs="*", default=[1, 2, 3])
     p.add_argument("--reference-only", type=int, nargs="*", default=[])
+    p.add_argument("--right-end", type=int, default=999,
+                   help="column of the right endpoint (999: the last)")
     args = p.parse_args(argv)
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     batched_reference_fit()
     _, edge, grad, init = big_problem()
+    init = edge[[0, args.right_end]][:, [1, 0]]
     rows = []
     for seed, replay in ([(s, True) for s in args.seeds]
                          + [(s, False) for s in args.reference_only]):
         row = run_seed(seed, edge, grad, init, replay)
+        row["edge_length"] = int(init[1, 0]) + 1
         print(json.dumps(row), flush=True)
         rows.append(row)
     peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**10
