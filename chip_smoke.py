@@ -49,10 +49,41 @@ Phases, one line or more each; any failure exits non-zero:
 6. one ``torch.profiler`` trace of each configuration: device busy and idle
    share, the top device operations, K1, K2, K3, K5 and K6 per launch, K1 +
    K3 device time per trace, the device time of the unfused path's passes
-   (``line_and_arc``, the Simpson tail, ``best_curves`` and its column
-   take), the final fit's (``finish_trace``) host time and share of the
-   wall time, and peak memory;
-7. one JSON line of kernel results, the card line again, and as the last
+   (``line_and_arc``, the Simpson tail, ``best_curves`` and its row or
+   column take), the final fit's (``finish_trace``) host time and share of
+   the wall time, and peak memory;
+7. K1 (with and without its transposed copy, and with the columns shared
+   by the frames), K2 (S = 10⁴ at an odd E, and S = 1) and K3 over 16
+   frames in one launch: every frame bitwise equal to its own single-frame
+   launch, the launch timed against 16 single launches beside the bound;
+8. the serving modes through ``parallel.sharded``, each frame against its
+   single trace on the card in the same phase (where a frame differs, the
+   batch and the single trace are stepped in lockstep to the first
+   iteration that differs and the score gap of the two pixels is logged;
+   the phase fails unless it is a near-tie, relative 1e-5, or the loops
+   agree and the two final fits reach one LML within 1e-3 relative with
+   integer traces at most a pixel apart, and unless the DICE gates hold),
+   launches per batch (K1 and K3 once per loop iteration, K2
+   once where K1 scores, K5/K6 as often as one trace's final fit), DICE
+   gates, a determinism rerun, peak memory and the warm wall time per
+   trace beside a single trace's:
+   - ``batch_demo_B16``: the demo config on the 16 images of
+     ``bench.py:148-156`` (image seeds 1-16), tracer seed 1; gate median
+     DICE > 0.97 (the JAX package's own batch row reads 0.9841 on them,
+     ``BENCH_r05.json:44``), with a profiled batch (device busy and idle
+     share);
+   - ``batch_1000_B4`` and ``batch_1000_oddE_B4``: the 1000² config on
+     image seeds 1-4 at E = 1000 and E = 999; gates median > 0.90, every
+     frame > 0.85 (``BIG_BATCH_GATES``: the JAX package itself reads DICE
+     0.9087-0.9753 on image seeds 2 and 4), and every frame within 0.005
+     of its single trace's DICE;
+   - ``ensemble_demo_K5``: best-of-5 on the demo image through
+     ``GP_Edge_Tracing(...)(ensemble=5)``; member 0 is the single seed-1
+     trace, the chosen member the argmin of the final costs, DICE > 0.97;
+   - ``multi_edge``: two boundaries of one 500² multi-sinusoidal image
+     through ``trace_multi_edge``, each edge equal to the tiled image's
+     ``trace_batch`` and DICE > 0.97;
+9. one JSON line of kernel results, the card line again, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -73,6 +104,28 @@ import numpy as np
 DEMO_SEEDS = (1, 2, 3)
 BIG_SEEDS = (1, 2, 3)
 ODD_SEEDS = (1, 2, 3)
+# The serving modes: frames per kernel check, the batches' image seeds (the
+# demo batch is bench.py:148-156's), the ensemble's members.
+FRAMES = 16
+BATCH_DEMO_IMAGES = tuple(range(1, 17))
+BATCH_BIG_IMAGES = (1, 2, 3, 4)
+# DICE gates (median, every frame) of the 1000² batches. Image seeds 2 and 4
+# are harder than seed 1 for the algorithm itself: the JAX package reads
+# DICE 0.9753 / 0.9303 on image seed 2 and 0.9087 / 0.9271 on image seed 4
+# (tracer seeds 1 / 2, E = 1000, on a CPU: tests/torch_reference_1000.py
+# --image-seed). Each frame is also held to its own single trace
+# (SINGLE_DICE_GAP).
+BIG_BATCH_GATES = (0.90, 0.85)
+ENSEMBLE_K = 5
+# Where a batch frame and its single trace first accept different pixels,
+# the two pixels' scores must lie within this relative gap; where they
+# accept the same pixels, their final fits must reach the same LML within
+# this relative bound.
+NEAR_TIE = 1e-5
+FINAL_FIT_LML = 1e-3
+# A batch frame's DICE may differ from its single trace's by this much (the
+# final fits' rounding moves a few columns by one pixel).
+SINGLE_DICE_GAP = 0.005
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
 # device memory bytes/s and float32 operations/s outside the tensor cores.
@@ -138,19 +191,22 @@ def bound(n_bytes, n_ops):
 # Work of each kernel's function at its shape: (bytes, float32 operations).
 # Each input is read once and each output written once; operations are
 # counted from the kernels' arithmetic per element.
-def work_k1(E, M, S, transpose):
-    return 4 * (E * M + E * S + 2 * S + (S * E if transpose else 0)), \
-        23 * E * S
+# B frames: B times the work, the columns read once where the frames share
+# them.
+def work_k1(E, M, S, transpose, B=1, shared=False):
+    per = E * S + 2 * S + (S * E if transpose else 0)
+    return 4 * (E * M * (1 if shared else B) + B * per), 23 * E * S * B
 
 
-def work_k2(E, M, S):
+def work_k2(E, M, S, B=1, shared=False):
     # The lerp touches at most two entries of cols per sample.
-    return 4 * (2 * E * S + min(E * M, 2 * E * S)), 8 * E * S
+    cols = min(E * M, 2 * E * S) * (1 if shared else B)
+    return 4 * (2 * E * S * B + cols), 8 * E * S * B
 
 
-def work_binning(E, S, M):
+def work_binning(E, S, M, B=1):
     # The adjoint: two taps of ~10 operations per sample.
-    return 4 * (E * S + S + (M + 2) * E), 10 * E * S
+    return 4 * B * (E * S + S + (M + 2) * E), 10 * E * S * B
 
 
 # K5 and K6 need only the lower triangle of their input, n(n+1)/2 entries;
@@ -167,6 +223,7 @@ class Checks:
     def __init__(self):
         self.failed = []
         self.kernels = {}
+        self.frames = {}
 
     def record(self, kernel, case, err, tol, ok, ms, plain_ms, work,
                library_ms=None, main=False, also_main=False):
@@ -509,6 +566,83 @@ def check_chol(checks, rng, f32, dev):
             work=work_k6(B, n, m), main=main)
 
 
+def frames_case(checks, kernel, case, batch, single, work):
+    """``batch()`` launches ``kernel`` once over FRAMES frames and
+    ``single(f)`` once on frame f, each returning a tuple of outputs. Every
+    frame of the batch must equal its single launch bit for bit; the one
+    launch is timed against FRAMES single launches (``cuda_ms``)."""
+    import torch
+    out = batch()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a[f], b) for f in range(FRAMES)
+               for a, b in zip(out, single(f)))
+    ms = cuda_ms(batch)
+    singles_ms = cuda_ms(lambda: [single(f) for f in range(FRAMES)])
+    b_ms, b_by = bound(*work)
+    checks.frames.setdefault(kernel, []).append({
+        "case": case, "frames": FRAMES, "bitwise_equal_to_single": same,
+        "ms": ms, "single_launches_ms": singles_ms, "bound_ms": b_ms,
+        "bound_by": b_by})
+    log(f"[frames] {kernel} {case}, {FRAMES} frames: each frame bitwise "
+        f"equal to its single launch: {same}; one launch {ms:.4f} ms, "
+        f"{FRAMES} single launches {singles_ms:.4f} ms "
+        f"({singles_ms / ms:.2f}x), bound {b_ms:.4g} ms ({b_by})")
+    if not same:
+        checks.failed.append(f"{kernel} {case}: frames differ from single "
+                             f"launches")
+
+
+def check_frames(checks, rng, f32):
+    """K1, K2 and K3 over FRAMES frames at the serving paths' shapes."""
+    import torch
+    from gaussian_process_edge_trace_torch.ops import cuda_interp as ci
+    from gaussian_process_edge_trace_torch.trace import cuda_kde as ck
+    B = FRAMES
+
+    def frames(fn, *shape):
+        return torch.tensor(np.stack([fn(*shape) for _ in range(B)]), **f32)
+
+    for case, (E, M, S), transpose, shared in (
+            ("1000² E=M=1000 S=10⁴ +transpose", (1000, 1000, 10000), True,
+             False),
+            ("1000² E=M=1000 S=10⁴", (1000, 1000, 10000), False, False),
+            ("demo E=M=500 S=1000", (500, 500, 1000), False, False),
+            ("demo E=M=500 S=1000, shared columns", (500, 500, 1000), False,
+             True)):
+        cols = torch.tensor(rng.random((E, M) if shared else (B, E, M)),
+                            **f32)
+        ys = frames(lambda *a: curve_samples(rng, *a), E, M, S)
+        col = (lambda f: cols) if shared else (lambda f: cols[f])
+        frames_case(
+            checks, "K1", case,
+            lambda: ci.fused_cost_cuda(cols, ys, 1e-3,
+                                       with_transpose=transpose),
+            lambda f: ci.fused_cost_cuda(col(f), ys[f], 1e-3,
+                                         with_transpose=transpose),
+            work_k1(E, M, S, transpose, B, shared))
+    for case, (E, M, S) in (("unfused cost E=999 M=1000 S=10⁴",
+                             (999, 1000, 10000)),
+                            ("final cost E=M=1000 S=1", (1000, 1000, 1)),
+                            ("final cost E=M=500 S=1", (500, 500, 1))):
+        cols = torch.tensor(rng.random((B, E, M)), **f32)
+        ys = frames(lambda *a: curve_samples(rng, *a), E, M, S)
+        frames_case(checks, "K2", case,
+                    lambda: (ci.column_interp_cuda(cols, ys, 1e-3),),
+                    lambda f: (ci.column_interp_cuda(cols[f], ys[f], 1e-3),),
+                    work_k2(E, M, S, B))
+    for case, (E, S, M) in (("1000² kept curves E=S=M=1000",
+                             (1000, 1000, 1000)),
+                            ("demo kept curves E=500 S=100 M=500",
+                             (500, 100, 500))):
+        kept = [kept_curves(rng, E, S, M) for _ in range(B)]
+        y = torch.tensor(np.stack([k[0] for k in kept]), **f32)
+        w = torch.tensor(np.stack([k[1] for k in kept]), **f32)
+        frames_case(checks, "K3", case,
+                    lambda: (ck.binning_2l_cuda(y, w, M),),
+                    lambda f: (ck.binning_2l_cuda(y[f], w[f], M),),
+                    work_binning(E, S, M, B))
+
+
 def check_kernels(checks, dev):
     import torch
     rng = np.random.default_rng(0)
@@ -517,6 +651,7 @@ def check_kernels(checks, dev):
     check_k2(checks, rng, f32)
     check_binning(checks, rng, f32)
     check_chol(checks, rng, f32, dev)
+    check_frames(checks, rng, f32)
     # Release what the timing graphs left allocated before the traces, so
     # the traces' peak memory does not carry it: their pools, and the cuBLAS
     # workspace (32 MiB) made for the capture stream, which PyTorch keeps
@@ -553,12 +688,15 @@ class Config:
     endpoints are the true edge's first column and column ``right`` (the
     last by default), so the edge length E is right + 1 columns."""
 
-    def __init__(self, dev, size, amplitude, ko, n_samples, right=-1):
+    def __init__(self, dev, size, amplitude, ko, n_samples, right=-1,
+                 image_seed=1):
         import gaussian_process_edge_trace_torch as gpt
         self.img, self.true_edge = gpt.construct_test_img(
-            size, amplitude, 4, 0.05, "sinusoidal", 0.3, gaps=True)
+            size, amplitude, 4, 0.05, "sinusoidal", 0.3, gaps=True,
+            seed=image_seed)
         self.grad = gpt.comp_grad_img(
             self.img, gpt.kernel_builder((11, 5), unit=False), device=dev)
+        self.image_seed = image_seed
         self.init = self.true_edge[[0, right]][:, [1, 0]]
         self.E = int(self.init[1, 0] - self.init[0, 0]) + 1
         self.ko, self.n_samples, self.dev = ko, n_samples, dev
@@ -658,15 +796,16 @@ def traced(checks, tag, cfg, seeds, need, absent, gates):
     return launches
 
 
-def demo_config(dev):
+def demo_config(dev, image_seed=1):
     return Config(dev, (500, 500), 200,
-                  {"kernel": "RBF", "sigma_f": 75, "length_scale": 20}, 1000)
+                  {"kernel": "RBF", "sigma_f": 75, "length_scale": 20}, 1000,
+                  image_seed=image_seed)
 
 
-def big_config(dev, right=-1):
+def big_config(dev, right=-1, image_seed=1):
     return Config(dev, (1000, 1000), 400,
                   {"kernel": "RBF", "sigma_f": 200, "length_scale": 50},
-                  10000, right)
+                  10000, right, image_seed=image_seed)
 
 
 def pallas_binning_kde(checks, dev):
@@ -691,6 +830,407 @@ def pallas_binning_kde(checks, dev):
     if not ok:
         checks.failed.append("curve_kde with use_pallas_binning")
     return launches
+
+
+# --- the serving modes ---------------------------------------------------
+
+EXACT_FIELDS = ("edge_trace", "n_iters", "obs_x", "obs_y", "obs_valid")
+
+
+def differing_fields(a, b):
+    """The fields of EXACT_FIELDS in which two traces' results differ."""
+    import torch
+    return [f for f in EXACT_FIELDS
+            if not (torch.equal(getattr(a, f), getattr(b, f))
+                    if isinstance(getattr(a, f), torch.Tensor)
+                    else getattr(a, f) == getattr(b, f))]
+
+
+def score_grid(cfg, data, samples, f, blur):
+    """Frame ``f``'s pixel scores (gpet.py:582) of the iteration that drew
+    ``samples``: the ranking, curve KDE and score of ``_iteration``."""
+    from gaussian_process_edge_trace_torch.trace.kde import curve_kde
+    from gaussian_process_edge_trace_torch.trace.scoring import (
+        best_curves, curve_costs)
+    costs, samples_t = curve_costs(
+        data.grad_cols, samples, kde_thresh=cfg.kde_thresh,
+        even="avg" if cfg.legacy_simpson else "simpson",
+        return_samples_t=True)
+    bc, bcosts = best_curves(samples, costs, cfg.N_keep, samples_t=samples_t)
+    inv = 1.0 / bcosts
+    kde = curve_kde(bc, inv / inv.sum(-1, keepdim=True), cfg.M, cfg.N,
+                    cfg.x_st, blur=blur)
+    gk = data.grad_kde
+    return ((kde * gk + kde + gk) / 3.0)[f]
+
+
+def first_divergence(cfg, a, b):
+    """Step two batched traces in lockstep from their initial states, each
+    side ``(data, states, draws, frame)``, to the first iteration where the
+    two frames accept different pixels. Returns None if they never do, else
+    a dict: the iteration, the first bin that differs, each side's pixel
+    there and both pixels' scores in each side's grid, and the relative
+    score gap (an unoccupied bin's side contributes its threshold)."""
+    import torch
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    from gaussian_process_edge_trace_torch.trace.kde import blur_matrices
+    from gaussian_process_edge_trace_torch.trace.select import select_consts
+    dev = a[0].x_grid.device
+    blur = blur_matrices(cfg.M, cfg.N, torch.float32, dev)
+    consts = select_consts(cfg.bins, cfg.N, cfg.max_decays, dev)
+    states = [a[1], b[1]]
+    for k in range(cfg.max_iters):
+        act = [pd._active(cfg, s) for s in states]
+        if not any(bool(x[side[3]]) for x, side in zip(act, (a, b))):
+            return None
+        stepped = []
+        for i, (data, _, draws, f) in enumerate((a, b)):
+            z, w = draws.normals(k)
+            new, samples = pd._iteration(cfg, data, states[i], z, w, blur,
+                                         consts, k=k)
+            states[i] = pd._keep_finished(act[i], new, states[i])
+            stepped.append(samples)
+        obs = [(s.obs_x[side[3]], s.obs_y[side[3]], s.obs_valid[side[3]],
+                s.score_thresh[side[3]]) for s, side in zip(states, (a, b))]
+        diff = ((obs[0][0] != obs[1][0]) | (obs[0][1] != obs[1][1])
+                | (obs[0][2] != obs[1][2]))
+        if not bool(diff.any()):
+            continue
+        j = int(torch.nonzero(diff)[0])
+        grids = [score_grid(cfg, side[0], smp, side[3], blur)
+                 for side, smp in zip((a, b), stepped)]
+        pix = [(int(o[0][j]), int(o[1][j]), bool(o[2][j])) for o in obs]
+        scores = [[float(g[y, x]) for x, y, _ in pix] for g in grids]
+        gaps = []
+        for g, (sa, sb) in enumerate(scores):
+            va, vb = pix[0][2], pix[1][2]
+            if va and vb:
+                gaps.append(abs(sa - sb) / max(abs(sa), abs(sb), 1e-30))
+            else:         # one side left the bin empty: its threshold
+                t = float(obs[0 if not va else 1][3])
+                s_ = sa if va else sb
+                gaps.append(abs(s_ - t) / max(abs(t), 1e-30))
+        return {"iteration": k, "bin": j, "pixels (x, y, valid)": pix,
+                "scores in each side's grid": scores, "gap": max(gaps)}
+    return None
+
+
+def explain_difference(checks, tag, label, got, want, a, b, cfg):
+    """``got`` and ``want`` (two traces of one frame) differ: log where
+    and why. The phase fails unless their loops first differ at a near-tie
+    (relative gap <= NEAR_TIE), or the loops agree (the same pixels in the
+    same iterations) and the final fits, from the same training set, reach
+    the same LML within FINAL_FIT_LML relative and integer traces at most
+    one pixel apart: the fit's polish stops along a flat ridge of the LML
+    (ROADMAP queue 3), where rounding in another order moves θ."""
+    import torch
+    div = first_divergence(cfg, a, b)
+    if div is not None:
+        ok = div["gap"] <= NEAR_TIE
+        log(f"[{tag}] {label}: the loops first differ at {div} "
+            f"({'a near-tie' if ok else 'NOT a near-tie'}, bound "
+            f"{NEAR_TIE})")
+    else:
+        cols = torch.nonzero(got.edge_trace[:, 0] != want.edge_trace[:, 0])
+        dmean = (got.y_mean - want.y_mean).abs().max().item()
+        steps = (got.edge_trace[:, 0] - want.edge_trace[:, 0]).abs().max()
+        dlml = abs(got.lml.item() - want.lml.item()) / abs(want.lml.item())
+        ok = (dlml <= FINAL_FIT_LML and int(steps) <= 1
+              and got.n_iters == want.n_iters)
+        log(f"[{tag}] {label}: the loops agree; the final fits' LMLs "
+            f"{got.lml.item():.6f} vs {want.lml.item():.6f} ({dlml:.2e} "
+            f"relative, bound {FINAL_FIT_LML}), theta {got.theta.tolist()} "
+            f"vs {want.theta.tolist()}, mean curves up to {dmean:.4g} px "
+            f"apart, integer traces apart by up to {int(steps)} px in "
+            f"{cols.shape[0]} columns {cols[:, 0].tolist()[:12]} "
+            f"({'the same fit' if ok else 'NOT explained'})")
+    if not ok:
+        checks.failed.append(f"{tag} {label}: unexplained difference")
+
+
+def lift_single(tracer, dev):
+    """A single trace's side for :func:`first_divergence`: its data, its
+    initial state as a batch of one, its draws, frame 0."""
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    cfg, data = tracer.cfg, tracer.data
+    return (data, pd._lift(pd.init_state(cfg, dev, user_obs_xy=tracer.obs)),
+            pd.TorchDraws(cfg, data.L_prior_unit.shape[1], dev), 0)
+
+
+def warm_wall(fn, runs=3):
+    """Median host-clock ms of ``fn`` after a warm-up, ending in a
+    synchronise, and the runs."""
+    import torch
+    fn()
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls), walls
+
+
+def device_busy(fn):
+    """(device busy ms, profiled wall ms) of one profiled call of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(_device_us(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return busy, wall
+
+
+def check_launches(checks, tag, got, want):
+    log(f"[{tag}] launches {json.dumps(got)}, expected {json.dumps(want)}")
+    for k, n in want.items():
+        if got[k] != n:
+            checks.failed.append(f"{tag}: {k} launched {got[k]} times, "
+                                 f"{n} expected")
+
+
+def traced_batch(checks, tag, configs, gates, odd=False, profiled=False):
+    """The frames of ``configs`` (one image each, one config) through
+    ``trace_batch`` with tracer seed 1, against each frame's single trace
+    on the card: launches, frames equal to their singles (or explained),
+    each frame's DICE within SINGLE_DICE_GAP of its single trace's, DICE
+    gates (median, and every frame unless None), a rerun, peak memory, and
+    the warm wall time per trace beside the single trace's. Returns the
+    launches."""
+    import torch
+    import gaussian_process_edge_trace_torch as gpt
+    from gaussian_process_edge_trace_torch.parallel import (
+        make_batch_data, make_batch_state, trace_batch)
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    B = len(configs)
+    dev = configs[0].dev
+    tracers = [c.tracer(1) for c in configs]
+    cfg = tracers[0].cfg
+    grads = torch.stack([c.grad for c in configs])
+    inits = np.stack([c.init for c in configs])
+
+    def run():
+        data = make_batch_data(cfg, grads, inits)
+        return trace_batch(cfg, data, make_batch_state(cfg, B, dev))
+
+    singles = []
+    for i, c in enumerate(configs):
+        reset_counts()
+        singles.append(c.trace(1)[2])
+        if i == 0:
+            one = read_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_counts()
+    res = run()
+    torch.cuda.synchronize()
+    got = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_max = int(res.n_iters.max())
+    want = {"K1": 0 if odd else n_max,
+            "K1_transpose": n_max if cfg.N_samples >= 8192 and not odd
+            else 0,
+            "K2": n_max + 1 if odd else 1, "K3": n_max, "K4": 0,
+            "K5": one["K5"], "K6": one["K6"]}
+    check_launches(checks, tag, got, want)
+    log(f"[{tag}] n_iters {res.n_iters.tolist()}; one single trace "
+        f"launched {json.dumps(one)}")
+    log(f"[{tag}] peak device memory (max_memory_allocated): {peak} bytes "
+        f"({peak / 2**20:.1f} MiB; {before / 2**20:.1f} MiB of it allocated "
+        f"before the batch)")
+    data = make_batch_data(cfg, grads, inits)
+    dices = []
+    for f, (c, single) in enumerate(zip(configs, singles)):
+        frame = pd.frame_of(res, f)
+        diff = differing_fields(frame, single)
+        dice = c.report(checks, f"{tag} frame {f} (image seed "
+                        f"{c.image_seed})", 1,
+                        (frame.edge_trace.cpu().numpy(),
+                         frame.cred_interval.cpu().numpy(), frame))
+        dices.append(dice)
+        solo = gpt.trace_dicecoef(single.edge_trace.cpu().numpy(),
+                                  c.true_edge[:c.E])
+        log(f"[{tag}] frame {f}: equal to its single trace: "
+            f"{not diff}{'' if not diff else f' (differs in {diff})'}; the "
+            f"single trace's DICE {solo}")
+        if abs(dice - solo) > SINGLE_DICE_GAP:
+            checks.failed.append(f"{tag} frame {f}: DICE {dice} against its "
+                                 f"single trace's {solo}")
+        if diff:
+            explain_difference(
+                checks, tag, f"frame {f}", frame, single,
+                (data, make_batch_state(cfg, B, dev),
+                 pd.TorchDraws(cfg, data.L_prior_unit.shape[1], dev), f),
+                lift_single(tracers[f], dev), cfg)
+    median = float(np.median(dices))
+    ok = median > gates[0] and (gates[1] is None or min(dices) > gates[1])
+    log(f"[{tag}] DICE median={median} min={min(dices)} (gates: median > "
+        f"{gates[0]}, every frame > {gates[1]}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        checks.failed.append(f"{tag} DICE gates")
+    again = run()
+    same = torch.equal(again.edge_trace, res.edge_trace)
+    log(f"[{tag}] rerun identical: {same}")
+    if not same:
+        checks.failed.append(f"{tag} rerun differs")
+    batch_ms, batch_runs = warm_wall(run)
+    single_ms, single_runs = warm_wall(lambda: configs[0].trace(1))
+    log(f"[{tag}] warm wall time (median of 3 after warm-up): batch of {B} "
+        f"{batch_ms:.2f} ms, {batch_ms / B:.2f} ms per trace (runs "
+        f"{[round(w, 2) for w in batch_runs]}); one trace (image seed "
+        f"{configs[0].image_seed}) {single_ms:.2f} ms (runs "
+        f"{[round(w, 2) for w in single_runs]}); "
+        f"{single_ms * B / batch_ms:.2f} traces in the batch's time per "
+        f"single trace's")
+    if profiled:
+        busy, wall = device_busy(run)
+        log(f"[{tag}] profiled batch: device busy {busy:.3f} ms of "
+            f"{wall:.2f} ms ({busy / B:.3f} ms per trace): idle "
+            f"{100 * (1 - busy / batch_ms):.1f}% of the unprofiled "
+            f"{batch_ms:.2f} ms, {100 * (1 - busy / wall):.1f}% of the "
+            f"profiled")
+    return got
+
+
+def ensemble_phase(checks, dev):
+    """Best-of-ENSEMBLE_K on the demo image through
+    ``GP_Edge_Tracing(...)(ensemble=K)``: launches, member 0 against the
+    single seed-1 trace, the chosen member the argmin of the final costs
+    (NaN as +inf), its DICE > 0.97. Returns the launches."""
+    import torch
+    import gaussian_process_edge_trace_torch as gpt
+    from gaussian_process_edge_trace_torch.parallel import trace_ensemble
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    tag = f"ensemble_demo_K{ENSEMBLE_K}"
+    c = demo_config(dev)
+    tracer = c.tracer(1)
+    single = c.trace(1)[2]
+    reset_counts()
+    edge, _ = tracer(ensemble=ENSEMBLE_K)
+    torch.cuda.synchronize()
+    got = read_counts()
+    chosen = tracer.last_result
+    cfg, data = tracer.cfg, tracer.data
+    state0 = pd.init_state(cfg, dev)
+    _, every = trace_ensemble(cfg, data, state0, n_seeds=ENSEMBLE_K,
+                              return_all=True)
+    n_max = int(every.n_iters.max())
+    reset_counts()
+    c.trace(1)
+    one = read_counts()
+    check_launches(checks, tag, got, {
+        "K1": n_max, "K1_transpose": 0, "K2": 1, "K3": n_max, "K4": 0,
+        "K5": one["K5"], "K6": one["K6"]})
+    costs = every.final_cost
+    pick = int(torch.argmin(torch.where(torch.isnan(costs),
+                                        torch.full_like(costs, torch.inf),
+                                        costs)))
+    dices = [gpt.trace_dicecoef(every.edge_trace[k].cpu().numpy(),
+                                c.true_edge[:c.E]) for k in range(ENSEMBLE_K)]
+    log(f"[{tag}] members' n_iters {every.n_iters.tolist()}, final costs "
+        f"{costs.tolist()}, DICE {dices}; chosen member {pick}")
+    if not (np.array_equal(edge, every.edge_trace[pick].cpu().numpy())
+            and float(chosen.final_cost) == float(costs[pick])):
+        checks.failed.append(f"{tag}: the chosen member is not the argmin")
+    member0 = pd.frame_of(every, 0)
+    diff = differing_fields(member0, single)
+    log(f"[{tag}] member 0 equal to the single seed-1 trace: {not diff}"
+        f"{'' if not diff else f' (differs in {diff})'}")
+    if diff:
+        draws = pd.FrameDraws([pd.TorchDraws(
+            cfg, data.L_prior_unit.shape[1], dev, member=k)
+            for k in range(ENSEMBLE_K)])
+        states = pd.TraceState(*(
+            torch.full((ENSEMBLE_K,), v, dtype=torch.int64, device=dev)
+            if k == "it" else v.expand((ENSEMBLE_K,) + v.shape)
+            for k, v in state0._asdict().items()))
+        explain_difference(checks, tag, "member 0", member0, single,
+                           (data, states, draws, 0), lift_single(tracer, dev),
+                           cfg)
+    dice = gpt.trace_dicecoef(edge, c.true_edge[:c.E])
+    log(f"[{tag}] chosen member's DICE {dice} (gate > 0.97) "
+        f"{'ok' if dice > 0.97 else 'FAIL'}")
+    if not dice > 0.97:
+        checks.failed.append(f"{tag} DICE gate")
+    return got
+
+
+# The multi-edge image: two 250×500 bands stacked, each with one sinusoidal
+# boundary (image seeds 2 and 3), so the edges lie ~250 rows apart. On
+# construct_test_img's "multi-sinusoidal" image (the second boundary A/2
+# below the first) one edge's trace falls largely onto the other boundary
+# at 500², whatever the intensity, curvature, kernel or warm start: the
+# algorithm's, in both packages (tests/torch_multi_edge_images.py).
+MULTI_EDGE_BAND = dict(size=(250, 500), amplitude=100, curvature=4,
+                       noise_level=0.05, ltype="sinusoidal", intensity=0.3,
+                       gaps=False)
+
+
+def multi_edge_image():
+    """(image, [edge 0, edge 1]) of the two-band multi-edge image."""
+    import gaussian_process_edge_trace_torch as gpt
+    (top, e0), (bottom, e1) = (gpt.construct_test_img(**MULTI_EDGE_BAND,
+                                                      seed=s)
+                               for s in (2, 3))
+    return np.concatenate([top, bottom]), [e0, e1 + [top.shape[0], 0]]
+
+
+def multi_edge_phase(checks, dev):
+    """Two boundaries of one image through ``trace_multi_edge`` (the demo
+    config): launches, each edge equal to the tiled image's
+    ``trace_batch``, each edge's DICE > 0.97. Returns the launches."""
+    import torch
+    import gaussian_process_edge_trace_torch as gpt
+    from gaussian_process_edge_trace_torch.parallel import (
+        make_batch_data, make_batch_state, trace_batch, trace_multi_edge)
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    tag = "multi_edge"
+    img, edges = multi_edge_image()
+    N = img.shape[1]
+    inits = np.asarray([[[0, e[0, 0]], [N - 1, e[N - 1, 0]]] for e in edges])
+    grad = gpt.comp_grad_img(img, gpt.kernel_builder((11, 5), unit=False),
+                             device=dev)
+    cfg = pd.make_config(inits[0], (500, 500), {
+        "kernel": "RBF", "sigma_f": 75, "length_scale": 20}, N_samples=1000,
+        delta_x=5, keep_ratio=0.1, pixel_thresh=5, seed=1)
+    reset_counts()
+    res = trace_multi_edge(cfg, grad, inits)
+    torch.cuda.synchronize()
+    got = read_counts()
+    n_max = int(res.n_iters.max())
+    reset_counts()
+    tiled_data = make_batch_data(cfg, torch.stack([grad, grad]), inits)
+    tiled = trace_batch(cfg, tiled_data, make_batch_state(cfg, 2, dev))
+    one = read_counts()
+    check_launches(checks, tag, got, {
+        "K1": n_max, "K1_transpose": 0, "K2": 1, "K3": n_max, "K4": 0,
+        "K5": one["K5"], "K6": one["K6"]})
+    shared = pd.TracerData(**{k: (v[0] if k in ("grad_img", "grad_kde",
+                                                "grad_cols") else v)
+                              for k, v in tiled_data._asdict().items()})
+    draws = pd.TorchDraws(cfg, shared.L_prior_unit.shape[1], dev)
+    for f in range(2):
+        a, b = pd.frame_of(res, f), pd.frame_of(tiled, f)
+        diff = differing_fields(a, b)
+        dice = gpt.trace_dicecoef(a.edge_trace.cpu().numpy(), edges[f])
+        log(f"[{tag}] edge {f}: n_iters {a.n_iters}, DICE {dice} (gate > "
+            f"0.97); equal to the tiled image's batch: {not diff}"
+            f"{'' if not diff else f' (differs in {diff})'}")
+        if diff:
+            explain_difference(
+                checks, tag, f"edge {f}", a, b,
+                (shared, make_batch_state(cfg, 2, dev), draws, f),
+                (tiled_data, make_batch_state(cfg, 2, dev), draws, f), cfg)
+        if not dice > 0.97:
+            checks.failed.append(f"{tag} edge {f} DICE gate")
+    return got
 
 
 def _device_us(evt):
@@ -809,8 +1349,8 @@ def profile(checks, tag, cfg, seed):
                 f"{us / 1e3:.3f} ms per trace")
         if a == "best_curves":
             take = sum(_subtree_us(c) for e in evts for c in e.cpu_children
-                       if c.name == "aten::index_select")
-            line += f" (its index_select {take / 1e3:.3f} ms)"
+                       if c.name == "aten::take_along_dim")
+            line += f" (its take_along_dim {take / 1e3:.3f} ms)"
         log(line)
 
 
@@ -884,6 +1424,22 @@ def main() -> int:
         paths[path] = traced(checks, tag, cfg, seeds, need, absent, gates)
         configs[tag] = (cfg, seeds[0])
     paths["curve_kde_pallas_binning"] = pallas_binning_kde(checks, dev)
+    # The serving modes: each frame against its own single trace, gates
+    # (median, every frame; the demo batch's every-frame gate is its log).
+    for path, make, images, gates, odd in (
+            ("batch_demo_B16", demo_config, BATCH_DEMO_IMAGES, (0.97, None),
+             False),
+            ("batch_1000_B4", big_config, BATCH_BIG_IMAGES, BIG_BATCH_GATES,
+             False),
+            ("batch_1000_oddE_B4", lambda d, image_seed: big_config(
+                d, right=-2, image_seed=image_seed), BATCH_BIG_IMAGES,
+             BIG_BATCH_GATES, True)):
+        frames = [make(dev, image_seed=i) for i in images]
+        paths[path] = traced_batch(checks, path, frames, gates, odd=odd,
+                                   profiled=path == "batch_demo_B16")
+        del frames
+    paths[f"ensemble_demo_K{ENSEMBLE_K}"] = ensemble_phase(checks, dev)
+    paths["multi_edge"] = multi_edge_phase(checks, dev)
     for tag, (cfg, seed) in configs.items():
         profile(checks, tag, cfg, seed)
 
@@ -908,7 +1464,8 @@ def main() -> int:
             "timed_case": main_case["case"],
             "main_path_cases": [
                 {f: c[f] for f in ("case", "ms", "plain_ms", "bound_ms")}
-                for c in k["cases"] if c["main"] or c["also_main"]]})
+                for c in k["cases"] if c["main"] or c["also_main"]],
+            "frames_cases": checks.frames.get(key, [])})
     if checks.failed:
         log(f"chip_smoke: FAILED: {checks.failed}")
         return 1

@@ -19,6 +19,11 @@
 // a column's 63 row-block threads scan all of its samples (63,000 serial
 // steps per column to place 2,000 taps).
 //
+// Frames: y may hold B frames, (B, E, S), with w (B, S) and H (B, M+2, E).
+// The frame is gridDim.y and only offsets the pointers; the plan comes from
+// (E, S, M) alone, so each frame's rows are summed in the order of a
+// single-frame launch, bit for bit.
+//
 // Design (the launch plan is trace/cuda_kde.py::k3_launch_plan):
 // - A block holds `cols` columns (4, fewer only for tall M); a column has
 //   `warps_per_col` warps, each with its own range of whole batches of 32
@@ -61,6 +66,10 @@ __global__ void binning_2l_kernel(const float* __restrict__ y,
                                   int cols, int warps_per_col,
                                   int batches_per_warp) {
   extern __shared__ float smem[];
+  const size_t frame = blockIdx.y;
+  y += frame * E * S;
+  w += frame * S;
+  H += frame * (M + 2) * E;
   const int R = M + 3;  // accumulator rows of one warp
   const int nwarps = cols * warps_per_col;
   int* xlo = reinterpret_cast<int*>(smem);  // [nwarps][32]: keys, group order
@@ -174,7 +183,9 @@ extern "C" int gpet_binning_2l_smem(int M, int cols, int warps_per_col) {
 
 extern "C" int gpet_binning_2l(const float* y, const float* w, float* H, int E,
                                int S, int M, int cols, int warps_per_col,
-                               int batches_per_warp, void* stream) {
+                               int batches_per_warp, int frames,
+                               void* stream) {
+  if (frames < 1 || frames > 65535) return (int)cudaErrorInvalidValue;
   const int smem = gpet_binning_2l_smem(M, cols, warps_per_col);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -182,8 +193,8 @@ extern "C" int gpet_binning_2l(const float* y, const float* w, float* H, int E,
     if (err != cudaSuccess) return (int)err;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  binning_2l_kernel<<<(E + cols - 1) / cols, cols * warps_per_col * 32, smem,
-                      st>>>(y, w, H, E, S, M, cols, warps_per_col,
-                            batches_per_warp);
+  binning_2l_kernel<<<dim3((E + cols - 1) / cols, frames),
+                      cols * warps_per_col * 32, smem, st>>>(
+      y, w, H, E, S, M, cols, warps_per_col, batches_per_warp);
   return (int)cudaGetLastError();
 }

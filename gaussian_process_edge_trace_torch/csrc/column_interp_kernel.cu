@@ -7,6 +7,12 @@
 //
 //   out[e, s] = lerp(cols[e, :], clip(ys[e, s], 0, M-1)) + add_const
 //
+// Frames: ys may hold B frames, (B, E, S), each with its own (E, M) columns
+// or all sharing one (cols_shared: the frames of a multi-edge trace). The
+// frames' rows simply follow each other, B*E rows in all; the arithmetic of
+// an element does not depend on B, so a frame's output is bitwise that of a
+// single-frame launch.
+//
 // Where the path runs it: the curve cost of every iteration whose edge
 // length E is odd (K1 serves only an even E), over the whole (E, S) sample
 // grid (E = 999, M = 1000, S = 10^4 on the 1000^2 config with its right
@@ -55,33 +61,44 @@ __device__ __forceinline__ float lerp_col(const float* row, float yv, int M,
   return add_const != 0.0f ? __fadd_rn(res, add_const) : res;
 }
 
+// Row r of the B*E rows reads column r, or r % E where the frames share
+// one (E, M) set of columns.
+__device__ __forceinline__ const float* col_of(const float* cols, int r,
+                                               int E, int M,
+                                               int cols_shared) {
+  return cols + (size_t)(cols_shared ? r % E : r) * M;
+}
+
 __global__ void column_interp_flat_kernel(const float* __restrict__ cols,
                                           const float* __restrict__ ys,
                                           float* __restrict__ out, int total,
-                                          int M, int S, float add_const) {
+                                          int E, int M, int S,
+                                          float add_const, int cols_shared) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
-  const int e = idx / S;
-  out[idx] = lerp_col(cols + (size_t)e * M, ys[idx], M, add_const);
+  const int r = idx / S;
+  out[idx] = lerp_col(col_of(cols, r, E, M, cols_shared), ys[idx], M,
+                      add_const);
 }
 
-// gridDim = (E, tiles): block (e, t) takes samples [t*span, (t+1)*span) of
-// row e. vec: ys and out share their 16-byte phase, so float4 is usable.
+// gridDim = (B*E, tiles): block (r, t) takes samples [t*span, (t+1)*span)
+// of row r. vec: ys and out share their 16-byte phase, so float4 is usable.
 __global__ void column_interp_tiled_kernel(const float* __restrict__ cols,
                                            const float* __restrict__ ys,
-                                           float* __restrict__ out, int M,
-                                           int S, int span, float add_const,
-                                           int vec) {
+                                           float* __restrict__ out, int E,
+                                           int M, int S, int span,
+                                           float add_const, int vec,
+                                           int cols_shared) {
   extern __shared__ __align__(16) float row[];
-  const int e = blockIdx.x;
+  const int r = blockIdx.x;
   const int s_b = blockIdx.y * span;
   const int n = min(S, s_b + span) - s_b;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  cp_async_row(row, cols + (size_t)e * M, M, tid, nt);
+  cp_async_row(row, col_of(cols, r, E, M, cols_shared), M, tid, nt);
 
-  const float* yr = ys + (size_t)e * S + s_b;
-  float* orow = out + (size_t)e * S + s_b;
+  const float* yr = ys + (size_t)r * S + s_b;
+  float* orow = out + (size_t)r * S + s_b;
   const int head =
       vec ? min(n, (int)(((16 - (reinterpret_cast<uintptr_t>(yr) & 15)) & 15)
                          >> 2))
@@ -119,17 +136,20 @@ extern "C" int gpet_column_interp_smem(int M, int tiled) {
   return tiled ? M * (int)sizeof(float) : 0;
 }
 
-// tiles == 0: the flat layout, ceil(E*S / threads) blocks; else the tiled
-// one, an (E, tiles) grid of blocks of span samples each.
+// tiles == 0: the flat layout, ceil(B*E*S / threads) blocks; else the tiled
+// one, a (B*E, tiles) grid of blocks of span samples each.
 extern "C" int gpet_column_interp(const float* cols, const float* ys,
                                   float* out, int E, int M, int S,
                                   float add_const, int tiles, int span,
-                                  int threads, void* stream) {
+                                  int threads, int frames, int cols_shared,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (frames < 1) return (int)cudaErrorInvalidValue;
   if (tiles == 0) {
-    const int total = E * S;
+    const int total = frames * E * S;
     column_interp_flat_kernel<<<(total + threads - 1) / threads, threads, 0,
-                                st>>>(cols, ys, out, total, M, S, add_const);
+                                st>>>(cols, ys, out, total, E, M, S,
+                                      add_const, cols_shared);
     return (int)cudaGetLastError();
   }
   const int smem = gpet_column_interp_smem(M, 1);
@@ -141,7 +161,7 @@ extern "C" int gpet_column_interp(const float* cols, const float* ys,
   }
   const int vec = ((reinterpret_cast<uintptr_t>(ys) ^
                     reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-  column_interp_tiled_kernel<<<dim3(E, tiles), threads, smem, st>>>(
-      cols, ys, out, M, S, span, add_const, vec);
+  column_interp_tiled_kernel<<<dim3(frames * E, tiles), threads, smem, st>>>(
+      cols, ys, out, E, M, S, span, add_const, vec, cols_shared);
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,14 @@
 // E must be even, so both quadratures have an odd point count and split into
 // (E-2)/2 pair windows: pair j covers rows 2j .. 2j+3.
 //
+// Frames: ys may hold B frames, (B, E, S), each with its own (E, M) columns
+// or all sharing one (the frames of a multi-edge trace: frame stride 0, no
+// copy); line/arc are then (B, S) and samples_t (B, S, E). The frame is
+// gridDim.z of both launches and only offsets the pointers: the chunks and
+// sample groups come from (E, M, S) alone, so every frame's sums are
+// bitwise those of a single-frame launch (the reference vmaps this kernel
+// over frames in trace_batch_vmap).
+//
 // What bounds it on this card: at E = M = 1000, S = 10^4 one call reads 40 MB
 // of ys and 4 MB of cols and, with the transposed copy, writes 40 MB more:
 // 13 us of bandwidth without the copy, 25 us with it. The two interpolation
@@ -99,10 +107,16 @@ __global__ void fused_cost_partial_kernel(const float* __restrict__ cols,
                                           float* __restrict__ samples_t, int E,
                                           int M, int S, float kde_thresh,
                                           int pairs_per_chunk,
-                                          int samples_per_block) {
+                                          int samples_per_block,
+                                          int cols_shared) {
   // The chunk's 2*np+1 rows of cols, then with samples_t one
   // (2*kPairs) x kTileLd transpose tile per warp.
   extern __shared__ float srow[];
+  const size_t frame = blockIdx.z;
+  cols += cols_shared ? 0 : frame * E * M;
+  ys += frame * E * S;
+  partial += frame * gridDim.y * 2 * S;
+  if (samples_t != nullptr) samples_t += frame * S * E;
   const int P = (E - 2) / 2;  // pair windows of each quadrature
   const int j0 = blockIdx.y * pairs_per_chunk;
   const int np = min(P, j0 + pairs_per_chunk) - j0;  // this chunk's pairs
@@ -214,6 +228,10 @@ __global__ void fused_cost_reduce_kernel(const float* __restrict__ partial,
                                          float* __restrict__ arc, int S,
                                          int n_chunks) {
   __shared__ float slice[kReduceRows][33];
+  const size_t frame = blockIdx.y;  // one frame per row of the grid
+  partial += frame * n_chunks * 2 * S;
+  line += frame * S;
+  arc += frame * S;
   const int i = blockIdx.x * 32 + threadIdx.x;
   const int k = i >= S;  // 0: line, 1: arc
   const int s = i - k * S;
@@ -249,8 +267,10 @@ extern "C" int gpet_fused_cost(const float* cols, const float* ys,
                                float* samples_t, int E, int M, int S,
                                float kde_thresh, int pairs_per_chunk,
                                int n_chunks, int samples_per_block,
-                               int threads, void* stream) {
-  if (pairs_per_chunk < 1 || pairs_per_chunk > kPairs)
+                               int threads, int frames, int cols_shared,
+                               void* stream) {
+  if (pairs_per_chunk < 1 || pairs_per_chunk > kPairs || frames < 1 ||
+      frames > 65535)
     return (int)cudaErrorInvalidValue;
   const int smem = gpet_fused_cost_smem(M, pairs_per_chunk, threads,
                                         samples_t != nullptr);
@@ -261,13 +281,15 @@ extern "C" int gpet_fused_cost(const float* cols, const float* ys,
     if (err != cudaSuccess) return (int)err;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((S + samples_per_block - 1) / samples_per_block, n_chunks);
+  dim3 grid((S + samples_per_block - 1) / samples_per_block, n_chunks,
+            frames);
   fused_cost_partial_kernel<<<grid, threads, smem, st>>>(
       cols, ys, partial, samples_t, E, M, S, kde_thresh, pairs_per_chunk,
-      samples_per_block);
+      samples_per_block, cols_shared);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  fused_cost_reduce_kernel<<<(2 * S + 31) / 32, dim3(32, kReduceRows), 0,
-                             st>>>(partial, line, arc, S, n_chunks);
+  fused_cost_reduce_kernel<<<dim3((2 * S + 31) / 32, frames),
+                             dim3(32, kReduceRows), 0, st>>>(
+      partial, line, arc, S, n_chunks);
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,10 @@
 given as plain Python scalars and numpy arrays — the caller does
 ``cfg._asdict()`` and ``jax.device_get(data._asdict())``. This system has no
 weights: the prior factor, the gradient image, its KDE and columns, and the
-loop state take their place. This module imports no JAX.
+loop state take their place. Batched data and states
+(``make_batch_data``/``make_batch_state``) carry over with their leading
+frame axis; a per-frame ``it`` becomes the batched state's (B,) tensor.
+This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ def from_reference(cfg_fields, data_arrays, state_arrays=None,
                          for k in TracerData._fields})
     if state_arrays is None:
         return cfg, data, None
-    s = {k: (int(np.asarray(v)) if k == "it" else _tensor(v, device))
+    s = {k: (int(np.asarray(v)) if k == "it" and np.ndim(v) == 0
+             else _tensor(v, device))
          for k, v in state_arrays.items() if k in TraceState._fields}
     return cfg, data, TraceState(**s)

@@ -8,7 +8,9 @@ reference leaves them to XLA; :func:`batched_lml` runs its factorisations and
 solves through the K5 and K6 kernels (:mod:`..ops.cuda_chol`).
 
 Scalars such as the variance stay 0-d tensors on the device, so a sampling
-round never waits for the host.
+round never waits for the host. Every function takes an optional leading
+frame axis: (B, n) training buffers give B fits at once, with the scalars
+then (B,) tensors, one per frame.
 """
 
 from __future__ import annotations
@@ -19,13 +21,14 @@ from typing import NamedTuple
 import torch
 
 from gaussian_process_edge_trace_torch.models.kernels import (
-    KernelSpec, cross_gram, dk_unit_dlog_ls, k_unit, train_gram)
+    KernelSpec, cross_gram, dk_unit_dlog_ls, k_unit, per_frame, train_gram)
 from gaussian_process_edge_trace_torch.ops.cuda_chol import (
     backward_solve_auto, cholesky_auto, forward_solve_auto)
 
 
 class GPState(NamedTuple):
-    """Posterior state after :func:`gp_fit`."""
+    """Posterior state after :func:`gp_fit` (a leading frame axis on
+    every field when fitted on frames)."""
     L: torch.Tensor       # (n, n) lower Cholesky of the masked Gram
     alpha: torch.Tensor   # (n,) dual coefficients (0 at padded slots)
     x: torch.Tensor       # (n,) training inputs
@@ -34,32 +37,38 @@ class GPState(NamedTuple):
 
 
 def safe_cholesky(K, jitter_scales=(0.0, 1e-5, 1e-3)):
-    """Lower Cholesky with a branchless jitter ladder: every candidate
-    ``K + jitter·mean(diag K)·I`` is factored in one batched call and the
-    first that factored (``info == 0``) is taken; if none did, the last.
+    """Lower Cholesky of each (n, n) matrix of ``K`` (..., n, n) with a
+    branchless jitter ladder: every candidate ``K + jitter·mean(diag K)·I``
+    is factored in one batched call and each matrix takes the first of its
+    own that factored (``info == 0``); if none did, the last.
     ``cholesky_ex`` leaves finite garbage where a factorisation fails, so
     its ``info``, not the diagonal, decides."""
     n = K.shape[-1]
     eye = torch.eye(n, dtype=K.dtype, device=K.device)
-    scale = torch.diagonal(K).mean()
-    jit = torch.tensor(jitter_scales, dtype=K.dtype, device=K.device) * scale
-    Ls, info = torch.linalg.cholesky_ex(K[None] + jit[:, None, None] * eye)
+    scale = torch.diagonal(K, dim1=-2, dim2=-1).mean(-1)
+    jit = (torch.tensor(jitter_scales, dtype=K.dtype, device=K.device)
+           * scale[..., None])                              # (..., J)
+    Ls, info = torch.linalg.cholesky_ex(K[..., None, :, :]
+                                        + jit[..., None, None] * eye)
     ok = info == 0
-    idx = torch.where(ok.any(), torch.argmax(ok.to(torch.uint8)),
+    idx = torch.where(ok.any(-1), torch.argmax(ok.to(torch.uint8), dim=-1),
                       torch.tensor(len(jitter_scales) - 1, device=K.device))
-    return Ls.index_select(0, idx.reshape(1))[0]
+    return torch.take_along_dim(Ls, idx[..., None, None, None],
+                                dim=-3)[..., 0, :, :]
 
 
 def masked_mean(y, mask):
+    """Mean of the valid entries along the last axis."""
     m = mask.to(y.dtype)
-    return (y * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (y * m).sum(-1) / torch.clamp(m.sum(-1), min=1.0)
 
 
 def masked_std(y, mask):
+    """Population std of the valid entries along the last axis."""
     m = mask.to(y.dtype)
-    n = torch.clamp(m.sum(), min=1.0)
-    mu = (y * m).sum() / n
-    return torch.sqrt((m * (y - mu) ** 2).sum() / n)
+    n = torch.clamp(m.sum(-1), min=1.0)
+    mu = (y * m).sum(-1) / n
+    return torch.sqrt((m * (y - mu[..., None]) ** 2).sum(-1) / n)
 
 
 def gp_fit(spec: KernelSpec, x, y, length_scale, variance, diag_noise, mask,
@@ -69,10 +78,10 @@ def gp_fit(spec: KernelSpec, x, y, length_scale, variance, diag_noise, mask,
     ``normalize_y``."""
     zero = torch.zeros((), dtype=y.dtype, device=y.device)
     y_mean = masked_mean(y, mask) if centre else zero
-    yc = torch.where(mask, y - y_mean, zero)
+    yc = torch.where(mask, y - y_mean[..., None], zero)
     K = train_gram(spec, x, length_scale, variance, diag_noise, mask=mask)
     L = safe_cholesky(K)
-    alpha = torch.where(mask, torch.cholesky_solve(yc[:, None], L)[:, 0],
+    alpha = torch.where(mask, torch.cholesky_solve(yc[..., None], L)[..., 0],
                         zero)
     return GPState(L=L, alpha=alpha, x=x, y_mean=y_mean, mask=mask)
 
@@ -82,12 +91,15 @@ def gp_predict(spec: KernelSpec, state: GPState, xq, length_scale, variance,
     """Posterior mean and, with ``return_std``, the std at query points
     (zero query noise, with the negative-variance clamp)."""
     Kq = cross_gram(spec, xq, state.x, length_scale, variance)
-    Kq = torch.where(state.mask[None, :], Kq, torch.zeros_like(Kq))
-    mean = Kq @ state.alpha + state.y_mean
+    Kq = torch.where(state.mask[..., None, :], Kq, torch.zeros_like(Kq))
+    # A row sum, not a matrix-vector product: its bits do not depend on
+    # the number of frames.
+    mean = (Kq * state.alpha[..., None, :]).sum(-1) + state.y_mean[..., None]
     if not return_std:
         return mean
-    V = torch.linalg.solve_triangular(state.L, Kq.T, upper=False)
-    var = torch.clamp(variance - (V * V).sum(0), min=0.0)
+    V = torch.linalg.solve_triangular(state.L, Kq.transpose(-1, -2),
+                                      upper=False)
+    var = torch.clamp(per_frame(variance, 1) - (V * V).sum(-2), min=0.0)
     return mean, torch.sqrt(var)
 
 
@@ -104,6 +116,12 @@ def fit_and_sample(spec: KernelSpec, x, y, length_scale, variance, diag_noise,
     are inputs: ``z`` (r, S) and ``w`` (n, S), so a caller can feed the
     reference's own draws.
 
+    Frames: with (B, n) training buffers the scalars are (B,) and the
+    result (B, E, S). Frames that draw the same normals (a batch: every
+    frame draws from the config's seed) pass one (r, S) ``z`` and the prior
+    draw ``F z`` is computed once for all of them; frames with draws of
+    their own (an ensemble's members) pass (B, r, S) and (B, n, S).
+
     Args:
       x: (n,) padded training inputs (float); y: (n,) targets.
       diag_noise: (n,) training noise diagonal; mask: (n,) validity.
@@ -117,7 +135,7 @@ def fit_and_sample(spec: KernelSpec, x, y, length_scale, variance, diag_noise,
     """
     zero = torch.zeros((), dtype=y.dtype, device=y.device)
     y_mean = masked_mean(y, mask) if centre else zero
-    yc = torch.where(mask, y - y_mean, zero)
+    yc = torch.where(mask, y - y_mean[..., None], zero)
 
     K = train_gram(spec, x, length_scale, variance, diag_noise, mask=mask)
     # Two-rung jitter ladder: the sampling Gram carries the full
@@ -125,16 +143,22 @@ def fit_and_sample(spec: KernelSpec, x, y, length_scale, variance, diag_noise,
     # factor (gpr.py:214-219).
     L = safe_cholesky(K, jitter_scales=(0.0, 1e-3))
 
-    f0 = torch.sqrt(variance) * (L_prior_unit @ z)            # (G, S)
-    eps = torch.sqrt(torch.clamp(diag_noise, min=0.0))[:, None] * w
-    f0_x = f0.index_select(0, x_idx)                           # (n, S)
-    resid = torch.where(mask[:, None], yc[:, None] - f0_x - eps, zero)
-    A = torch.where(mask[:, None], torch.cholesky_solve(resid, L), zero)
+    # f0 = sqrt(variance)·F z, taken at the training and output rows only.
+    Fz = L_prior_unit @ z                                      # (..., G, S)
+    scale = per_frame(torch.sqrt(variance))
+    if Fz.dim() == 2:
+        f0_x = scale * Fz[x_idx]                               # (..., n, S)
+    else:
+        f0_x = scale * torch.take_along_dim(Fz, x_idx[..., None], dim=-2)
+    f0_grid = scale * Fz.index_select(-2, grid_out)            # (..., E, S)
+    eps = torch.sqrt(torch.clamp(diag_noise, min=0.0))[..., None] * w
+    resid = torch.where(mask[..., None], yc[..., None] - f0_x - eps, zero)
+    A = torch.where(mask[..., None], torch.cholesky_solve(resid, L), zero)
 
-    Kq = cross_gram(spec, grid_out.to(f0.dtype), x, length_scale, variance)
-    Kq = torch.where(mask[None, :], Kq, zero)                  # (E, n)
-    f0_grid = f0.index_select(0, grid_out)                     # (E, S)
-    return y_mean + post_scale * (f0_grid + Kq @ A)            # (E, S)
+    Kq = cross_gram(spec, grid_out.to(Fz.dtype), x, length_scale, variance)
+    Kq = torch.where(mask[..., None, :], Kq, zero)             # (..., E, n)
+    return (per_frame(y_mean)
+            + per_frame(post_scale) * (f0_grid + Kq @ A))      # (..., E, S)
 
 
 def log_marginal_likelihood(spec: KernelSpec, x, yc, mask, theta,
@@ -165,58 +189,62 @@ def batched_lml(spec: KernelSpec, x, yc, mask, thetas, noise_weight,
 
     Args:
       thetas: (B, 3). Returns (B,) values, or (values, (B, 3) gradients).
+        With frames, x, yc and mask are (F, n) and thetas (F, B, 3), and
+        the F·B factorisations share one K5 launch.
     """
     return _batched_lml(spec, x, yc, mask, thetas, noise_weight, jitter,
                         with_grad)[0]
 
 
 def _batched_lml(spec, x, yc, mask, thetas, noise_weight, jitter, with_grad):
-    """:func:`batched_lml`'s result and the (B, n, n) factors."""
+    """:func:`batched_lml`'s result and the (..., B, n, n) factors."""
     dt = thetas.dtype
     dev = thetas.device
     zero = torch.zeros((), dtype=dt, device=dev)
     x = x.to(dt)
     yc = torch.where(mask, yc, zero).to(dt)
     noise_weight = noise_weight.to(dt)
-    B = thetas.shape[0]
-    n = x.shape[0]
-    c = torch.exp(thetas[:, 0])
-    ls = torch.exp(thetas[:, 1])
-    nz = torch.exp(thetas[:, 2])
+    n = x.shape[-1]
+    c = torch.exp(thetas[..., 0])                           # (..., B)
+    ls = torch.exp(thetas[..., 1])
+    nz = torch.exp(thetas[..., 2])
+    mask_b = mask[..., None, :]                             # (..., 1, n)
 
-    r = torch.abs(x[:, None] - x[None, :])                  # (n, n)
-    d = r[None, :, :] / ls[:, None, None]                   # (B, n, n)
+    r = torch.abs(x[..., :, None] - x[..., None, :])        # (..., n, n)
+    d = r[..., None, :, :] / ls[..., None, None]            # (..., B, n, n)
     Ku = k_unit(spec, d)
-    m2 = (mask[:, None] & mask[None, :])[None]
+    m2 = (mask[..., :, None] & mask[..., None, :])[..., None, :, :]
     eye = torch.eye(n, dtype=dt, device=dev)
-    diag_vals = torch.where(mask[None, :],
-                            nz[:, None] * noise_weight[None, :] + jitter,
-                            zero)                           # (B, n)
-    cK = torch.where(m2, c[:, None, None] * Ku, zero)
+    diag_vals = torch.where(mask_b,
+                            nz[..., None] * noise_weight[..., None, :]
+                            + jitter, zero)                 # (..., B, n)
+    cK = torch.where(m2, c[..., None, None] * Ku, zero)
     # Off-diagonal signal zeroed outside the valid block; padded diagonal 1.
-    K = (cK * (1.0 - eye)[None]
-         + eye[None] * (cK + diag_vals[:, None, :]
-                        + torch.where(mask, zero, zero + 1.0)[None, None, :]))
+    K = (cK * (1.0 - eye)
+         + eye * (cK + diag_vals[..., None, :]
+                  + torch.where(mask_b, zero, zero + 1.0)[..., None, :]))
 
     L = cholesky_auto(K)
-    w1 = forward_solve_auto(L, yc[None, :, None].expand(B, n, 1).contiguous())
-    quad = (w1[..., 0] ** 2).sum(1)
-    logdet = torch.log(torch.diagonal(L, dim1=1, dim2=2)).sum(1)
-    n_valid = mask.sum().to(dt)
+    rhs = yc[..., None, :, None].expand(K.shape[:-1] + (1,))
+    w1 = forward_solve_auto(L, rhs.contiguous())
+    quad = (w1[..., 0] ** 2).sum(-1)
+    logdet = torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+    n_valid = mask.sum(-1).to(dt)[..., None]
     vals = -0.5 * quad - logdet - 0.5 * n_valid * math.log(2.0 * math.pi)
     if not with_grad:
         return vals, L
 
-    alpha = backward_solve_auto(L, w1)[..., 0]              # (B, n)
-    alpha = torch.where(mask[None, :], alpha, zero)
-    Linv = forward_solve_auto(L, eye.expand(B, n, n).contiguous())
-    Kinv = Linv.transpose(1, 2) @ Linv                      # L⁻ᵀ L⁻¹
-    A = alpha[:, :, None] * alpha[:, None, :] - Kinv
+    alpha = backward_solve_auto(L, w1)[..., 0]              # (..., B, n)
+    alpha = torch.where(mask_b, alpha, zero)
+    Linv = forward_solve_auto(L, eye.expand(K.shape).contiguous())
+    Kinv = Linv.transpose(-1, -2) @ Linv                    # L⁻ᵀ L⁻¹
+    A = alpha[..., :, None] * alpha[..., None, :] - Kinv
 
-    dKl = torch.where(m2, c[:, None, None] * dk_unit_dlog_ls(spec, d), zero)
-    g0 = 0.5 * (A * cK).sum((1, 2))
-    g1 = 0.5 * (A * dKl).sum((1, 2))
-    diagA = torch.diagonal(A, dim1=1, dim2=2)
-    g2 = 0.5 * (diagA * (nz[:, None] * noise_weight[None, :])
-                * mask[None, :]).sum(1)
-    return (vals, torch.stack([g0, g1, g2], dim=1)), L
+    dKl = torch.where(m2, c[..., None, None] * dk_unit_dlog_ls(spec, d),
+                      zero)
+    g0 = 0.5 * (A * cK).sum((-2, -1))
+    g1 = 0.5 * (A * dKl).sum((-2, -1))
+    diagA = torch.diagonal(A, dim1=-2, dim2=-1)
+    g2 = 0.5 * (diagA * (nz[..., None] * noise_weight[..., None, :])
+                * mask_b).sum(-1)
+    return (vals, torch.stack([g0, g1, g2], dim=-1)), L

@@ -65,26 +65,39 @@ def k_unit_np(spec: KernelSpec, d):
     return (1.0 + s) * np.exp(-s)
 
 
+def per_frame(v, k=2):
+    """A scalar as it is, or a (B,) tensor of one value per frame with
+    ``k`` trailing axes, to broadcast against (B, n) (k = 1) or (B, n, m)
+    (k = 2) arrays."""
+    if torch.is_tensor(v) and v.dim():
+        return v.reshape(v.shape + (1,) * k)
+    return v
+
+
 def cross_gram(spec: KernelSpec, x1, x2, length_scale, variance=1.0):
-    """K[i, j] = variance · k_unit(|x1[i] − x2[j]| / length_scale)."""
-    d = torch.abs(x1[:, None] - x2[None, :]) / length_scale
-    return variance * k_unit(spec, d)
+    """K[i, j] = variance · k_unit(|x1[i] − x2[j]| / length_scale). With a
+    leading frame axis on ``x1`` or ``x2`` (shared where absent), the
+    hyperparameters are scalars or one per frame."""
+    d = (torch.abs(x1[..., :, None] - x2[..., None, :])
+         / per_frame(length_scale))
+    return per_frame(variance) * k_unit(spec, d)
 
 
 def train_gram(spec: KernelSpec, x, length_scale, variance, diag_noise,
                mask=None, pad_diag=1.0):
     """Training Gram ``variance·k_unit + diag(diag_noise)``. With ``mask``,
     padded rows and columns are zeroed and their diagonal set to
-    ``pad_diag``: the Gram is block-diagonal ``[[K_valid, 0], [0, I]]``."""
+    ``pad_diag``: the Gram is block-diagonal ``[[K_valid, 0], [0, I]]``.
+    A leading frame axis gives one Gram per frame."""
     K = cross_gram(spec, x, x, length_scale, variance)
-    n = x.shape[0]
+    n = x.shape[-1]
     eye = torch.eye(n, dtype=K.dtype, device=K.device)
-    K = K + torch.diag(diag_noise)
+    K = K + torch.diag_embed(diag_noise)
     if mask is not None:
-        m2 = mask[:, None] & mask[None, :]
+        m2 = mask[..., :, None] & mask[..., None, :]
         zero = torch.zeros((), dtype=K.dtype, device=K.device)
         K = (torch.where(m2, K, zero)
-             + torch.where(mask[:, None], zero, pad_diag * eye))
+             + torch.where(mask[..., :, None], zero, pad_diag * eye))
     return K
 
 

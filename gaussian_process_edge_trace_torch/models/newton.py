@@ -16,8 +16,8 @@ import torch
 
 
 class NewtonResult(NamedTuple):
-    x: torch.Tensor   # (d,) best iterate
-    f: torch.Tensor   # objective value at x
+    x: torch.Tensor   # (d,) best iterate (with frames, (F, d))
+    f: torch.Tensor   # objective value at x ((F,))
 
 
 # Levenberg damping ladder: 0 = pure Newton, large = gradient-like steps.
@@ -52,51 +52,62 @@ def screen_and_polish_batched(values_fn, vg_fn, starts, lb, ub, n_polish=8,
       values_fn: (B, d) -> (B,) objective values (NaN/inf allowed).
       vg_fn: (B, d) -> ((B,), (B, d)) values and gradients.
       starts: (n_starts, d) starting points.
+
+    Frames: ``starts`` (F, n_starts, d) minimise F objectives at once, each
+    over its own starts; the functions then map (F, B, d) to (F, B) and
+    each step is still one call of each for all frames.
     """
     dt, dev = starts.dtype, starts.device
-    d_dim = starts.shape[1]
+    lead = starts.shape[:-2]
+    d_dim = starts.shape[-1]
     lam = torch.tensor(lambdas, dtype=dt, device=dev)
     eye = torch.eye(d_dim, dtype=dt, device=dev)
     offs = torch.cat([torch.zeros((1, d_dim), dtype=dt, device=dev),
                       fd_h * eye, -fd_h * eye])                 # (2d+1, d)
 
     f0s = values_fn(starts)
-    P = min(n_polish, starts.shape[0])
+    P = min(n_polish, starts.shape[-2])
     # lax.top_k order: smallest value first, ties to the lower index.
-    top = torch.sort(_finite_or(f0s, math.inf), stable=True).indices[:P]
-    X = starts[top]                                             # (P, d)
-    F = _finite_or(f0s[top], math.inf)
+    top = torch.sort(_finite_or(f0s, math.inf), stable=True).indices
+    top = top[..., :P]
+    X = torch.take_along_dim(starts, top[..., None], dim=-2)    # (..., P, d)
+    F = _finite_or(torch.take_along_dim(f0s, top, dim=-1), math.inf)
 
     for _ in range(iters):
-        pts = (X[None, :, :] + offs[:, None, :]).reshape(-1, d_dim)
+        pts = (X[..., None, :, :] + offs[:, None, :]).reshape(
+            lead + (-1, d_dim))
         _, gv = vg_fn(pts)
-        gv = gv.reshape(2 * d_dim + 1, P, d_dim)
-        G = _finite_or(gv[0], 0.0)
-        gp = _finite_or(gv[1:1 + d_dim], 0.0)
-        gm = _finite_or(gv[1 + d_dim:], 0.0)
-        H = ((gp - gm) / (2.0 * fd_h)).permute(1, 0, 2)
-        H = 0.5 * (H + H.transpose(1, 2))                       # symmetrise
-        scale = torch.clamp(
-            torch.abs(torch.diagonal(H, dim1=1, dim2=2)).amax(1), min=1.0)
-        Hd = H[:, None] + (lam[None, :, None, None]
-                           * scale[:, None, None, None]) * eye
-        rhs = G[:, None, :, None].expand(Hd.shape[:2] + (d_dim, 1))
+        gv = gv.reshape(lead + (2 * d_dim + 1, P, d_dim))
+        G = _finite_or(gv[..., 0, :, :], 0.0)
+        gp = _finite_or(gv[..., 1:1 + d_dim, :, :], 0.0)
+        gm = _finite_or(gv[..., 1 + d_dim:, :, :], 0.0)
+        H = ((gp - gm) / (2.0 * fd_h)).movedim(-3, -2)      # (..., P, d, d)
+        H = 0.5 * (H + H.transpose(-1, -2))                     # symmetrise
+        scale = torch.clamp(torch.abs(
+            torch.diagonal(H, dim1=-2, dim2=-1)).amax(-1), min=1.0)
+        Hd = H[..., None, :, :] + (lam[:, None, None]
+                                   * scale[..., None, None, None]) * eye
+        rhs = G[..., None, :, None].expand(Hd.shape[:-2] + (d_dim, 1))
         # solve_ex: a singular damped system yields inf/NaN, as in XLA, and
         # the candidate is then never chosen; no host check.
         dstep = -torch.linalg.solve_ex(Hd, rhs).result[..., 0]
         gstep = -0.5 * G / torch.clamp(
-            torch.linalg.vector_norm(G, dim=1, keepdim=True), min=1e-12)
-        cand = torch.cat([X[:, None] + dstep, (X + gstep)[:, None]], dim=1)
-        cand = torch.minimum(torch.maximum(cand, lb), ub)       # (P, C, d)
-        C = cand.shape[1]
-        fc = _finite_or(values_fn(cand.reshape(P * C, d_dim)).reshape(P, C),
-                        math.inf)
-        j = torch.argmin(fc, dim=1)
-        fbest = fc.gather(1, j[:, None])[:, 0]
-        xbest = cand[torch.arange(P, device=dev), j]
+            torch.linalg.vector_norm(G, dim=-1, keepdim=True), min=1e-12)
+        cand = torch.cat([X[..., None, :] + dstep,
+                          (X + gstep)[..., None, :]], dim=-2)
+        cand = torch.minimum(torch.maximum(cand, lb), ub)   # (..., P, C, d)
+        C = cand.shape[-2]
+        fc = _finite_or(values_fn(cand.reshape(lead + (P * C, d_dim)))
+                        .reshape(lead + (P, C)), math.inf)
+        j = torch.argmin(fc, dim=-1)
+        fbest = torch.take_along_dim(fc, j[..., None], dim=-1)[..., 0]
+        xbest = torch.take_along_dim(cand, j[..., None, None],
+                                     dim=-2)[..., 0, :]
         better = fbest < F                                      # monotone
-        X = torch.where(better[:, None], xbest, X)
+        X = torch.where(better[..., None], xbest, X)
         F = torch.where(better, fbest, F)
 
-    i = torch.argmin(_finite_or(F, math.inf))
-    return NewtonResult(x=X[i], f=F[i])
+    i = torch.argmin(_finite_or(F, math.inf), dim=-1)
+    return NewtonResult(
+        x=torch.take_along_dim(X, i[..., None, None], dim=-2)[..., 0, :],
+        f=torch.take_along_dim(F, i[..., None], dim=-1)[..., 0])

@@ -3,7 +3,8 @@
 Same positional constructor signature, defaults and clamps as the reference
 class (gpet.py:22-35), and its non-introspective ``__call__``
 (gpet.py:768-908): the trace runs through :func:`..trace.driver.run_trace`
-on one device and returns numpy arrays.
+on one device, or with ``ensemble=K`` through
+:func:`..parallel.sharded.trace_ensemble`, and returns numpy arrays.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gaussian_process_edge_trace_torch.parallel.sharded import (
+    trace_ensemble)
 from gaussian_process_edge_trace_torch.trace.driver import (
     init_state, make_config, make_data, run_trace)
 
@@ -74,18 +77,34 @@ class GP_Edge_Tracing:
         """Run the trace. Returns the (E, 2) yx ``edge_trace``, or
         ``(edge_trace, (lower, upper))`` with ``return_std`` — the 95%
         credible interval, in the reference's standardised units unless
-        ``reference_quirks=False`` (gpet.py:876)."""
+        ``reference_quirks=False`` (gpet.py:876).
+
+        ``ensemble=K`` traces K seeds at once and keeps the member with the
+        lowest final cost (:func:`..parallel.sharded.trace_ensemble`;
+        member 0 is the single trace, so K = 1 is the same as ``None``);
+        its members draw from their own default sources, so it does not
+        take the constructor's ``draws``. ``last_result`` is then the
+        chosen member's."""
         unsupported = {"print_final_diagnostics": print_final_diagnostics,
                        "show_init_post": show_init_post,
                        "show_post_iter": show_post_iter, "verbose": verbose,
-                       "return_lines": return_lines,
-                       "ensemble": ensemble is not None}
+                       "return_lines": return_lines}
         asked = [k for k, v in unsupported.items() if v]
         if asked:
             raise NotImplementedError(
                 f"{', '.join(asked)}: not ported to the PyTorch package yet")
+        K = 1 if ensemble is None else int(ensemble)
+        if K < 1:
+            raise ValueError(f"ensemble must be >= 1, got {ensemble}")
+        if K > 1 and self.draws is not None:
+            raise ValueError("ensemble= draws each member from its own "
+                             "source; pass per-member sources to "
+                             "trace_ensemble instead of draws=")
         state = init_state(self.cfg, self.device, user_obs_xy=self.obs)
-        res = run_trace(self.cfg, self.data, state, draws=self.draws)
+        if K > 1:
+            res = trace_ensemble(self.cfg, self.data, state, n_seeds=K)
+        else:
+            res = run_trace(self.cfg, self.data, state, draws=self.draws)
         n_it = res.n_iters
         self.score_thresh = (float(res.iter_thresh[n_it - 1]) if n_it > 0
                              else float(self.cfg.score_thresh0))

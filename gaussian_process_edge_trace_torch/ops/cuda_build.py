@@ -45,9 +45,10 @@ _F = ctypes.c_float
 # C signature of every entry point; a launcher returns its cudaError_t as int.
 _SIGNATURES = {
     "gpet_fused_cost": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I,
-                        _I, _P],
-    "gpet_column_interp": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
-    "gpet_binning_2l": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                        _I, _I, _I, _P],
+    "gpet_column_interp": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I,
+                           _P],
+    "gpet_binning_2l": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gpet_binning_dense": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gpet_batched_cholesky": [_P, _P, _I, _I, _P],
     "gpet_batched_trsm": [_P, _P, _P, _I, _I, _I, _I, _P],

@@ -16,6 +16,11 @@ Counterpart of ``gaussian_process_edge_trace_tpu/ops/pallas_interp.py``:
   two TPU forms of one function. It scores the curves of an odd edge
   length, which K1 does not serve, and every trace's final cost.
 
+Both take a leading frame axis: ``ys`` (B, E, S) with ``cols`` (B, E, M),
+or one (E, M) that every frame shares (the frames of a multi-edge trace),
+and one launch serves all B frames. The launch plans depend on (E, M, S)
+alone, so a frame's output is bitwise that of a single-frame launch.
+
 Each wrapper takes its plain version only for tensors on the CPU. For a CUDA
 tensor it launches the kernel, or raises if the kernel cannot run; it never
 falls back. ``LAUNCHES`` counts kernel launches, one per wrapper call that
@@ -61,26 +66,38 @@ def fused_cost_eligible(E: int, M: int, S: int) -> bool:
     return E % 2 == 0 and E >= 16 and S >= 128 and M >= 16
 
 
-def _check_shapes(cols, ys):
-    if cols.dim() != 2 or ys.dim() != 2 or cols.shape[0] != ys.shape[0]:
-        raise ValueError(f"cols (E, M) and ys (E, S) expected, got "
-                         f"{tuple(cols.shape)} and {tuple(ys.shape)}")
-    if cols.shape[1] < 2:
+def _frames(cols, ys):
+    """``(B, cols_shared)`` of a launch: ys (E, S) or (B, E, S) frames, cols
+    (E, M), shared by every frame, or (B, E, M). Raises on other shapes."""
+    shared = cols.dim() == 2
+    if (ys.dim() not in (2, 3) or cols.dim() not in (2, ys.dim())
+            or cols.shape[-2] != ys.shape[-2]
+            or cols.shape[:-2] != ys.shape[:cols.dim() - 2]):
+        raise ValueError(f"cols (E, M) or (B, E, M) and ys (E, S) or "
+                         f"(B, E, S) expected, got {tuple(cols.shape)} and "
+                         f"{tuple(ys.shape)}")
+    if cols.shape[-1] < 2:
         raise ValueError("interpolation needs M >= 2 rows")
+    B = ys.shape[0] if ys.dim() == 3 else 1
+    if not 1 <= B <= 65535:
+        raise ValueError(f"1 to 65535 frames per launch, got {B}")
+    return B, int(shared)
 
 
 # --- K2: column interpolation ---------------------------------------------
 
 def column_interp_plain(cols, ys, add_const=0.0):
     """Plain version of K2: the gather formulation of the reference
-    (``_column_interp_gather``, pallas_interp.py:458-466)."""
-    M = cols.shape[1]
+    (``_column_interp_gather``, pallas_interp.py:458-466), with the kernel's
+    frame axis."""
+    M = cols.shape[-1]
+    cols = cols.expand(ys.shape[:-1] + (M,))
     y = torch.clamp(ys, 0, M - 1)
     r0 = torch.clamp(torch.floor(y), 0, M - 2)
     fr = (y - r0).to(cols.dtype)
     r0 = r0.long()
-    v0 = torch.gather(cols, 1, r0)
-    v1 = torch.gather(cols, 1, r0 + 1)
+    v0 = torch.gather(cols, -1, r0)
+    v1 = torch.gather(cols, -1, r0 + 1)
     res = v0 + fr * (v1 - v0)
     return res + add_const if add_const else res
 
@@ -94,7 +111,8 @@ def k2_launch_plan(E: int, M: int, S: int):
     only as far as the grid falls short of ``_K2_TARGET_BLOCKS``, and no
     tile holds fewer than ``_K2_MIN_SPAN`` samples. Else ``layout`` "flat":
     one thread per element in ``blocks`` blocks (the final cost, S = 1).
-    Raises where neither fits an int index."""
+    ``tiles``, ``span`` and ``blocks`` are those of one frame; B frames take
+    B times the blocks. Raises where neither fits an int index."""
     if E < 1 or M < 2 or S < 1:
         raise ValueError(f"column_interp: no launch for E={E}, M={M}, S={S}")
     threads = _K2_THREADS
@@ -115,20 +133,24 @@ def k2_launch_plan(E: int, M: int, S: int):
 
 
 def column_interp_cuda(cols, ys, add_const=0.0):
-    """K2 on the card."""
-    _check_shapes(cols, ys)
+    """K2 on the card, one launch for every frame."""
+    B, shared = _frames(cols, ys)
     cuda_build.check_tensors("column_interp", cols, ys)
-    E, M = cols.shape
-    S = ys.shape[1]
+    E, M = cols.shape[-2:]
+    S = ys.shape[-1]
     plan = k2_launch_plan(E, M, S)
-    out = torch.empty((E, S), dtype=torch.float32, device=ys.device)
+    if plan["layout"] == "flat" and B * E * S >= 2 ** 31:
+        raise ValueError(f"column_interp: B*E*S = {B * E * S} elements do "
+                         f"not fit the flat layout's int index")
+    out = torch.empty(ys.shape, dtype=torch.float32, device=ys.device)
     lib = cuda_build.library()
     with torch.cuda.device(ys.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gpet_column_interp(cols.data_ptr(), ys.data_ptr(),
                                     out.data_ptr(), E, M, S,
                                     float(add_const), plan["tiles"],
-                                    plan["span"], plan["threads"], stream)
+                                    plan["span"], plan["threads"], B, shared,
+                                    stream)
     cuda_build.check(rc, "column_interp")
     LAUNCHES["column_interp"] += 1
     return out
@@ -150,23 +172,26 @@ def line_and_arc(grad_score, ys, even="simpson"):
     ``simpson_nonuniform(grad_score[:-1], h=step[1:])`` and the arc length
     from ``simpson_weights``, with ``step = sqrt(1 + dy²)``. The curvilinear
     coordinate cumsum(step) enters Simpson only through its widths, which
-    are step[1:]. Returns ``(line, arc)``, each (S,)."""
-    dy = torch.diff(ys, dim=0)
+    are step[1:]. ``ys`` is (E, S) or (B, E, S); returns ``(line, arc)``,
+    each (S,) or (B, S)."""
+    dy = torch.diff(ys, dim=-2)
     step = torch.sqrt(1.0 + dy * dy)
-    line = simpson_nonuniform(grad_score[:-1], h=step[1:], even=even, axis=0)
-    arc_w = simpson_weights(torch.arange(ys.shape[0] - 1, dtype=ys.dtype,
+    line = simpson_nonuniform(grad_score[..., :-1, :], h=step[..., 1:, :],
+                              even=even, axis=-2)
+    arc_w = simpson_weights(torch.arange(ys.shape[-2] - 1, dtype=ys.dtype,
                                          device=ys.device), even=even)
-    return line, (arc_w[:, None] * step).sum(0)
+    return line, (arc_w[:, None] * step).sum(-2)
 
 
 def fused_cost_plain(cols, ys, kde_thresh=0.0, with_transpose=False):
     """Plain version of K1: gather interpolation, then
-    :func:`line_and_arc`. Returns ``(line, arc)``, each (S,), and with
-    ``with_transpose`` also ``ys.T`` as a contiguous (S, E) tensor."""
+    :func:`line_and_arc`. Returns ``(line, arc)``, each (S,) (or (B, S)),
+    and with ``with_transpose`` also ``ys`` transposed as a contiguous
+    (S, E) (or (B, S, E)) tensor."""
     line, arc = line_and_arc(
         column_interp_plain(cols, ys, add_const=kde_thresh), ys)
     if with_transpose:
-        return line, arc, ys.T.contiguous()
+        return line, arc, ys.transpose(-1, -2).contiguous()
     return line, arc
 
 
@@ -184,7 +209,9 @@ def k1_launch_plan(E: int, M: int, S: int, with_transpose: bool = False):
     starts on an 8-row (32-byte) boundary of ``samples_t``, fewer where
     the samples alone cannot fill the wave, and the samples split into
     groups of whole thread tiles. Tall columns take fewer pairs per chunk,
-    then one block per SM. Raises where nothing fits."""
+    then one block per SM. The plan is that of one frame: B frames take B
+    times the blocks (gridDim.z) and the same chunks, so the order of a
+    frame's sums does not depend on B. Raises where nothing fits."""
     if E % 2 or E < 4:
         raise ValueError(f"fused cost kernel requires even E >= 4, got {E}")
     if M < 2 or S < 1:
@@ -220,19 +247,20 @@ def k1_launch_plan(E: int, M: int, S: int, with_transpose: bool = False):
 
 
 def fused_cost_cuda(cols, ys, kde_thresh=0.0, with_transpose=False):
-    """K1 on the card. Requires even E >= 4. Returns what
-    :func:`fused_cost_plain` returns; the transposed copy is written by the
-    kernel itself."""
-    _check_shapes(cols, ys)
+    """K1 on the card, one launch (and one chunk sum) for every frame.
+    Requires even E >= 4. Returns what :func:`fused_cost_plain` returns; the
+    transposed copy is written by the kernel itself."""
+    B, shared = _frames(cols, ys)
     cuda_build.check_tensors("fused_cost", cols, ys)
-    E, M = cols.shape
-    S = ys.shape[1]
+    E, M = cols.shape[-2:]
+    S = ys.shape[-1]
     plan = k1_launch_plan(E, M, S, with_transpose)
+    lead = ys.shape[:-2]
     f32 = dict(dtype=torch.float32, device=ys.device)
-    partial = torch.empty((plan["n_chunks"], 2, S), **f32)
-    line = torch.empty((S,), **f32)
-    arc = torch.empty((S,), **f32)
-    samples_t = torch.empty((S, E), **f32) if with_transpose else None
+    partial = torch.empty((B, plan["n_chunks"], 2, S), **f32)
+    line = torch.empty(lead + (S,), **f32)
+    arc = torch.empty(lead + (S,), **f32)
+    samples_t = torch.empty(lead + (S, E), **f32) if with_transpose else None
     lib = cuda_build.library()
     with torch.cuda.device(ys.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -241,7 +269,7 @@ def fused_cost_cuda(cols, ys, kde_thresh=0.0, with_transpose=False):
             line.data_ptr(), arc.data_ptr(),
             samples_t.data_ptr() if with_transpose else None, E, M, S,
             float(kde_thresh), plan["pairs_per_chunk"], plan["n_chunks"],
-            plan["samples_per_block"], plan["threads"], stream)
+            plan["samples_per_block"], plan["threads"], B, shared, stream)
     cuda_build.check(rc, "fused_cost")
     LAUNCHES["fused_cost"] += 1
     if with_transpose:
@@ -253,10 +281,10 @@ def fused_cost_cuda(cols, ys, kde_thresh=0.0, with_transpose=False):
 def fused_curve_cost(cols, ys, kde_thresh=0.0, want_transpose=False):
     """``(line_integral, arc_length, samples_t)`` of every curve: K1 for
     CUDA tensors, the plain version on the CPU (pallas_interp.py:430-454).
-    ``samples_t`` is ``ys`` transposed to (S, E) when ``want_transpose``
-    and S >= ``_TRANSPOSE_MIN_S``, else ``None``; the reference pads its
-    columns to E_pad, the port does not."""
-    wt = bool(want_transpose) and ys.shape[1] >= _TRANSPOSE_MIN_S
+    ``samples_t`` is ``ys`` transposed to (S, E) (per frame) when
+    ``want_transpose`` and S >= ``_TRANSPOSE_MIN_S``, else ``None``; the
+    reference pads its columns to E_pad, the port does not."""
+    wt = bool(want_transpose) and ys.shape[-1] >= _TRANSPOSE_MIN_S
     fn = fused_cost_plain if ys.device.type == "cpu" else fused_cost_cuda
     out = fn(cols, ys, kde_thresh, with_transpose=wt)
     return out if wt else (*out, None)

@@ -25,6 +25,11 @@ returned as (M+2, E) float32:
   time in sample order, the order K4 keeps; only the tests and
   ``chip_smoke.py`` call it.
 
+K3 and the plain version take a leading frame axis, y (B, E, S) with
+w (B, S), and return (B, M+2, E); one K3 launch serves all frames, and its
+plan depends on (E, S, M) alone, so a frame's output is bitwise that of a
+single-frame launch. K4 takes one frame.
+
 The wrappers take CUDA tensors only and raise otherwise; ``LAUNCHES`` counts
 kernel launches. Neither kernel uses float atomics: reruns are bitwise
 equal.
@@ -64,7 +69,10 @@ def k3_launch_plan(E: int, S: int, M: int):
     count is ``gpet_binning_2l_smem``). The warps per column are raised,
     up to 8 and to one per batch, until the grid holds about
     ``_K3_TARGET_WARPS``; they, then the columns, are lowered where shared
-    memory does not fit. Raises where nothing fits."""
+    memory does not fit. The plan is that of one frame: B frames take B
+    times the blocks (gridDim.y) and the same warps per column, so the
+    order of a frame's sums does not depend on B. Raises where nothing
+    fits."""
     if E < 1 or S < 0 or M < 1:
         raise ValueError(f"binning_2l: no launch for E={E}, S={S}, M={M}")
     batches = max(1, -(-S // 32))
@@ -120,22 +128,24 @@ def k4_launch_plan(E: int, S: int, M: int):
 
 def column_binning_plain(y_curves, weights, M: int):
     """Plain version of K3 and K4: the dense hat contraction, in chunks of
-    kept curves whose sums are added in order."""
-    E, S = y_curves.shape
+    kept curves whose sums are added in order. y (E, S) with w (S,), or
+    frames y (B, E, S) with w (B, S); the chunks are those of one frame."""
+    E, S = y_curves.shape[-2:]
     rows = torch.arange(M + 2, dtype=y_curves.dtype, device=y_curves.device)
     zero = torch.zeros((), dtype=y_curves.dtype, device=y_curves.device)
 
     def block(yb, wb):
         yp = yb + 1.0
-        w = torch.where((yb >= 0) & (yb <= M - 1), wb[None, :], zero)
-        hat = torch.clamp(1.0 - torch.abs(yp[None, :, :]
+        w = torch.where((yb >= 0) & (yb <= M - 1), wb[..., None, :], zero)
+        hat = torch.clamp(1.0 - torch.abs(yp[..., None, :, :]
                                           - rows[:, None, None]), min=0.0)
-        return (hat * w[None, :, :]).sum(-1)              # (M+2, E)
+        return (hat * w[..., None, :, :]).sum(-1)         # (..., M+2, E)
 
     chunk = max(1, _CHUNK_ELEMS // ((M + 2) * E))
-    H = block(y_curves[:, :chunk], weights[:chunk])
+    H = block(y_curves[..., :chunk], weights[..., :chunk])
     for s0 in range(chunk, S, chunk):
-        H = H + block(y_curves[:, s0:s0 + chunk], weights[s0:s0 + chunk])
+        H = H + block(y_curves[..., s0:s0 + chunk],
+                      weights[..., s0:s0 + chunk])
     return H
 
 
@@ -160,35 +170,47 @@ def column_binning_sequential(y_curves, weights, M: int):
     return H
 
 
-def _check(name, y_curves, weights, M):
-    if y_curves.dim() != 2 or weights.shape != (y_curves.shape[1],):
-        raise ValueError(f"{name}: y (E, S) and w (S,) expected, got "
-                         f"{tuple(y_curves.shape)} and {tuple(weights.shape)}")
+def _check(name, y_curves, weights, M, frames=False):
+    """Raise unless y is (E, S) with w (S,), or with ``frames`` also
+    (B, E, S) with w (B, S), 1 <= B <= 65535."""
+    dims = (2, 3) if frames else (2,)
+    if (y_curves.dim() not in dims
+            or weights.shape != y_curves.shape[:-2] + y_curves.shape[-1:]):
+        raise ValueError(f"{name}: y (E, S) and w (S,)"
+                         f"{' or y (B, E, S) and w (B, S)' if frames else ''}"
+                         f" expected, got {tuple(y_curves.shape)} and "
+                         f"{tuple(weights.shape)}")
+    if y_curves.dim() == 3 and not 1 <= y_curves.shape[0] <= 65535:
+        raise ValueError(f"{name}: 1 to 65535 frames per launch, got "
+                         f"{y_curves.shape[0]}")
     if M < 1:
         raise ValueError(f"{name}: M >= 1 expected, got {M}")
     cuda_build.check_tensors(name, y_curves, weights)
 
 
 def binning_2l_cuda(y_curves, weights, M: int):
-    """K3 on the card: (M+2, E) float32."""
-    _check("binning_2l", y_curves, weights, M)
-    E, S = y_curves.shape
+    """K3 on the card: (M+2, E) float32, or (B, M+2, E) for B frames in
+    one launch."""
+    _check("binning_2l", y_curves, weights, M, frames=True)
+    E, S = y_curves.shape[-2:]
+    B = y_curves.shape[0] if y_curves.dim() == 3 else 1
     plan = k3_launch_plan(E, S, M)
-    H = torch.empty((M + 2, E), dtype=torch.float32, device=y_curves.device)
+    H = torch.empty(y_curves.shape[:-2] + (M + 2, E), dtype=torch.float32,
+                    device=y_curves.device)
     lib = cuda_build.library()
     with torch.cuda.device(y_curves.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gpet_binning_2l(y_curves.data_ptr(), weights.data_ptr(),
                                  H.data_ptr(), E, S, M, plan["cols"],
                                  plan["warps_per_col"],
-                                 plan["batches_per_warp"], stream)
+                                 plan["batches_per_warp"], B, stream)
     cuda_build.check(rc, "binning_2l")
     LAUNCHES["binning_2l"] += 1
     return H
 
 
 def binning_dense_cuda(y_curves, weights, M: int):
-    """K4 on the card: (M+2, E) float32."""
+    """K4 on the card, one frame: (M+2, E) float32."""
     _check("binning_dense", y_curves, weights, M)
     E, S = y_curves.shape
     plan = k4_launch_plan(E, S, M)
@@ -205,10 +227,11 @@ def binning_dense_cuda(y_curves, weights, M: int):
 
 
 def column_binning(y_curves, weights, M: int, use_pallas: bool = False):
-    """Binned column masses H (M+2, E) for the curve KDE
-    (pallas_kde.py:225): K3 for CUDA tensors, K4 with ``use_pallas``, the
-    plain version on the CPU. The reference's ``_2L_MIN_S`` gate is a TPU
-    crossover and is not carried over: K3 runs at every S."""
+    """Binned column masses H (M+2, E), or (B, M+2, E) for frames, for the
+    curve KDE (pallas_kde.py:225): K3 for CUDA tensors, K4 (one frame only)
+    with ``use_pallas``, the plain version on the CPU. The reference's
+    ``_2L_MIN_S`` gate is a TPU crossover and is not carried over: K3 runs
+    at every S."""
     if y_curves.device.type == "cpu":
         return column_binning_plain(y_curves, weights, M)
     if use_pallas:

@@ -17,10 +17,21 @@ scalar from the device per iteration.
 - :func:`run_trace` — the loop of :func:`_iteration`, then
   :func:`finish_trace`, the LML-optimised final fit.
 
+Frames: every stage takes an optional leading frame axis, and the loop runs
+B traces at once (``parallel/sharded.py`` builds the batched data and
+states): each stage launches once per iteration for all frames. The loop
+keeps the semantics of the JAX package's vmapped ``while_loop``: it runs
+while any frame is active, reading the (B,) active mask once per iteration,
+and a frame that has finished keeps its state unchanged. A single trace is
+the case B = 1. In a batched :class:`TraceState` ``it`` is a (B,) int64
+tensor; every frame that is still active stands at the same iteration.
+
 Random numbers come from a draw source (:class:`TorchDraws` by default): the
 normals of iteration ``it`` and the uniforms of the final fit's restarts. A
 caller may pass another source with the same two methods, for instance one
-that replays the JAX package's draws.
+that replays the JAX package's draws. A batch's frames share one source,
+as the JAX package's frames share one key; sources whose draws carry a
+leading frame axis give each frame its own (an ensemble's members).
 """
 
 from __future__ import annotations
@@ -35,7 +46,7 @@ import torch
 from gaussian_process_edge_trace_torch.models.gpr import (
     batched_lml, fit_and_sample, gp_fit, gp_predict, masked_mean, masked_std)
 from gaussian_process_edge_trace_torch.models.kernels import (
-    KernelSpec, k_unit_np, resolve_kernel_options)
+    KernelSpec, k_unit_np, per_frame, resolve_kernel_options)
 from gaussian_process_edge_trace_torch.models.newton import (
     lml_screen_grid, screen_and_polish_batched)
 from gaussian_process_edge_trace_torch.trace.kde import (
@@ -104,15 +115,17 @@ class TracerData(NamedTuple):
 
 
 class TraceState(NamedTuple):
-    obs_x: torch.Tensor        # (B,) int64 per-bin observation buffer
-    obs_y: torch.Tensor        # (B,) int64
-    obs_valid: torch.Tensor    # (B,) bool
+    """The loop carry of one trace; a batch has a leading frame axis on
+    every field, ``it`` included."""
+    obs_x: torch.Tensor        # (n_bins,) int64 per-bin observation buffer
+    obs_y: torch.Tensor        # (n_bins,) int64
+    obs_valid: torch.Tensor    # (n_bins,) bool
     user_x: torch.Tensor       # (U,) int64 warm-start observations
     user_y: torch.Tensor       # (U,) int64
     user_valid: torch.Tensor   # (U,) bool — cleared after the 1st iteration
     score_thresh: torch.Tensor  # scalar float32, adaptive threshold
     n_fobs: torch.Tensor       # scalar int64
-    it: int                    # host-side iteration count
+    it: int                    # host-side iteration count ((B,) tensor)
     iter_curves: torch.Tensor  # (max_iters, E) optimal curve per iteration
     iter_costs: torch.Tensor   # (max_iters,)
     iter_nobs: torch.Tensor    # (max_iters,) int64
@@ -120,13 +133,15 @@ class TraceState(NamedTuple):
 
 
 class TraceResult(NamedTuple):
+    """One trace's result; a batch's has a leading frame axis on every
+    field, with ``n_iters`` and ``converged`` host (CPU) tensors."""
     edge_trace: torch.Tensor        # (E, 2) int64, yx-space (gpet.py:886)
     y_mean: torch.Tensor            # (E,) posterior mean, pixel units
     y_std: torch.Tensor             # (E,) predictive std (see finish_trace)
     cred_interval: torch.Tensor     # (2, E) mean ∓ 1.96·y_std
     cred_interval_px: torch.Tensor  # (2, E) pixel-unit interval
-    n_iters: int
-    converged: bool                 # False = max_iters hit
+    n_iters: int                    # ((B,) int64 for a batch)
+    converged: bool                 # False = max_iters hit ((B,) bool)
     theta: torch.Tensor             # (3,) optimised (log c, log ℓ, log σn²)
     lml: torch.Tensor               # optimised log marginal likelihood
     final_cost: torch.Tensor        # cost of the final mean curve
@@ -273,15 +288,21 @@ def init_state(cfg: TracerConfig, device, user_obs_xy=None) -> TraceState:
 
 def _train_set(cfg: TracerConfig, data: TracerData, state: TraceState):
     """Padded training buffers: init + user obs + binned obs
-    (gpet.py:209-214; unsorted, the GP is permutation-invariant)."""
+    (gpet.py:209-214; unsorted, the GP is permutation-invariant), with the
+    state's frame axis. The noise weights are the same for every frame."""
     dev = data.x_grid.device
+    lead = state.obs_x.shape[:-1]
     pad = cfg.n_train - cfg.n_inits - cfg.n_user_obs - cfg.bins.n_bins
-    zeros = torch.zeros(pad, dtype=torch.int64, device=dev)
-    x = torch.cat([data.init_x, state.user_x, state.obs_x, zeros])
-    y = torch.cat([data.init_y, state.user_y, state.obs_y, zeros])
-    mask = torch.cat([torch.ones(cfg.n_inits, dtype=torch.bool, device=dev),
+    zeros = torch.zeros(lead + (pad,), dtype=torch.int64, device=dev)
+    inits = lead + (cfg.n_inits,)
+    x = torch.cat([data.init_x.expand(inits), state.user_x, state.obs_x,
+                   zeros], dim=-1)
+    y = torch.cat([data.init_y.expand(inits), state.user_y, state.obs_y,
+                   zeros], dim=-1)
+    mask = torch.cat([torch.ones(inits, dtype=torch.bool, device=dev),
                       state.user_valid, state.obs_valid,
-                      torch.zeros(pad, dtype=torch.bool, device=dev)])
+                      torch.zeros(lead + (pad,), dtype=torch.bool,
+                                  device=dev)], dim=-1)
     # Endpoint noise weight 1e-7/0.5, observation weight 1 (gpet.py:161,209).
     noise_w = torch.cat([
         torch.full((cfg.n_inits,), cfg.init_noise_weight,
@@ -295,20 +316,31 @@ class TorchDraws:
     """The default draw source: ``torch.Generator``s on ``device``.
     Iteration ``it`` draws from seed ``seed + it + 1`` (the reference's
     ``fold_in(key, it+1)``, gpet.py:839); the final fit's restarts from
-    ``seed``."""
+    ``seed``. A trace thus takes the ``max_iters + 1`` seeds from ``seed``
+    on; ensemble ``member`` k takes the next block of as many, so no two
+    members' streams, of any iteration or of the restarts, share a seed,
+    and member 0 is the single trace's source. (An offset in the seed's
+    high 32 bits would not do: the CPU generator drops them.)"""
 
-    def __init__(self, cfg: TracerConfig, rank: int, device):
+    def __init__(self, cfg: TracerConfig, rank: int, device, member=0):
         self.cfg, self.rank = cfg, rank
         self.device = torch.device(device)
+        self.offset = int(member) * (cfg.max_iters + 1)
 
     def _gen(self, seed):
         g = torch.Generator(device=self.device)
         g.manual_seed(seed)
         return g
 
+    def iteration_seed(self, it: int) -> int:
+        return self.cfg.seed + self.offset + it + 1
+
+    def restart_seed(self) -> int:
+        return self.cfg.seed + self.offset
+
     def normals(self, it: int):
         """(z (r, S), w (n_train, S)) standard normals of iteration ``it``."""
-        g = self._gen(self.cfg.seed + it + 1)
+        g = self._gen(self.iteration_seed(it))
         S = self.cfg.N_samples
         z = torch.randn((self.rank, S), generator=g, device=self.device)
         w = torch.randn((self.cfg.n_train, S), generator=g,
@@ -318,8 +350,24 @@ class TorchDraws:
     def restarts(self):
         """(lml_restarts, 3) uniforms in [0, 1) for the final fit."""
         return torch.rand((self.cfg.lml_restarts, 3),
-                          generator=self._gen(self.cfg.seed),
+                          generator=self._gen(self.restart_seed()),
                           device=self.device)
+
+
+class FrameDraws:
+    """Draw sources of their own for each frame, as one source: the normals
+    and restart uniforms of every frame's source stacked on a leading axis
+    ((B, r, S), (B, n_train, S), (B, lml_restarts, 3))."""
+
+    def __init__(self, sources):
+        self.sources = list(sources)
+
+    def normals(self, it: int):
+        z, w = zip(*(src.normals(it) for src in self.sources))
+        return torch.stack(z), torch.stack(w)
+
+    def restarts(self):
+        return torch.stack([src.restarts() for src in self.sources])
 
 
 def _default_draws(cfg: TracerConfig, data: TracerData) -> TorchDraws:
@@ -343,16 +391,39 @@ def _sample_round(cfg: TracerConfig, data: TracerData, x, y, mask, noise_w,
     else:
         post_scale = 1.0
     samples = fit_and_sample(
-        cfg.kernel, x.to(torch.float32), yf / y_s, cfg.sigma_l, variance,
-        diag_noise, mask, data.L_prior_unit, x_idx=x, grid_out=data.x_grid,
-        z=z, w=w, centre=True, post_scale=post_scale)
-    return samples * y_s                                    # (E, S)
+        cfg.kernel, x.to(torch.float32), yf / y_s[..., None], cfg.sigma_l,
+        variance, diag_noise, mask, data.L_prior_unit, x_idx=x,
+        grid_out=data.x_grid, z=z, w=w, centre=True, post_scale=post_scale)
+    return samples * per_frame(y_s)                         # (..., E, S)
+
+
+def _lift(state: TraceState) -> TraceState:
+    """One trace's state as a batch of one frame."""
+    return TraceState(*(
+        torch.tensor([v], dtype=torch.int64, device=state.obs_x.device)
+        if k == "it" else v[None] for k, v in state._asdict().items()))
+
+
+def frame_of(batch, f: int):
+    """Frame ``f`` of a batched :class:`TraceState` or :class:`TraceResult`
+    as one trace's: ``it`` and ``n_iters`` as ints, ``converged`` a bool."""
+    cast = {"it": int, "n_iters": int, "converged": bool}
+    return type(batch)(**{k: cast[k](v[f]) if k in cast else v[f]
+                          for k, v in batch._asdict().items()})
 
 
 def _iteration(cfg: TracerConfig, data: TracerData, state: TraceState, z, w,
-               blur=None, consts=None):
+               blur=None, consts=None, k=None):
     """One outer-loop iteration (gpet.py:829-861): sample, score, rank,
-    KDE, select. Returns the new state and the (E, S) samples."""
+    KDE, select. Returns the new state and the (E, S) samples.
+
+    A batched state (``it`` a tensor) steps every frame, each stage once
+    for all of them, and writes the telemetry of iteration ``k``, at which
+    its active frames stand; the caller keeps finished frames as they
+    were."""
+    one = isinstance(state.it, int)
+    if one:
+        state, k = _lift(state), state.it
     x, y, mask, noise_w = _train_set(cfg, data, state)
     samples = _sample_round(cfg, data, x, y, mask, noise_w, z, w)
     costs, samples_t = curve_costs(
@@ -361,35 +432,35 @@ def _iteration(cfg: TracerConfig, data: TracerData, state: TraceState, z, w,
         return_samples_t=True)
     bc, bcosts = best_curves(samples, costs, cfg.N_keep, samples_t=samples_t)
     inv = 1.0 / bcosts
-    weights = inv / inv.sum()                               # gpet.py:492-493
+    weights = inv / inv.sum(-1, keepdim=True)               # gpet.py:492-493
     kde_arr = curve_kde(bc, weights, cfg.M, cfg.N, cfg.x_st, blur=blur)
 
     sel = select_pixels(
         kde_arr, data.grad_kde,
-        torch.cat([state.user_x, state.obs_x]),
-        torch.cat([state.user_y, state.obs_y]),
-        torch.cat([state.user_valid, state.obs_valid]),
+        torch.cat([state.user_x, state.obs_x], dim=-1),
+        torch.cat([state.user_y, state.obs_y], dim=-1),
+        torch.cat([state.user_valid, state.obs_valid], dim=-1),
         n_pre=state.n_fobs, score_thresh=state.score_thresh, spec=cfg.bins,
         fix_endpoints=cfg.fix_endpoints, kde_thresh=cfg.kde_thresh,
         pixel_thresh=cfg.pixel_thresh, algo_thresh=cfg.algo_thresh,
         max_decays=cfg.max_decays, consts=consts)
 
-    i = state.it
-
     def put(buf, v):
         buf = buf.clone()
-        buf[i] = v
+        buf[:, k] = v
         return buf
 
     new_state = TraceState(
         obs_x=sel.obs_x, obs_y=sel.obs_y, obs_valid=sel.obs_valid,
         user_x=state.user_x, user_y=state.user_y,
         user_valid=torch.zeros_like(state.user_valid),  # first iteration only
-        score_thresh=sel.score_thresh, n_fobs=sel.n_fobs, it=i + 1,
-        iter_curves=put(state.iter_curves, bc[:, 0]),
-        iter_costs=put(state.iter_costs, bcosts[0]),
+        score_thresh=sel.score_thresh, n_fobs=sel.n_fobs, it=state.it + 1,
+        iter_curves=put(state.iter_curves, bc[..., 0]),
+        iter_costs=put(state.iter_costs, bcosts[..., 0]),
         iter_nobs=put(state.iter_nobs, sel.n_fobs),
         iter_thresh=put(state.iter_thresh, sel.score_thresh))
+    if one:
+        return frame_of(new_state, 0), samples[0]
     return new_state, samples
 
 
@@ -401,9 +472,16 @@ def optimize_lml(kernel: KernelSpec, xs, ys, mask, noise_w, starts, lb, ub,
     batch through :func:`batched_lml` (K5 + K6). Above ``_DIRECT_FIT_N``
     training points it screens and polishes on a stride-subsampled set,
     then re-polishes the coarse optimum at full size. ``lb``/``ub`` are host
-    tensors. Returns ``(theta, lml)``."""
+    tensors. Returns ``(theta, lml)``.
+
+    Frames: (F, n) buffers fit F frames at once, each from ``starts``
+    ((T, 3) shared, or (F, T, 3)), with one objective batch per step for
+    all of them; frames share n, so they all take the same branch."""
     dev = starts.device
-    allstarts = torch.cat([starts, lml_screen_grid(lb, ub, dev)])
+    lead = xs.shape[:-1]
+    starts = starts.expand(lead + starts.shape[-2:])
+    grid = lml_screen_grid(lb, ub, dev)
+    allstarts = torch.cat([starts, grid.expand(lead + grid.shape)], dim=-2)
     lb_d, ub_d = lb.to(dev), ub.to(dev)
 
     def fns(xs_, ys_, mask_, nw_):
@@ -418,17 +496,17 @@ def optimize_lml(kernel: KernelSpec, xs, ys, mask, noise_w, starts, lb, ub,
         return values_fn, vg_fn
 
     values_fn, vg_fn = fns(xs, ys, mask, noise_w)
-    if xs.shape[0] <= _DIRECT_FIT_N:
+    if xs.shape[-1] <= _DIRECT_FIT_N:
         res = screen_and_polish_batched(values_fn, vg_fn, allstarts, lb_d,
                                         ub_d, n_polish=n_polish,
                                         iters=polish_iters)
         return res.x, -res.f
-    stride = -(-xs.shape[0] // 112)
-    vs_sub, vg_sub = fns(xs[::stride], ys[::stride], mask[::stride],
-                         noise_w[::stride])
+    stride = -(-xs.shape[-1] // 112)
+    vs_sub, vg_sub = fns(xs[..., ::stride], ys[..., ::stride],
+                         mask[..., ::stride], noise_w[..., ::stride])
     coarse = screen_and_polish_batched(vs_sub, vg_sub, allstarts, lb_d, ub_d,
                                        n_polish=n_polish, iters=polish_iters)
-    fine_starts = torch.stack([coarse.x, starts[0]])
+    fine_starts = torch.stack([coarse.x, starts[..., 0, :]], dim=-2)
     res = screen_and_polish_batched(values_fn, vg_fn, fine_starts, lb_d, ub_d,
                                     n_polish=2,
                                     iters=max(polish_iters - 1, 2))
@@ -439,9 +517,10 @@ def _final_fit_buffers(cfg: TracerConfig, data: TracerData, restarts_u, x,
                        y, mask, noise_w):
     """The converged fit on padded training buffers (gpet.py:233-266):
     standardise, maximise the LML from ``1 + lml_restarts`` starts, predict
-    on the x grid. ``restarts_u`` are (lml_restarts, 3) uniforms in [0, 1).
-    Returns ``(y_mean, std, y_s, theta, lml)``; ``std`` is in standardised
-    units."""
+    on the x grid. ``restarts_u`` are (lml_restarts, 3) uniforms in [0, 1)
+    (or (F, lml_restarts, 3), one set per frame). Returns ``(y_mean, std,
+    y_s, theta, lml)``; ``std`` is in standardised units. With (F, n)
+    buffers every result has a leading frame axis."""
     dev = x.device
     xf = x.to(torch.float32)
     yf = y.to(torch.float32)
@@ -451,8 +530,8 @@ def _final_fit_buffers(cfg: TracerConfig, data: TracerData, restarts_u, x,
     X_s = torch.where(X_s == 0.0, torch.ones_like(X_s), X_s)
     y_s = torch.where(y_s == 0.0, torch.ones_like(y_s), y_s)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    xs = torch.where(mask, (xf - X_m) / X_s, zero)
-    ys = torch.where(mask, (yf - y_m) / y_s, zero)
+    xs = torch.where(mask, (xf - X_m[..., None]) / X_s[..., None], zero)
+    ys = torch.where(mask, (yf - y_m[..., None]) / y_s[..., None], zero)
 
     # θ = (log c, log ℓ, log σn²); bounds gpet.py:246-248.
     lb = torch.log(torch.tensor([0.01, 0.1, 1e-18], dtype=torch.float32))
@@ -461,57 +540,83 @@ def _final_fit_buffers(cfg: TracerConfig, data: TracerData, restarts_u, x,
         [5.0, 5.0, cfg.noise_y], dtype=torch.float32)), lb), ub)
     lb_d, ub_d = lb.to(dev), ub.to(dev)
     restarts = restarts_u.to(dev, torch.float32) * (ub_d - lb_d) + lb_d
-    starts = torch.cat([theta0.to(dev)[None], restarts], dim=0)
+    starts = torch.cat([theta0.to(dev).expand(restarts.shape[:-2] + (1, 3)),
+                        restarts], dim=-2)
 
     theta, lml = optimize_lml(cfg.kernel, xs, ys, mask, noise_w, starts, lb,
                               ub, jitter=cfg.gp_jitter)
 
-    c, ls, noise = torch.exp(theta).unbind()
-    gp = gp_fit(cfg.kernel, xs, ys, ls, c, noise * noise_w + cfg.gp_jitter,
-                mask, centre=False)
-    xq = (data.x_grid.to(torch.float32) - X_m) / X_s
+    c, ls, noise = torch.exp(theta).unbind(-1)
+    gp = gp_fit(cfg.kernel, xs, ys, ls, c,
+                per_frame(noise, 1) * noise_w + cfg.gp_jitter, mask,
+                centre=False)
+    xq = (data.x_grid.to(torch.float32) - X_m[..., None]) / X_s[..., None]
     mean_std, std = gp_predict(cfg.kernel, gp, xq, ls, c, return_std=True)
-    y_mean = y_s * mean_std + y_m                            # gpet.py:266
+    y_mean = y_s[..., None] * mean_std + y_m[..., None]     # gpet.py:266
     return y_mean, std, y_s, theta, lml
 
 
 def finish_trace(cfg: TracerConfig, data: TracerData, state: TraceState,
                  draws) -> TraceResult:
     """Post-loop finalisation (gpet.py:874-890): the converged LML fit, the
-    credible interval, the yx trace and the final mean curve's cost."""
+    credible interval, the yx trace and the final mean curve's cost. A
+    batched state is finished in one fit for all frames, with one host read
+    for their ``n_iters`` and ``converged``."""
+    if isinstance(state.it, int):
+        return frame_of(finish_trace(cfg, data, _lift(state), draws), 0)
     x, y, mask, noise_w = _train_set(cfg, data, state)
     y_mean, y_std_s, y_s, theta, lml = _final_fit_buffers(
         cfg, data, draws.restarts(), x, y, mask, noise_w)
     # Reference quirk: the interval and y_std keep the standardised-y std
     # (gpet.py:266); with reference_quirks=False both are in pixels.
-    y_std_px = y_s * y_std_s
+    y_std_px = y_s[..., None] * y_std_s
     y_std = y_std_s if cfg.reference_quirks else y_std_px
-    cred = torch.stack([y_mean - 1.96 * y_std, y_mean + 1.96 * y_std])
+    cred = torch.stack([y_mean - 1.96 * y_std, y_mean + 1.96 * y_std],
+                       dim=-2)
     cred_px = torch.stack([y_mean - 1.96 * y_std_px,
-                           y_mean + 1.96 * y_std_px])
+                           y_mean + 1.96 * y_std_px], dim=-2)
     edge_trace = torch.stack([torch.round(y_mean).to(torch.int64),
-                              data.x_grid], dim=1)
-    final_cost = curve_costs(data.grad_cols, y_mean[:, None],
+                              data.x_grid.expand(y_mean.shape)], dim=-1)
+    final_cost = curve_costs(data.grad_cols, y_mean[..., None],
                              kde_thresh=cfg.kde_thresh,
                              even="avg" if cfg.legacy_simpson
-                             else "simpson")[0]
+                             else "simpson")[..., 0]
+    host = torch.stack([state.it, (state.n_fobs >= cfg.algo_thresh).to(
+        torch.int64)]).cpu()                                # one read
     return TraceResult(
         edge_trace=edge_trace, y_mean=y_mean, y_std=y_std,
-        cred_interval=cred, cred_interval_px=cred_px, n_iters=state.it,
-        converged=bool(state.n_fobs.item() >= cfg.algo_thresh),
-        theta=theta, lml=lml, final_cost=final_cost,
-        iter_curves=state.iter_curves, iter_costs=state.iter_costs,
-        iter_nobs=state.iter_nobs, iter_thresh=state.iter_thresh,
-        obs_x=torch.cat([state.user_x, state.obs_x]),
-        obs_y=torch.cat([state.user_y, state.obs_y]),
-        obs_valid=torch.cat([state.user_valid, state.obs_valid]))
+        cred_interval=cred, cred_interval_px=cred_px, n_iters=host[0],
+        converged=host[1].to(torch.bool), theta=theta, lml=lml,
+        final_cost=final_cost, iter_curves=state.iter_curves,
+        iter_costs=state.iter_costs, iter_nobs=state.iter_nobs,
+        iter_thresh=state.iter_thresh,
+        obs_x=torch.cat([state.user_x, state.obs_x], dim=-1),
+        obs_y=torch.cat([state.user_y, state.obs_y], dim=-1),
+        obs_valid=torch.cat([state.user_valid, state.obs_valid], dim=-1))
+
+
+def _active(cfg: TracerConfig, state: TraceState):
+    """(B,) the frames the loop still steps (driver.py:687-688)."""
+    return (state.n_fobs < cfg.algo_thresh) & (state.it < cfg.max_iters)
+
+
+def _keep_finished(active, new: TraceState, old: TraceState) -> TraceState:
+    """``new`` for the active frames, ``old`` for the others."""
+    return TraceState(*(
+        torch.where(active.reshape(active.shape + (1,) * (n.dim() - 1)), n, o)
+        for n, o in zip(new, old)))
 
 
 def run_loop(cfg: TracerConfig, data: TracerData, state0: TraceState,
              draws=None) -> TraceState:
     """The outer loop alone: iterate while ``n_fobs < algo_thresh`` and
     ``it < max_iters`` (driver.py:687-688), one device read per
-    iteration."""
+    iteration. With a batched state it steps all frames while any is
+    active, one read of the (B,) active mask per iteration, and keeps each
+    finished frame's state as it was (the JAX package's vmapped
+    ``while_loop``). The active frames must stand at one iteration."""
+    if isinstance(state0.it, int):
+        return frame_of(run_loop(cfg, data, _lift(state0), draws), 0)
     if draws is None:
         draws = _default_draws(cfg, data)
     blur = blur_matrices(cfg.M, cfg.N, data.grad_kde.dtype,
@@ -519,17 +624,27 @@ def run_loop(cfg: TracerConfig, data: TracerData, state0: TraceState,
     consts = select_consts(cfg.bins, cfg.N, cfg.max_decays,
                            data.grad_kde.device)
     state = state0
-    while state.it < cfg.max_iters and state.n_fobs.item() < cfg.algo_thresh:
-        z, w = draws.normals(state.it)
-        state, _ = _iteration(cfg, data, state, z, w, blur=blur,
-                              consts=consts)
+    active = _active(cfg, state)
+    at = set(torch.where(active, state.it, -1).tolist()) - {-1}
+    if len(at) > 1:
+        raise ValueError(f"the active frames stand at iterations "
+                         f"{sorted(at)}; a batch steps them together")
+    k = at.pop() if at else cfg.max_iters
+    while k < cfg.max_iters:
+        z, w = draws.normals(k)
+        new, _ = _iteration(cfg, data, state, z, w, blur=blur,
+                            consts=consts, k=k)
+        state = _keep_finished(active, new, state)
+        active = _active(cfg, state)
+        k = k + 1 if bool(active.any()) else cfg.max_iters
     return state
 
 
 def run_trace(cfg: TracerConfig, data: TracerData, state0: TraceState,
               draws=None) -> TraceResult:
     """The full trace (gpet.py:768-908): the outer loop, then
-    :func:`finish_trace`. ``draws`` defaults to :class:`TorchDraws`."""
+    :func:`finish_trace`; for one trace or, with a batched state, for every
+    frame. ``draws`` defaults to :class:`TorchDraws`."""
     if draws is None:
         draws = _default_draws(cfg, data)
     state = run_loop(cfg, data, state0, draws)

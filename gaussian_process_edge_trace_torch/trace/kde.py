@@ -14,6 +14,9 @@ normalised, so only the shape matters.
 - :func:`gradient_kde` — the gradient image's pixels above ``kde_thresh``,
   weighted by intensity: binning integer points is a masked copy.
 
+Every function takes an optional leading frame axis; each frame is
+normalised by its own minimum and maximum.
+
 No scatter-add is used: float atomics on the card would make reruns differ
 in the last bits, and one flipped bit can change a selected pixel.
 """
@@ -49,11 +52,12 @@ def _toeplitz(n, taps):
 
 
 def _blur_axis_fma(grid, taps, axis):
-    """1-D zero-boundary convolution along ``axis`` as 2r+1 shifted
-    multiply-adds."""
+    """1-D zero-boundary convolution along ``axis``, one of the last two,
+    as 2r+1 shifted multiply-adds."""
     r = (taps.shape[0] - 1) // 2
     n = grid.shape[axis]
-    pad = (0, 0, r, r) if axis == 0 else (r, r, 0, 0)
+    rows = axis % grid.dim() == grid.dim() - 2
+    pad = (0, 0, r, r) if rows else (r, r, 0, 0)
     g = torch.nn.functional.pad(grid, pad)
     out = taps[0] * g.narrow(axis, 0, n)
     for k in range(1, taps.shape[0]):
@@ -65,13 +69,13 @@ def _separable_blur(grid, taps, mats=None):
     """2-D zero-boundary convolution with ``taps ⊗ taps``; ``mats`` are the
     precomputed :func:`blur_matrices` (a ``None`` entry blurs that axis as
     multiply-adds)."""
-    m, n = grid.shape
+    m, n = grid.shape[-2:]
     if mats is None:
         mats = (_toeplitz(m, taps) if m <= _BLUR_MATMUL_MAX else None,
                 _toeplitz(n, taps) if n <= _BLUR_MATMUL_MAX else None)
     Ty, Tx = mats
-    out = Ty @ grid if Ty is not None else _blur_axis_fma(grid, taps, 0)
-    return out @ Tx if Tx is not None else _blur_axis_fma(out, taps, 1)
+    out = Ty @ grid if Ty is not None else _blur_axis_fma(grid, taps, -2)
+    return out @ Tx if Tx is not None else _blur_axis_fma(out, taps, -1)
 
 
 def blur_matrices(M: int, N: int, dtype=torch.float32, device=None,
@@ -87,8 +91,9 @@ def blur_matrices(M: int, N: int, dtype=torch.float32, device=None,
 
 
 def _minmax(grid):
-    lo = grid.min()
-    hi = grid.max()
+    """Each frame scaled to [0, 1] by its own minimum and maximum."""
+    lo = grid.amin(dim=(-2, -1), keepdim=True)
+    hi = grid.amax(dim=(-2, -1), keepdim=True)
     return (grid - lo) / (hi - lo)
 
 
@@ -96,14 +101,14 @@ def curve_kde_raw(y_curves, weights, M: int, N: int, x_start: int,
                   radius: int = DEFAULT_RADIUS, bw: float = 1.0,
                   use_pallas_binning: bool = False, blur=None):
     """Un-normalised curve KDE: binning, placement, blur and crop."""
-    E = y_curves.shape[0]
+    E = y_curves.shape[-2]
     H = column_binning(y_curves, weights, M,
-                       use_pallas=use_pallas_binning)      # (M+2, E)
-    grid = torch.zeros((M + 2, N + 2), dtype=y_curves.dtype,
+                       use_pallas=use_pallas_binning)      # (..., M+2, E)
+    grid = torch.zeros(H.shape[:-2] + (M + 2, N + 2), dtype=y_curves.dtype,
                        device=y_curves.device)
-    grid[:, x_start + 1:x_start + 1 + E] = H
+    grid[..., x_start + 1:x_start + 1 + E] = H
     taps = gaussian_taps(radius, bw, y_curves.dtype, y_curves.device)
-    return _separable_blur(grid, taps, mats=blur)[1:-1, 1:-1]
+    return _separable_blur(grid, taps, mats=blur)[..., 1:-1, 1:-1]
 
 
 def curve_kde(y_curves, weights, M: int, N: int, x_start: int,
@@ -113,8 +118,9 @@ def curve_kde(y_curves, weights, M: int, N: int, x_start: int,
 
     Args:
       y_curves: (E, S) y-values of the S kept curves at the columns
-        ``x_start .. x_start+E-1``.
-      weights: (S,) normalised inverse costs (gpet.py:492-493).
+        ``x_start .. x_start+E-1``; (B, E, S) for B frames, which gives
+        (B, M, N).
+      weights: (S,) normalised inverse costs (gpet.py:492-493); (B, S).
       use_pallas_binning: bin with K4 instead of K3 on the card (the
         reference's flag, kde.py:147); no effect on the CPU.
       blur: optional :func:`blur_matrices`, built once per trace.
@@ -127,9 +133,9 @@ def curve_kde(y_curves, weights, M: int, N: int, x_start: int,
 def gradient_kde(grad_img, kde_thresh: float = 1e-3,
                  radius: int = DEFAULT_RADIUS, bw: float = 1.0):
     """KDE of the gradient image (gpet.py:503-509): pixels above
-    ``kde_thresh`` weighted by intensity."""
+    ``kde_thresh`` weighted by intensity. (M, N), or (B, M, N) frames."""
     masked = torch.where(grad_img > kde_thresh, grad_img,
                          torch.zeros_like(grad_img))
     grid = torch.nn.functional.pad(masked, (1, 1, 1, 1))
     taps = gaussian_taps(radius, bw, grad_img.dtype, grad_img.device)
-    return _minmax(_separable_blur(grid, taps)[1:-1, 1:-1])
+    return _minmax(_separable_blur(grid, taps)[..., 1:-1, 1:-1])

@@ -12,7 +12,8 @@ Lower is better. Eligible shapes run the fused K1 kernel; the rest run the
 K2 interpolation kernel and the Simpson sums in PyTorch. At S >= 8192 K1
 also writes the samples transposed, and :func:`best_curves` takes the kept
 curves as rows of that copy, as the reference driver does
-(driver.py:401-408).
+(driver.py:401-408). Both take an optional leading frame axis; one kernel
+launch then scores every frame.
 """
 
 from __future__ import annotations
@@ -32,16 +33,18 @@ def curve_costs(cols, y_samples, kde_thresh: float = 1e-3,
       cols: (E, M) gradient columns along the x grid (``grad_img.T`` sliced
         to the grid, ``TracerData.grad_cols``); the grid is contiguous, so
         the reference's ``x_grid`` argument enters only as unit spacing.
-      y_samples: (E, S) curves.
+        (B, E, M) for frames with columns of their own.
+      y_samples: (E, S) curves, or (B, E, S) for B frames; the costs are
+        then (B, S).
       even: even-point Simpson rule; only reached on the unfused path with
         an odd E, since an even E gives both quadratures an odd count.
       return_samples_t: also return the (S, E) transposed samples that K1
         writes at S >= 8192 on the fused path, else ``None``
         (scoring.py:61-65 of the reference).
     """
-    E, S = y_samples.shape
+    E, S = y_samples.shape[-2:]
     samples_t = None
-    if fused_cost_eligible(E, cols.shape[1], S):
+    if fused_cost_eligible(E, cols.shape[-1], S):
         line, arc, samples_t = fused_curve_cost(
             cols, y_samples, kde_thresh, want_transpose=return_samples_t)
     else:
@@ -54,15 +57,17 @@ def curve_costs(cols, y_samples, kde_thresh: float = 1e-3,
 
 def best_curves(y_samples, costs, n_keep: int, samples_t=None):
     """The ``n_keep`` cheapest curves (gpet.py:443-449): ``(best (E, n_keep),
-    best_costs (n_keep,))``, index 0 the optimum. A stable ascending sort
-    gives ``lax.top_k``'s order on ties, lower index first, on every
-    device. With ``samples_t`` (the (S, E) copy from :func:`curve_costs`)
-    the curves are taken as rows of it, bitwise the same elements; the
-    result is made contiguous, the layout K3 takes."""
+    best_costs (n_keep,))``, index 0 the optimum; with a leading frame
+    axis, each frame's own. A stable ascending sort gives ``lax.top_k``'s
+    order on ties, lower index first, on every device. With ``samples_t``
+    (the (S, E) copy from :func:`curve_costs`) the curves are taken as rows
+    of it, bitwise the same elements; the result is made contiguous, the
+    layout K3 takes."""
     order = torch.sort(costs, stable=True)
-    idx = order.indices[:n_keep]
+    idx = order.indices[..., :n_keep]
     if samples_t is not None:
-        best = samples_t.index_select(0, idx).T.contiguous()
+        best = torch.take_along_dim(samples_t, idx[..., None], dim=-2)
+        best = best.transpose(-1, -2).contiguous()
     else:
-        best = y_samples.index_select(1, idx)
-    return best, order.values[:n_keep]
+        best = torch.take_along_dim(y_samples, idx[..., None, :], dim=-1)
+    return best, order.values[..., :n_keep]

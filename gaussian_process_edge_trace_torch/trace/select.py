@@ -14,6 +14,9 @@ fixed-shape grid arithmetic:
   evaluated at once;
 - each sub-interval bin keeps its best pixel (gpet.py:613-616), returned as
   fixed per-bin buffers ``(x, y, valid)``.
+
+With a leading frame axis every frame has its own scores, threshold ladder
+index and bins.
 """
 
 from __future__ import annotations
@@ -108,27 +111,33 @@ def select_pixels(kde_arr, grad_kde, obs_x, obs_y, obs_valid, n_pre,
     """One selection round: scores, adaptive threshold, per-bin argmax.
 
     Args:
-      kde_arr: (M, N) curve KDE of this iteration.
+      kde_arr: (M, N) curve KDE of this iteration, or (B, M, N) for B
+        frames; every other argument then has the same leading axis, or
+        none where the frames share it.
       grad_kde: (M, N) gradient KDE.
       obs_x/obs_y/obs_valid: previous observations (int64, int64, bool).
       n_pre: scalar count of previous observations (gpet.py:561).
       score_thresh: scalar threshold carried from the last iteration.
       consts: :func:`select_consts` for this config (built if omitted).
     """
-    M, N = kde_arr.shape
+    M, N = kde_arr.shape[-2:]
+    lead = kde_arr.shape[:-2]
     dev = kde_arr.device
     if consts is None:
         consts = select_consts(spec, N, max_decays, dev)
 
     dense_cand = kde_arr > kde_thresh                      # gpet.py:651
-    cand = dense_cand & consts.col_ok[None, :] if fix_endpoints else dense_cand
+    cand = dense_cand & consts.col_ok if fix_endpoints else dense_cand
     # Previous observations still covered by the KDE (gpet.py:571): a bool
-    # grid written at each valid (y, x); invalid slots go to a spare cell.
-    flat = torch.where(obs_valid, obs_y * N + obs_x,
-                       torch.full_like(obs_x, M * N))
-    old = torch.zeros(M * N + 1, dtype=torch.bool, device=dev)
+    # grid written at each valid (y, x), each frame in its own M·N cells;
+    # invalid slots go to a spare cell.
+    frames = int(np.prod(lead, dtype=np.int64))
+    base = (torch.arange(frames, device=dev) * (M * N)).reshape(lead + (1,))
+    flat = torch.where(obs_valid, base + obs_y * N + obs_x,
+                       torch.full_like(obs_x, frames * M * N))
+    old = torch.zeros(frames * M * N + 1, dtype=torch.bool, device=dev)
     old[flat] = True
-    elig = cand | (old[:M * N].reshape(M, N) & dense_cand)
+    elig = cand | (old[:frames * M * N].reshape(kde_arr.shape) & dense_cand)
 
     score = (kde_arr * grad_kde + kde_arr + grad_kde) / 3.0  # gpet.py:582
     neg_inf = torch.full((), -torch.inf, dtype=score.dtype, device=dev)
@@ -137,23 +146,25 @@ def select_pixels(kde_arr, grad_kde, obs_x, obs_y, obs_valid, n_pre,
     # The pixel kept for an occupied bin is always its best eligible pixel,
     # so the argmax does not depend on the threshold: the threshold decides
     # occupancy only.
-    col_best = score.amax(0)                               # (N,)
-    col_best_y = torch.argmax(score, dim=0)
-    per_bin = torch.where(consts.bin_onehot, col_best[None, :], neg_inf)
-    bin_best_col = torch.argmax(per_bin, dim=1)
-    bin_best_score = per_bin.amax(1)                       # (n_bins,)
+    col_best = score.amax(-2)                              # (..., N)
+    col_best_y = torch.argmax(score, dim=-2)
+    per_bin = torch.where(consts.bin_onehot, col_best[..., None, :], neg_inf)
+    bin_best_col = torch.argmax(per_bin, dim=-1)
+    bin_best_score = per_bin.amax(-1)                      # (..., n_bins)
 
-    threshs = score_thresh.to(score.dtype) * consts.ladder  # (J,)
-    n_at = (bin_best_score[None, :] >= threshs[:, None]).sum(1)
-    n_pre = torch.as_tensor(n_pre, device=dev)
+    threshs = (torch.as_tensor(score_thresh, device=dev).to(score.dtype)
+               [..., None] * consts.ladder)                # (..., J)
+    n_at = (bin_best_score[..., None, :] >= threshs[..., :, None]).sum(-1)
+    n_pre = torch.as_tensor(n_pre, device=dev)[..., None]
     stop = (n_at - n_pre >= pixel_thresh) | (n_at >= algo_thresh)
-    j = torch.where(stop.any(), torch.argmax(stop.to(torch.uint8)),
+    j = torch.where(stop.any(-1), torch.argmax(stop.to(torch.uint8), dim=-1),
                     torch.tensor(max_decays - 1, device=dev))
-    thresh = threshs[j]
+    thresh = torch.take_along_dim(threshs, j[..., None], dim=-1)[..., 0]
 
-    valid = bin_best_score >= thresh
+    valid = bin_best_score >= thresh[..., None]
     zero = torch.zeros_like(bin_best_col)
     new_x = torch.where(valid, bin_best_col, zero)
-    new_y = torch.where(valid, col_best_y[bin_best_col], zero)
+    new_y = torch.where(valid, torch.take_along_dim(col_best_y, bin_best_col,
+                                                    dim=-1), zero)
     return Selection(obs_x=new_x, obs_y=new_y, obs_valid=valid,
-                     n_fobs=valid.sum(), score_thresh=thresh)
+                     n_fobs=valid.sum(-1), score_thresh=thresh)

@@ -1,7 +1,9 @@
 """PyTorch port on the card: each hand-written kernel (K1 with its
 transposed-samples output, K2, K3, K4, K5, K6) against its plain PyTorch
-version on CUDA tensors, the launch plans against the launchers, and the
-small slice traced on the card, at an even and at an odd edge length.
+version on CUDA tensors, K1, K2 and K3 over several frames in one launch
+against single-frame launches, the launch plans against the launchers, and
+the small slice traced on the card, at an even and at an odd edge length
+and as a batch of two frames.
 Every test here carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is false.
 
@@ -394,3 +396,92 @@ def test_small_odd_edge_trace_on_the_card(dev):
     assert gpt.trace_dicecoef(out, edge[:95]) > 0.95
     np.testing.assert_array_equal(out,
                                   gpt.GP_Edge_Tracing(*args, device=dev)())
+
+
+@pytest.mark.parametrize("E,M,S,transpose,shared", [
+    (38, 61, 130, False, False), (38, 61, 8197, True, False),
+    (500, 500, 1000, False, True), (100, 80, 8200, True, True)])
+def test_fused_cost_frames_equal_single_launches(dev, E, M, S, transpose,
+                                                  shared):
+    """K1 over four frames in one launch (and one chunk sum), with columns
+    of their own or one set shared by the frames: each frame's line, arc
+    and transposed copy equal a single-frame launch of that frame bit for
+    bit."""
+    B = 4
+    rng = np.random.default_rng(1)
+    cols = torch.tensor(rng.random((E, M) if shared else (B, E, M)),
+                        dtype=torch.float32, device=dev)
+    ys = torch.tensor(np.stack([_curves(E, M, S, seed=f) for f in range(B)]),
+                      device=dev)
+    n0 = ci.LAUNCHES["fused_cost"]
+    out = ci.fused_cost_cuda(cols, ys, 1e-3, with_transpose=transpose)
+    assert ci.LAUNCHES["fused_cost"] == n0 + 1
+    assert out[0].shape == (B, S)
+    for f in range(B):
+        one = ci.fused_cost_cuda(cols if shared else cols[f], ys[f], 1e-3,
+                                 with_transpose=transpose)
+        for a, b in zip(out, one):
+            assert torch.equal(a[f], b)
+
+
+@pytest.mark.parametrize("S", [1, 1000, 10003])
+@pytest.mark.parametrize("shared", [False, True])
+def test_column_interp_frames_equal_single_launches(dev, S, shared):
+    """K2 over three frames in one launch, flat (S = 1) and tiled, with
+    columns of their own or shared: bitwise equal to single-frame launches
+    and to the plain version."""
+    B, E, M = 3, 37, 61
+    rng = np.random.default_rng(S)
+    cols = torch.tensor(rng.random((E, M) if shared else (B, E, M)),
+                        dtype=torch.float32, device=dev)
+    ys = torch.tensor(rng.uniform(-20, M + 20, (B, E, S)),
+                      dtype=torch.float32, device=dev)
+    n0 = ci.LAUNCHES["column_interp"]
+    out = ci.column_interp_cuda(cols, ys, 1e-3)
+    assert ci.LAUNCHES["column_interp"] == n0 + 1
+    assert torch.equal(out, ci.column_interp_plain(cols, ys, 1e-3))
+    for f in range(B):
+        assert torch.equal(out[f], ci.column_interp_cuda(
+            cols if shared else cols[f], ys[f], 1e-3))
+
+
+@pytest.mark.parametrize("E,S,M", [(37, 33, 129), (300, 1000, 400)])
+def test_binning_2l_frames_equal_single_launches(dev, E, S, M):
+    """K3 over three frames in one launch: each frame's (M+2, E) masses
+    equal a single-frame launch bit for bit."""
+    kept = [_kept(dev, E, S, M, seed=f) for f in range(3)]
+    y = torch.stack([k[0] for k in kept])
+    w = torch.stack([k[1] for k in kept])
+    n0 = ck.LAUNCHES["binning_2l"]
+    H = ck.binning_2l_cuda(y, w, M)
+    assert ck.LAUNCHES["binning_2l"] == n0 + 1 and H.shape == (3, M + 2, E)
+    for f in range(3):
+        assert torch.equal(H[f], ck.binning_2l_cuda(y[f], w[f], M))
+
+
+def test_small_batch_trace_on_the_card(dev):
+    """Two frames of the small slice traced as one batch: K1 and K3 launch
+    once per loop iteration for both frames, K2 once for both final costs,
+    and each frame traces its edge."""
+    from gaussian_process_edge_trace_torch.parallel import (
+        make_batch_data, make_batch_state, trace_batch)
+    from gaussian_process_edge_trace_torch.trace.driver import make_config
+    imgs = [gpt.construct_test_img((64, 96), 40, 2, 0.03, "sinusoidal", 0.3,
+                                   seed=s) for s in (1, 2)]
+    grads = torch.stack([gpt.comp_grad_img(img, gpt.kernel_builder((9, 5)),
+                                           device=dev) for img, _ in imgs])
+    inits = np.array([[[0, e[0, 0]], [95, e[95, 0]]] for _, e in imgs])
+    cfg = make_config(inits[0], (64, 96), {"kernel": "RBF", "sigma_f": 20,
+                                           "length_scale": 8},
+                      N_samples=256, delta_x=6, pixel_thresh=4, seed=1)
+    data = make_batch_data(cfg, grads, inits)
+    for counts in (ci.LAUNCHES, cc.LAUNCHES, ck.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    res = trace_batch(cfg, data, make_batch_state(cfg, 2, dev))
+    assert ci.LAUNCHES["fused_cost"] == int(res.n_iters.max())
+    assert ck.LAUNCHES["binning_2l"] == int(res.n_iters.max())
+    assert ci.LAUNCHES["column_interp"] == 1
+    for f, (_, edge) in enumerate(imgs):
+        assert gpt.trace_dicecoef(res.edge_trace[f].cpu().numpy(),
+                                  edge) > 0.97

@@ -278,12 +278,41 @@ def test_gp_edge_tracing_default_draws_on_cpu():
 
 @pytest.mark.parametrize("option", ["print_final_diagnostics",
                                     "show_init_post", "show_post_iter",
-                                    "verbose", "return_lines", "ensemble"])
+                                    "verbose", "return_lines"])
 def test_unported_call_options_raise(option):
     _, _, grad, init = small_problem()
     tracer = gpt.GP_Edge_Tracing(init, grad, device="cpu")
     with pytest.raises(NotImplementedError, match=option):
-        tracer(**{option: 3 if option == "ensemble" else True})
+        tracer(**{option: True})
+
+
+def test_gp_edge_tracing_ensemble():
+    """``ensemble=3`` keeps the member of ``trace_ensemble`` with the
+    lowest final cost, whose result ``last_result`` holds; member 0 is the
+    plain call's trace, and ``ensemble=1`` is the plain call."""
+    from gaussian_process_edge_trace_torch.parallel import trace_ensemble
+    _, edge, grad, init = small_problem()
+    args = (init, grad, SMALL_KW["kernel_options"], 1, np.array([]), 256, 1,
+            6, 0.1, 4, 1, False, True)
+    tracer = gpt.GP_Edge_Tracing(*args, device="cpu")
+    out = tracer(ensemble=3)
+    best, every = trace_ensemble(tracer.cfg, tracer.data,
+                                 pd.init_state(tracer.cfg, "cpu"), n_seeds=3,
+                                 return_all=True)
+    np.testing.assert_array_equal(out, best.edge_trace.numpy())
+    assert float(tracer.last_result.final_cost) == float(
+        every.final_cost.min())
+    single = gpt.GP_Edge_Tracing(*args, device="cpu")()
+    np.testing.assert_array_equal(every.edge_trace[0].numpy(), single)
+    np.testing.assert_array_equal(tracer(ensemble=1), single)
+    assert gpt.trace_dicecoef(out, edge) > 0.97
+
+
+def test_gp_edge_tracing_ensemble_below_one_raises():
+    _, _, grad, init = small_problem()
+    tracer = gpt.GP_Edge_Tracing(init, grad, device="cpu")
+    with pytest.raises(ValueError, match="ensemble"):
+        tracer(ensemble=0)
 
 
 def test_warm_start_observations_are_used_once():

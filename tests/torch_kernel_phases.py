@@ -133,8 +133,8 @@ def main() -> int:
     k1 = instrumented("fused_cost_kernel")
     k3 = instrumented("binning_2l_kernel")
     k4 = instrumented("binning_dense_kernel")
-    k1[0].gpet_fused_cost.argtypes = [P] * 6 + [I, I, I, F, I, I, I, I, P]
-    k3[0].gpet_binning_2l.argtypes = [P] * 3 + [I] * 6 + [P]
+    k1[0].gpet_fused_cost.argtypes = [P] * 6 + [I, I, I, F] + [I] * 6 + [P]
+    k3[0].gpet_binning_2l.argtypes = [P] * 3 + [I] * 7 + [P]
     k4[0].gpet_binning_dense.argtypes = [P] * 3 + [I] * 5 + [P]
 
     for E, M, S, transpose in ((1000, 1000, 10000, True),
@@ -152,7 +152,7 @@ def main() -> int:
             line.data_ptr(), arc.data_ptr(),
             st.data_ptr() if transpose else None, E, M, S, 1e-3,
             plan["pairs_per_chunk"], plan["n_chunks"],
-            plan["samples_per_block"], plan["threads"], stream()),
+            plan["samples_per_block"], plan["threads"], 1, 0, stream()),
             plan["blocks"])
         print(f"[K1] E={E} M={M} S={S} {'+copy' if transpose else ''} "
               f"({plan['blocks']} blocks of {plan['pairs_per_chunk']} "
@@ -165,7 +165,7 @@ def main() -> int:
         plan = ck.k3_launch_plan(E, S, M)
         c = phases(k3, lambda: k3[0].gpet_binning_2l(
             y.data_ptr(), w.data_ptr(), H.data_ptr(), E, S, M, plan["cols"],
-            plan["warps_per_col"], plan["batches_per_warp"], stream()),
+            plan["warps_per_col"], plan["batches_per_warp"], 1, stream()),
             plan["blocks"])
         print(f"[K3] E={E} S={S} M={M} ({plan['blocks']} blocks, "
               f"{plan['warps_per_col']} warps per column): {c} cycles per "

@@ -104,8 +104,8 @@ def build(name, src):
     cu.write_text(src)
     lib = cuda_build.compile_library(cu, OUT / f"lib{name}.so")
     for fn, argtypes in (("gpet_fused_cost",
-                          [P] * 6 + [I, I, I, F, I, I, I, I, P]),
-                         ("gpet_binning_2l", [P] * 3 + [I] * 6 + [P])):
+                          [P] * 6 + [I, I, I, F, I, I, I, I, I, I, P]),
+                         ("gpet_binning_2l", [P] * 3 + [I] * 7 + [P])):
         if hasattr(lib, fn):         # each source has one of the two
             getattr(lib, fn).argtypes = argtypes
     return lib
@@ -178,7 +178,7 @@ def time_k1(lib, cols, ys, kde_thresh, transpose, plan):
             line.data_ptr(), arc.data_ptr(), st.data_ptr() if transpose
             else None, E, M, S, kde_thresh, plan["pairs_per_chunk"],
             plan["n_chunks"], plan["samples_per_block"], plan["threads"],
-            torch.cuda.current_stream().cuda_stream)
+            1, 0, torch.cuda.current_stream().cuda_stream)
         cuda_build.check(rc, "fused_cost variant")
     launch()
     pline, parc = ci.fused_cost_plain(cols, ys, kde_thresh)
@@ -196,7 +196,7 @@ def time_k3(lib, y, w, M):
     def launch():
         rc = lib.gpet_binning_2l(
             y.data_ptr(), w.data_ptr(), H.data_ptr(), E, S, M, plan["cols"],
-            plan["warps_per_col"], plan["batches_per_warp"],
+            plan["warps_per_col"], plan["batches_per_warp"], 1,
             torch.cuda.current_stream().cuda_stream)
         cuda_build.check(rc, "binning_2l variant")
     launch()

@@ -79,14 +79,15 @@ BIG_KW = dict(kernel_options={"kernel": "RBF", "sigma_f": 200,
               keep_ratio=0.1, pixel_thresh=5, seed=1, fix_endpoints=True)
 
 
-def big_problem():
+def big_problem(image_seed=1):
     """``(img, edge, grad, init)`` of the 1000² config, built by the JAX
-    package as ``benchmarks/suite.py`` builds it (an 11×5 extended Sobel)."""
+    package as ``benchmarks/suite.py`` builds it (an 11×5 extended Sobel),
+    on the image of ``image_seed`` (the suite's is 1)."""
     from gaussian_process_edge_trace_tpu.utils.image import (
         comp_grad_img, kernel_builder)
     from gaussian_process_edge_trace_tpu.utils.synthetic import (
         construct_test_img)
-    img, edge = construct_test_img(**BIG_IMG)
+    img, edge = construct_test_img(**dict(BIG_IMG, seed=image_seed))
     grad = np.asarray(comp_grad_img(jnp.asarray(img),
                                     kernel_builder((11, 5), unit=False)),
                       np.float32)

@@ -7,6 +7,8 @@ Run from the repository root on a CPU (about 75 s per replayed seed and
     JAX_PLATFORMS=cpu python tests/torch_reference_1000.py --seeds 1 2 3 \
         --reference-only 4 5 6 7 8 9 10
 
+``--image-seed K`` traces the config's image drawn from seed K (the
+suite's is 1; ``chip_smoke.py``'s 1000² batches take 1-4).
 ``--right-end 998`` puts the right endpoint at column 998 instead of the
 last one, so the edge length E = 999 is odd and both packages score the
 curves on their unfused path (column interpolation, then the Simpson sums
@@ -187,17 +189,20 @@ def main(argv=None):
     p.add_argument("--reference-only", type=int, nargs="*", default=[])
     p.add_argument("--right-end", type=int, default=999,
                    help="column of the right endpoint (999: the last)")
+    p.add_argument("--image-seed", type=int, default=1,
+                   help="seed of the synthetic image (1: the suite's)")
     args = p.parse_args(argv)
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     batched_reference_fit()
-    _, edge, grad, init = big_problem()
+    _, edge, grad, init = big_problem(args.image_seed)
     init = edge[[0, args.right_end]][:, [1, 0]]
     rows = []
     for seed, replay in ([(s, True) for s in args.seeds]
                          + [(s, False) for s in args.reference_only]):
         row = run_seed(seed, edge, grad, init, replay)
         row["edge_length"] = int(init[1, 0]) + 1
+        row["image_seed"] = args.image_seed
         print(json.dumps(row), flush=True)
         rows.append(row)
     peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**10
