@@ -60,9 +60,9 @@ Phases, one line or more each; any failure exits non-zero:
    single trace on the card in the same phase (where a frame differs, the
    batch and the single trace are stepped in lockstep to the first
    iteration that differs and the score gap of the two pixels is logged;
-   the phase fails unless it is a near-tie, relative 1e-5, or the loops
-   agree and the two final fits reach one LML within 1e-3 relative with
-   integer traces at most a pixel apart, and unless the DICE gates hold),
+   the phase fails unless it is a near-tie, relative 1e-5, and the DICE
+   gates hold; loops that agree must give equal results, as the final fit
+   does not depend on the batch),
    launches per batch (K1 and K3 once per loop iteration, K2
    once where K1 scores, K5/K6 as often as one trace's final fit), DICE
    gates, a determinism rerun, peak memory and the warm wall time per
@@ -73,10 +73,9 @@ Phases, one line or more each; any failure exits non-zero:
      ``BENCH_r05.json:44``), with a profiled batch (device busy and idle
      share);
    - ``batch_1000_B4`` and ``batch_1000_oddE_B4``: the 1000² config on
-     image seeds 1-4 at E = 1000 and E = 999; gates median > 0.90, every
-     frame > 0.85 (``BIG_BATCH_GATES``: the JAX package itself reads DICE
-     0.9087-0.9753 on image seeds 2 and 4), and every frame within 0.005
-     of its single trace's DICE;
+     image seeds 1-4 at E = 1000 and E = 999; gates median > 0.92, every
+     frame > 0.84 (``BIG_BATCH_GATES``, set from the JAX package's own
+     readings on these images);
    - ``ensemble_demo_K5``: best-of-5 on the demo image through
      ``GP_Edge_Tracing(...)(ensemble=5)``; member 0 is the single seed-1
      trace, the chosen member the argmin of the final costs, DICE > 0.97;
@@ -109,23 +108,20 @@ ODD_SEEDS = (1, 2, 3)
 FRAMES = 16
 BATCH_DEMO_IMAGES = tuple(range(1, 17))
 BATCH_BIG_IMAGES = (1, 2, 3, 4)
-# DICE gates (median, every frame) of the 1000² batches. Image seeds 2 and 4
-# are harder than seed 1 for the algorithm itself: the JAX package reads
-# DICE 0.9753 / 0.9303 on image seed 2 and 0.9087 / 0.9271 on image seed 4
-# (tracer seeds 1 / 2, E = 1000, on a CPU: tests/torch_reference_1000.py
-# --image-seed). Each frame is also held to its own single trace
-# (SINGLE_DICE_GAP).
-BIG_BATCH_GATES = (0.90, 0.85)
+# DICE gates (median, every frame) of the 1000² batches, from the JAX
+# package's own readings on their images at E = 1000 (on a CPU,
+# tests/torch_reference_1000.py --image-seed K --reference-only): its
+# lowest over tracer seeds 1-91 of image seed 2 is 0.8503 (the port's CPU
+# path from the same draws: 0.8500), and over seeds 1-20 of image seeds 1,
+# 3 and 4 0.9527, 0.9862 and 0.8977; the median of the four images' lowest
+# readings is 0.9252.
+BIG_BATCH_GATES = (0.92, 0.84)
 ENSEMBLE_K = 5
 # Where a batch frame and its single trace first accept different pixels,
-# the two pixels' scores must lie within this relative gap; where they
-# accept the same pixels, their final fits must reach the same LML within
-# this relative bound.
+# the two pixels' scores must lie within this relative gap. Where they
+# accept the same pixels, the results must be equal: the final fit gives a
+# frame the same bits whatever the batch (models/gpr.py).
 NEAR_TIE = 1e-5
-FINAL_FIT_LML = 1e-3
-# A batch frame's DICE may differ from its single trace's by this much (the
-# final fits' rounding moves a few columns by one pixel).
-SINGLE_DICE_GAP = 0.005
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
 # device memory bytes/s and float32 operations/s outside the tensor cores.
@@ -846,24 +842,6 @@ def differing_fields(a, b):
                     else getattr(a, f) == getattr(b, f))]
 
 
-def score_grid(cfg, data, samples, f, blur):
-    """Frame ``f``'s pixel scores (gpet.py:582) of the iteration that drew
-    ``samples``: the ranking, curve KDE and score of ``_iteration``."""
-    from gaussian_process_edge_trace_torch.trace.kde import curve_kde
-    from gaussian_process_edge_trace_torch.trace.scoring import (
-        best_curves, curve_costs)
-    costs, samples_t = curve_costs(
-        data.grad_cols, samples, kde_thresh=cfg.kde_thresh,
-        even="avg" if cfg.legacy_simpson else "simpson",
-        return_samples_t=True)
-    bc, bcosts = best_curves(samples, costs, cfg.N_keep, samples_t=samples_t)
-    inv = 1.0 / bcosts
-    kde = curve_kde(bc, inv / inv.sum(-1, keepdim=True), cfg.M, cfg.N,
-                    cfg.x_st, blur=blur)
-    gk = data.grad_kde
-    return ((kde * gk + kde + gk) / 3.0)[f]
-
-
 def first_divergence(cfg, a, b):
     """Step two batched traces in lockstep from their initial states, each
     side ``(data, states, draws, frame)``, to the first iteration where the
@@ -883,13 +861,13 @@ def first_divergence(cfg, a, b):
         act = [pd._active(cfg, s) for s in states]
         if not any(bool(x[side[3]]) for x, side in zip(act, (a, b))):
             return None
-        stepped = []
+        grids = []
         for i, (data, _, draws, f) in enumerate((a, b)):
             z, w = draws.normals(k)
-            new, samples = pd._iteration(cfg, data, states[i], z, w, blur,
-                                         consts, k=k)
+            new, _, score = pd._iteration(cfg, data, states[i], z, w, blur,
+                                          consts, k=k, with_score=True)
             states[i] = pd._keep_finished(act[i], new, states[i])
-            stepped.append(samples)
+            grids.append(score[f])
         obs = [(s.obs_x[side[3]], s.obs_y[side[3]], s.obs_valid[side[3]],
                 s.score_thresh[side[3]]) for s, side in zip(states, (a, b))]
         diff = ((obs[0][0] != obs[1][0]) | (obs[0][1] != obs[1][1])
@@ -897,8 +875,6 @@ def first_divergence(cfg, a, b):
         if not bool(diff.any()):
             continue
         j = int(torch.nonzero(diff)[0])
-        grids = [score_grid(cfg, side[0], smp, side[3], blur)
-                 for side, smp in zip((a, b), stepped)]
         pix = [(int(o[0][j]), int(o[1][j]), bool(o[2][j])) for o in obs]
         scores = [[float(g[y, x]) for x, y, _ in pix] for g in grids]
         gaps = []
@@ -918,32 +894,25 @@ def first_divergence(cfg, a, b):
 def explain_difference(checks, tag, label, got, want, a, b, cfg):
     """``got`` and ``want`` (two traces of one frame) differ: log where
     and why. The phase fails unless their loops first differ at a near-tie
-    (relative gap <= NEAR_TIE), or the loops agree (the same pixels in the
-    same iterations) and the final fits, from the same training set, reach
-    the same LML within FINAL_FIT_LML relative and integer traces at most
-    one pixel apart: the fit's polish stops along a flat ridge of the LML
-    (ROADMAP queue 3), where rounding in another order moves θ."""
+    (relative gap <= NEAR_TIE). Loops that agree (the same pixels in the
+    same iterations) leave the final fit the same training set, from which
+    it must give the same result in a batch as alone."""
     import torch
     div = first_divergence(cfg, a, b)
+    ok = div is not None and div["gap"] <= NEAR_TIE
     if div is not None:
-        ok = div["gap"] <= NEAR_TIE
         log(f"[{tag}] {label}: the loops first differ at {div} "
             f"({'a near-tie' if ok else 'NOT a near-tie'}, bound "
             f"{NEAR_TIE})")
     else:
         cols = torch.nonzero(got.edge_trace[:, 0] != want.edge_trace[:, 0])
-        dmean = (got.y_mean - want.y_mean).abs().max().item()
-        steps = (got.edge_trace[:, 0] - want.edge_trace[:, 0]).abs().max()
-        dlml = abs(got.lml.item() - want.lml.item()) / abs(want.lml.item())
-        ok = (dlml <= FINAL_FIT_LML and int(steps) <= 1
-              and got.n_iters == want.n_iters)
-        log(f"[{tag}] {label}: the loops agree; the final fits' LMLs "
-            f"{got.lml.item():.6f} vs {want.lml.item():.6f} ({dlml:.2e} "
-            f"relative, bound {FINAL_FIT_LML}), theta {got.theta.tolist()} "
-            f"vs {want.theta.tolist()}, mean curves up to {dmean:.4g} px "
-            f"apart, integer traces apart by up to {int(steps)} px in "
-            f"{cols.shape[0]} columns {cols[:, 0].tolist()[:12]} "
-            f"({'the same fit' if ok else 'NOT explained'})")
+        log(f"[{tag}] {label}: the loops agree but the final fits differ "
+            f"(NOT explained): LMLs {got.lml.item():.6f} vs "
+            f"{want.lml.item():.6f}, theta {got.theta.tolist()} vs "
+            f"{want.theta.tolist()}, mean curves up to "
+            f"{(got.y_mean - want.y_mean).abs().max().item():.4g} px apart, "
+            f"integer traces in {cols.shape[0]} columns "
+            f"{cols[:, 0].tolist()[:12]}")
     if not ok:
         checks.failed.append(f"{tag} {label}: unexplained difference")
 
@@ -999,9 +968,8 @@ def traced_batch(checks, tag, configs, gates, odd=False, profiled=False):
     """The frames of ``configs`` (one image each, one config) through
     ``trace_batch`` with tracer seed 1, against each frame's single trace
     on the card: launches, frames equal to their singles (or explained),
-    each frame's DICE within SINGLE_DICE_GAP of its single trace's, DICE
-    gates (median, and every frame unless None), a rerun, peak memory, and
-    the warm wall time per trace beside the single trace's. Returns the
+    DICE gates (median, and every frame unless None), a rerun, peak memory,
+    and the warm wall time per trace beside the single trace's. Returns the
     launches."""
     import torch
     import gaussian_process_edge_trace_torch as gpt
@@ -1060,9 +1028,6 @@ def traced_batch(checks, tag, configs, gates, odd=False, profiled=False):
         log(f"[{tag}] frame {f}: equal to its single trace: "
             f"{not diff}{'' if not diff else f' (differs in {diff})'}; the "
             f"single trace's DICE {solo}")
-        if abs(dice - solo) > SINGLE_DICE_GAP:
-            checks.failed.append(f"{tag} frame {f}: DICE {dice} against its "
-                                 f"single trace's {solo}")
         if diff:
             explain_difference(
                 checks, tag, f"frame {f}", frame, single,

@@ -11,6 +11,16 @@ Scalars such as the variance stay 0-d tensors on the device, so a sampling
 round never waits for the host. Every function takes an optional leading
 frame axis: (B, n) training buffers give B fits at once, with the scalars
 then (B,) tensors, one per frame.
+
+The final fit (:func:`gp_fit`, :func:`gp_predict`, :func:`batched_lml`)
+gives a frame the same bits whatever the number of frames fitted with it,
+so a batch frame ends where its single trace does. On the card the
+library's batched calls and ``torch.sum`` choose their order of operations
+from the batch size, so there its factors and solves go through K5 and K6,
+one block per matrix, and its sums through a fixed tree
+(:func:`fixed_sum`). On the CPU the library's calls and ``torch.sum``
+already keep one order per matrix and per sum, and hold the JAX package's
+parity that the tests check; there they stay.
 """
 
 from __future__ import annotations
@@ -36,39 +46,76 @@ class GPState(NamedTuple):
     mask: torch.Tensor    # (n,) bool validity
 
 
-def safe_cholesky(K, jitter_scales=(0.0, 1e-5, 1e-3)):
+def _on_card(x):
+    return x.device.type == "cuda"
+
+
+def tree_sum(x, dim=-1):
+    """Sum over ``dim`` by a fixed pairwise tree of elementwise adds, the
+    axis padded with zeros to a power of two: the order of the adds depends
+    on the length of ``dim`` alone, not on the other axes."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
+def fixed_sum(x, dim=-1):
+    """Sum over ``dim`` in an order that does not depend on the other axes:
+    :func:`tree_sum` on the card, where ``torch.sum`` picks its thread
+    layout from the number of sums it takes; ``torch.sum`` on the CPU."""
+    return tree_sum(x, dim) if _on_card(x) else x.sum(dim)
+
+
+def safe_cholesky(K, jitter_scales=(0.0, 1e-5, 1e-3), per_matrix=False):
     """Lower Cholesky of each (n, n) matrix of ``K`` (..., n, n) with a
     branchless jitter ladder: every candidate ``K + jitter·mean(diag K)·I``
     is factored in one batched call and each matrix takes the first of its
-    own that factored (``info == 0``); if none did, the last.
-    ``cholesky_ex`` leaves finite garbage where a factorisation fails, so
-    its ``info``, not the diagonal, decides."""
+    own that factored; if none did, the last. ``cholesky_ex`` leaves finite
+    garbage where a factorisation fails, so its ``info``, not the diagonal,
+    decides. With ``per_matrix``, on the card, the candidates go through
+    K5 (:func:`cholesky_auto`), whose bits do not depend on the batch, and
+    a failed factor has a diagonal that is not finite."""
     n = K.shape[-1]
     eye = torch.eye(n, dtype=K.dtype, device=K.device)
     scale = torch.diagonal(K, dim1=-2, dim2=-1).mean(-1)
     jit = (torch.tensor(jitter_scales, dtype=K.dtype, device=K.device)
            * scale[..., None])                              # (..., J)
-    Ls, info = torch.linalg.cholesky_ex(K[..., None, :, :]
-                                        + jit[..., None, None] * eye)
-    ok = info == 0
+    candidates = K[..., None, :, :] + jit[..., None, None] * eye
+    if per_matrix and _on_card(K):
+        Ls = cholesky_auto(candidates)
+        ok = torch.isfinite(torch.diagonal(Ls, dim1=-2, dim2=-1)).all(-1)
+    else:
+        Ls, info = torch.linalg.cholesky_ex(candidates)
+        ok = info == 0
     idx = torch.where(ok.any(-1), torch.argmax(ok.to(torch.uint8), dim=-1),
                       torch.tensor(len(jitter_scales) - 1, device=K.device))
     return torch.take_along_dim(Ls, idx[..., None, None, None],
                                 dim=-3)[..., 0, :, :]
 
 
-def masked_mean(y, mask):
-    """Mean of the valid entries along the last axis."""
+def _last_sum(x):
+    return x.sum(-1)
+
+
+def masked_mean(y, mask, total=_last_sum):
+    """Mean of the valid entries along the last axis; ``total`` sums that
+    axis (:func:`fixed_sum` in the final fit)."""
     m = mask.to(y.dtype)
-    return (y * m).sum(-1) / torch.clamp(m.sum(-1), min=1.0)
+    return total(y * m) / torch.clamp(m.sum(-1), min=1.0)
 
 
-def masked_std(y, mask):
+def masked_std(y, mask, total=_last_sum):
     """Population std of the valid entries along the last axis."""
     m = mask.to(y.dtype)
     n = torch.clamp(m.sum(-1), min=1.0)
-    mu = (y * m).sum(-1) / n
-    return torch.sqrt((m * (y - mu[..., None]) ** 2).sum(-1) / n)
+    mu = total(y * m) / n
+    return torch.sqrt(total(m * (y - mu[..., None]) ** 2) / n)
 
 
 def gp_fit(spec: KernelSpec, x, y, length_scale, variance, diag_noise, mask,
@@ -77,12 +124,16 @@ def gp_fit(spec: KernelSpec, x, y, length_scale, variance, diag_noise, mask,
     ``centre=True`` removes the masked mean only, like the fork's
     ``normalize_y``."""
     zero = torch.zeros((), dtype=y.dtype, device=y.device)
-    y_mean = masked_mean(y, mask) if centre else zero
+    y_mean = masked_mean(y, mask, fixed_sum) if centre else zero
     yc = torch.where(mask, y - y_mean[..., None], zero)
     K = train_gram(spec, x, length_scale, variance, diag_noise, mask=mask)
-    L = safe_cholesky(K)
-    alpha = torch.where(mask, torch.cholesky_solve(yc[..., None], L)[..., 0],
-                        zero)
+    L = safe_cholesky(K, per_matrix=True)
+    if _on_card(L):
+        alpha = backward_solve_auto(L, forward_solve_auto(
+            L, yc[..., None].contiguous()))[..., 0]
+    else:
+        alpha = torch.cholesky_solve(yc[..., None], L)[..., 0]
+    alpha = torch.where(mask, alpha, zero)
     return GPState(L=L, alpha=alpha, x=x, y_mean=y_mean, mask=mask)
 
 
@@ -94,12 +145,17 @@ def gp_predict(spec: KernelSpec, state: GPState, xq, length_scale, variance,
     Kq = torch.where(state.mask[..., None, :], Kq, torch.zeros_like(Kq))
     # A row sum, not a matrix-vector product: its bits do not depend on
     # the number of frames.
-    mean = (Kq * state.alpha[..., None, :]).sum(-1) + state.y_mean[..., None]
+    mean = (fixed_sum(Kq * state.alpha[..., None, :])
+            + state.y_mean[..., None])
     if not return_std:
         return mean
-    V = torch.linalg.solve_triangular(state.L, Kq.transpose(-1, -2),
-                                      upper=False)
-    var = torch.clamp(per_frame(variance, 1) - (V * V).sum(-2), min=0.0)
+    if _on_card(Kq):
+        V = forward_solve_auto(state.L, Kq.transpose(-1, -2).contiguous())
+    else:
+        V = torch.linalg.solve_triangular(state.L, Kq.transpose(-1, -2),
+                                          upper=False)
+    var = torch.clamp(per_frame(variance, 1) - fixed_sum(V * V, dim=-2),
+                      min=0.0)
     return mean, torch.sqrt(var)
 
 
@@ -185,7 +241,9 @@ def batched_lml(spec: KernelSpec, x, yc, mask, thetas, noise_weight,
     The B factorisations run through K5 and the solves through K6. NaN
     marks a non-PD Gram, for the caller to sanitise. Gradients are the
     reference's analytic trace formula, ∂LML/∂θᵢ = ½ tr((ααᵀ − K⁻¹)∂K/∂θᵢ),
-    with K⁻¹ = L⁻ᵀL⁻¹ from one identity-RHS forward solve.
+    with K⁻¹ = L⁻ᵀL⁻¹ from an identity-RHS forward solve; on the card a
+    backward solve of its result (K6 both) takes the batched product's
+    place.
 
     Args:
       thetas: (B, 3). Returns (B,) values, or (values, (B, 3) gradients).
@@ -227,8 +285,9 @@ def _batched_lml(spec, x, yc, mask, thetas, noise_weight, jitter, with_grad):
     L = cholesky_auto(K)
     rhs = yc[..., None, :, None].expand(K.shape[:-1] + (1,))
     w1 = forward_solve_auto(L, rhs.contiguous())
-    quad = (w1[..., 0] ** 2).sum(-1)
-    logdet = torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+    logdiag = torch.log(torch.diagonal(L, dim1=-2, dim2=-1))
+    quad, logdet = fixed_sum(torch.stack([w1[..., 0] ** 2, logdiag],
+                                         dim=-2)).unbind(-1)
     n_valid = mask.sum(-1).to(dt)[..., None]
     vals = -0.5 * quad - logdet - 0.5 * n_valid * math.log(2.0 * math.pi)
     if not with_grad:
@@ -237,14 +296,24 @@ def _batched_lml(spec, x, yc, mask, thetas, noise_weight, jitter, with_grad):
     alpha = backward_solve_auto(L, w1)[..., 0]              # (..., B, n)
     alpha = torch.where(mask_b, alpha, zero)
     Linv = forward_solve_auto(L, eye.expand(K.shape).contiguous())
-    Kinv = Linv.transpose(-1, -2) @ Linv                    # L⁻ᵀ L⁻¹
+    if _on_card(L):
+        Kinv = backward_solve_auto(L, Linv)                 # L⁻ᵀ L⁻¹
+    else:
+        Kinv = Linv.transpose(-1, -2) @ Linv
     A = alpha[..., :, None] * alpha[..., None, :] - Kinv
 
     dKl = torch.where(m2, c[..., None, None] * dk_unit_dlog_ls(spec, d),
                       zero)
-    g0 = 0.5 * (A * cK).sum((-2, -1))
-    g1 = 0.5 * (A * dKl).sum((-2, -1))
     diagA = torch.diagonal(A, dim1=-2, dim2=-1)
-    g2 = 0.5 * (diagA * (nz[..., None] * noise_weight[..., None, :])
-                * mask_b).sum(-1)
-    return (vals, torch.stack([g0, g1, g2], dim=-1)), L
+    noise_terms = diagA * (nz[..., None] * noise_weight[..., None, :]) * mask_b
+    if _on_card(A):
+        # The trace products' row sums and the noise terms: (..., B, 3, n),
+        # summed by one more tree.
+        rows = tree_sum(A[..., None, :, :] * torch.stack([cK, dKl], dim=-3))
+        grads = 0.5 * tree_sum(torch.cat([rows, noise_terms[..., None, :]],
+                                         dim=-2))
+    else:
+        grads = 0.5 * torch.stack([(A * cK).sum((-2, -1)),
+                                   (A * dKl).sum((-2, -1)),
+                                   noise_terms.sum(-1)], dim=-1)
+    return (vals, grads), L

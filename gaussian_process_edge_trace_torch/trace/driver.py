@@ -44,7 +44,8 @@ import numpy as np
 import torch
 
 from gaussian_process_edge_trace_torch.models.gpr import (
-    batched_lml, fit_and_sample, gp_fit, gp_predict, masked_mean, masked_std)
+    batched_lml, fit_and_sample, fixed_sum, gp_fit, gp_predict, masked_mean,
+    masked_std)
 from gaussian_process_edge_trace_torch.models.kernels import (
     KernelSpec, k_unit_np, per_frame, resolve_kernel_options)
 from gaussian_process_edge_trace_torch.models.newton import (
@@ -413,9 +414,11 @@ def frame_of(batch, f: int):
 
 
 def _iteration(cfg: TracerConfig, data: TracerData, state: TraceState, z, w,
-               blur=None, consts=None, k=None):
+               blur=None, consts=None, k=None, with_score=False):
     """One outer-loop iteration (gpet.py:829-861): sample, score, rank,
-    KDE, select. Returns the new state and the (E, S) samples.
+    KDE, select. Returns the new state and the (E, S) samples, and with
+    ``with_score`` also the (M, N) pixel scores the selection ranked
+    (gpet.py:582).
 
     A batched state (``it`` a tensor) steps every frame, each stage once
     for all of them, and writes the telemetry of iteration ``k``, at which
@@ -460,8 +463,11 @@ def _iteration(cfg: TracerConfig, data: TracerData, state: TraceState, z, w,
         iter_nobs=put(state.iter_nobs, sel.n_fobs),
         iter_thresh=put(state.iter_thresh, sel.score_thresh))
     if one:
-        return frame_of(new_state, 0), samples[0]
-    return new_state, samples
+        new_state, samples = frame_of(new_state, 0), samples[0]
+        score = sel.score[0]
+    else:
+        score = sel.score
+    return (new_state, samples, score) if with_score else (new_state, samples)
 
 
 def optimize_lml(kernel: KernelSpec, xs, ys, mask, noise_w, starts, lb, ub,
@@ -520,12 +526,14 @@ def _final_fit_buffers(cfg: TracerConfig, data: TracerData, restarts_u, x,
     on the x grid. ``restarts_u`` are (lml_restarts, 3) uniforms in [0, 1)
     (or (F, lml_restarts, 3), one set per frame). Returns ``(y_mean, std,
     y_s, theta, lml)``; ``std`` is in standardised units. With (F, n)
-    buffers every result has a leading frame axis."""
+    buffers every result has a leading frame axis, and a frame's bits do not
+    depend on the number of frames (see ``models/gpr.py``)."""
     dev = x.device
     xf = x.to(torch.float32)
     yf = y.to(torch.float32)
-    X_m, X_s = masked_mean(xf, mask), masked_std(xf, mask)
-    y_m, y_s = masked_mean(yf, mask), masked_std(yf, mask)
+    xy = torch.stack([xf, yf])
+    X_m, y_m = masked_mean(xy, mask, fixed_sum)
+    X_s, y_s = masked_std(xy, mask, fixed_sum)
     # Zero-std guard for degenerate training sets (driver.py:575-581).
     X_s = torch.where(X_s == 0.0, torch.ones_like(X_s), X_s)
     y_s = torch.where(y_s == 0.0, torch.ones_like(y_s), y_s)
@@ -630,11 +638,13 @@ def run_loop(cfg: TracerConfig, data: TracerData, state0: TraceState,
         raise ValueError(f"the active frames stand at iterations "
                          f"{sorted(at)}; a batch steps them together")
     k = at.pop() if at else cfg.max_iters
+    # A lone frame is active whenever the loop steps it: nothing to keep.
+    lone = state.it.shape[0] == 1
     while k < cfg.max_iters:
         z, w = draws.normals(k)
         new, _ = _iteration(cfg, data, state, z, w, blur=blur,
                             consts=consts, k=k)
-        state = _keep_finished(active, new, state)
+        state = new if lone else _keep_finished(active, new, state)
         active = _active(cfg, state)
         k = k + 1 if bool(active.any()) else cfg.max_iters
     return state

@@ -83,6 +83,7 @@ class Selection(NamedTuple):
     obs_valid: torch.Tensor    # (n_bins,) bool — bin occupied
     n_fobs: torch.Tensor       # scalar = sum(obs_valid)
     score_thresh: torch.Tensor  # scalar threshold after the decays
+    score: torch.Tensor        # (M, N) pixel score before eligibility
 
 
 class SelectConsts(NamedTuple):
@@ -139,9 +140,9 @@ def select_pixels(kde_arr, grad_kde, obs_x, obs_y, obs_valid, n_pre,
     old[flat] = True
     elig = cand | (old[:frames * M * N].reshape(kde_arr.shape) & dense_cand)
 
-    score = (kde_arr * grad_kde + kde_arr + grad_kde) / 3.0  # gpet.py:582
-    neg_inf = torch.full((), -torch.inf, dtype=score.dtype, device=dev)
-    score = torch.where(elig, score, neg_inf)
+    raw_score = (kde_arr * grad_kde + kde_arr + grad_kde) / 3.0  # gpet.py:582
+    neg_inf = torch.full((), -torch.inf, dtype=raw_score.dtype, device=dev)
+    score = torch.where(elig, raw_score, neg_inf)
 
     # The pixel kept for an occupied bin is always its best eligible pixel,
     # so the argmax does not depend on the threshold: the threshold decides
@@ -167,4 +168,5 @@ def select_pixels(kde_arr, grad_kde, obs_x, obs_y, obs_valid, n_pre,
     new_y = torch.where(valid, torch.take_along_dim(col_best_y, bin_best_col,
                                                     dim=-1), zero)
     return Selection(obs_x=new_x, obs_y=new_y, obs_valid=valid,
-                     n_fobs=valid.sum(-1), score_thresh=thresh)
+                     n_fobs=valid.sum(-1), score_thresh=thresh,
+                     score=raw_score)

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from gaussian_process_edge_trace_torch import interop
+from gaussian_process_edge_trace_torch.models import gpr
 from gaussian_process_edge_trace_torch.ops import cuda_build
 from gaussian_process_edge_trace_torch.ops import cuda_interp as ci
 from gaussian_process_edge_trace_torch.parallel import sharded as ps
@@ -201,6 +202,63 @@ def test_wide_batch_equals_single_traces():
         single = pd.run_trace(cfg, _frame_data(data, f),
                               pd.init_state(cfg, "cpu"))
         assert_same_bits(pd.frame_of(got, f), single)
+
+
+@pytest.mark.parametrize("n", [1, 3, 104, 208, 10816])
+def test_tree_sum_depends_on_the_axis_length_alone(n):
+    """``tree_sum``, the final fit's sums on the card: each row of a batch
+    sums to the bits of that row summed alone, along either axis, and to
+    the float64 sum within the pairwise tree's rounding."""
+    rng = np.random.default_rng(n)
+    x = torch.tensor(rng.normal(size=(5, n)) * np.exp(rng.normal(size=n)),
+                     dtype=torch.float32)
+    rows = gpr.tree_sum(x)
+    for f in range(5):
+        assert torch.equal(rows[f], gpr.tree_sum(x[f:f + 1])[0])
+    assert torch.equal(gpr.tree_sum(x.T.contiguous(), dim=0), rows)
+    exact = x.double().sum(-1)
+    depth = max(n - 1, 1).bit_length()
+    bound = depth * 2.0 ** -24 * x.double().abs().sum(-1)
+    assert bool(((rows.double() - exact).abs() <= bound).all())
+
+
+def test_card_final_fit_does_not_depend_on_frames(small_batch, monkeypatch):
+    """The final fit's card path (its factors and solves through K5 and K6,
+    here their plain versions, and its sums through ``tree_sum``; forced on
+    the CPU): three frames fitted at once get, each, the bits of their fit
+    alone, and the CPU path's result within the final fit's tolerance."""
+    pcfg, pdata, draws = (small_batch[k] for k in ("pcfg", "pdata", "draws"))
+    states = pd.run_loop(pcfg, pdata, small_batch["pstates"], draws)
+    x, y, mask, noise_w = pd._train_set(pcfg, pdata, states)
+    u = draws.restarts()
+    cpu = pd._final_fit_buffers(pcfg, pdata, u, x, y, mask, noise_w)
+    monkeypatch.setattr(gpr, "_on_card", lambda t: True)
+    batch = pd._final_fit_buffers(pcfg, pdata, u, x, y, mask, noise_w)
+    for f in range(3):
+        one = pd._final_fit_buffers(pcfg, _frame_data(pdata, f), u,
+                                    x[f:f + 1], y[f:f + 1], mask[f:f + 1],
+                                    noise_w)
+        for a, b in zip(batch, one):
+            assert torch.equal(a[f], b[0])
+    for name, a, b in zip(("y_mean", "y_std", "y_s", "theta", "lml"), batch,
+                          cpu):
+        rtol, atol = FINAL_FIT.get(name, (RTOL, ATOL))
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=rtol,
+                                   atol=atol, err_msg=name)
+
+
+def test_card_factor_ladder_skips_a_failed_factor(monkeypatch):
+    """``safe_cholesky(per_matrix=True)`` on the card: K5 (here its plain
+    version) marks a failed factor by a diagonal that is not finite, and
+    each matrix takes the first rung of its own that factored."""
+    monkeypatch.setattr(gpr, "_on_card", lambda t: True)
+    bad = torch.tensor([[1.0, 1.0], [1.0, 1.0 - 1e-7]])   # not PD in f32
+    good = torch.tensor([[2.0, 0.5], [0.5, 1.0]])
+    L = gpr.safe_cholesky(torch.stack([bad, good]), jitter_scales=(0.0, 1e-3),
+                          per_matrix=True)
+    torch.testing.assert_close(L[0] @ L[0].T, bad + 1e-3 * bad.diagonal()
+                               .mean() * torch.eye(2), rtol=1e-5, atol=1e-6)
+    assert torch.equal(L[1], torch.linalg.cholesky(good))
 
 
 @pytest.fixture(scope="module")

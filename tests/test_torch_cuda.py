@@ -485,3 +485,40 @@ def test_small_batch_trace_on_the_card(dev):
     for f, (_, edge) in enumerate(imgs):
         assert gpt.trace_dicecoef(res.edge_trace[f].cpu().numpy(),
                                   edge) > 0.97
+
+
+@pytest.mark.parametrize("n", [104, 208])
+def test_final_fit_does_not_depend_on_frames(dev, n):
+    """The final fit of four frames at once on the card, at n = 104 (the
+    direct screen) and n = 208 (coarse to fine): each frame's mean, std,
+    scale, θ and LML equal, bit for bit, its fit alone (factors and solves
+    through K5 and K6, sums through a fixed tree)."""
+    import types
+
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    F, N = 4, 1000
+    cfg = pd.make_config(np.array([[0, 500], [N - 1, 500]]), (N, N),
+                         {"kernel": "RBF", "sigma_f": 200,
+                          "length_scale": 50}, N_samples=10000, delta_x=5)
+    rng = np.random.default_rng(n)
+    x = np.sort(rng.choice(N, (F, n)), axis=-1)
+    y = np.rint(500 + 80 * np.sin(x / (90 + 10 * np.arange(F)[:, None]))
+                + rng.normal(0, 3, (F, n)))
+    mask = rng.random((F, n)) < 0.9
+    mask[:, :2] = True
+    noise_w = np.ones(n, np.float32)
+    noise_w[:2] = cfg.init_noise_weight
+    data = types.SimpleNamespace(x_grid=torch.arange(N, device=dev))
+    u = torch.rand((cfg.lml_restarts, 3), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(1))
+    args = [torch.as_tensor(a, device=dev) for a in (x, y, mask)]
+    nw = torch.as_tensor(noise_w, device=dev)
+    n0 = dict(cc.LAUNCHES)
+    batch = pd._final_fit_buffers(cfg, data, u, *args, nw)
+    assert all(cc.LAUNCHES[k] > n0[k] for k in n0)
+    assert batch[0].shape == (F, N) and torch.isfinite(batch[0]).all()
+    for f in range(F):
+        one = pd._final_fit_buffers(cfg, data, u,
+                                    *(a[f:f + 1] for a in args), nw)
+        for a, b in zip(batch, one):
+            assert torch.equal(a[f], b[0])
