@@ -82,6 +82,24 @@ Phases, one line or more each; any failure exits non-zero:
    - ``multi_edge``: two boundaries of one 500² multi-sinusoidal image
      through ``trace_multi_edge``, each edge equal to the tiled image's
      ``trace_batch`` and DICE > 0.97;
+   - ``sequence_demo_3``: the JAX package's sequence row
+     (``benchmarks/suite.py:307-335``), three noisy frames of one 500²
+     image through ``trace_sequence``, cold then warm: each frame bitwise
+     its stand-alone ``run_trace`` from the handed-off state, warm frames'
+     n_iters <= frame 0's + 1, every frame DICE > 0.99 (the JAX package's
+     own readings 0.9965-0.9981, ``tests/torch_sequence_reference.py``),
+     launches and host reads per frame, the wall time per frame beside a
+     cold single trace's;
+   - ``sharded_1x1_demo_B16`` and ``sharded_1x1_1000_B4``:
+     ``sharded_trace_batch`` on a (1, 1) NCCL mesh in this process on the
+     two batches' inputs, each frame bitwise ``trace_batch``'s, the
+     collectives per loop iteration (one all_gather of the costs, one
+     all_reduce of the kept curves) with their bytes and host time, and
+     the wall time per trace beside ``trace_batch``'s;
+   and, with the kernels (phase 3), K1 over shards of S = 10⁴ samples
+   planned on the global S (k = 2, 4), each shard bitwise the full
+   launch's columns and timed beside its share, and K2 + ``line_and_arc``
+   at E = 999 over the same shards, bitwise;
 9. one JSON line of kernel results, the card line again, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -639,6 +657,56 @@ def check_frames(checks, rng, f32):
                     work_binning(E, S, M, B))
 
 
+def check_shard_widths(checks, rng, f32):
+    """The sample arm's scoring over shards of the 1000² config's S = 10⁴
+    samples: K1 over S/k samples planned on the global S (k = 2, 4) equals
+    the full launch's columns bit for bit, timed beside the full launch and
+    its k-th share; at E = 999, K2 and ``line_and_arc`` over the shards
+    equal the full S's columns bit for bit."""
+    import torch
+    from gaussian_process_edge_trace_torch.ops import cuda_interp as ci
+    E = M = 1000
+    S = 10000
+    cols = torch.tensor(rng.random((E, M)), **f32)
+    ys = torch.tensor(curve_samples(rng, E, M, S), **f32)
+    full = ci.fused_cost_cuda(cols, ys, 1e-3)
+    full_ms = cuda_ms(lambda: ci.fused_cost_cuda(cols, ys, 1e-3))
+    odd_cols = cols[:999].contiguous()
+
+    def unfused(y):
+        return ci.line_and_arc(ci.column_interp(odd_cols, y, 1e-3), y)
+    odd_full = unfused(ys[:999].contiguous())
+    for k in (2, 4):
+        w = S // k
+        parts = [ys[:, j * w:(j + 1) * w].contiguous() for j in range(k)]
+        outs = [ci.fused_cost_cuda(cols, p, 1e-3, plan_samples=S)
+                for p in parts]
+        odd = [unfused(p[:999].contiguous()) for p in parts]
+        torch.cuda.synchronize()
+        same = all(torch.equal(o[i], full[i][j * w:(j + 1) * w])
+                   for j, o in enumerate(outs) for i in range(2))
+        same_odd = all(torch.equal(o[i], odd_full[i][j * w:(j + 1) * w])
+                       for j, o in enumerate(odd) for i in range(2))
+        err = max((o[i] - full[i][j * w:(j + 1) * w]).abs().max().item()
+                  for j, o in enumerate(outs) for i in range(2))
+        plan = ci.k1_launch_plan(E, M, w, plan_samples=S)
+        log(f"[kernels] K1 shard S/{k}: plan {plan} (the full launch's "
+            f"chunks: {ci.k1_launch_plan(E, M, S)['pairs_per_chunk']} pairs "
+            f"each); every shard bitwise the full launch's columns: {same}; "
+            f"K2 + line_and_arc at E=999 over the shards bitwise the full "
+            f"S's columns: {same_odd}")
+        ms = cuda_ms(lambda: ci.fused_cost_cuda(cols, parts[0], 1e-3,
+                                                plan_samples=S))
+        log(f"[kernels] K1 shard S/{k}: {ms:.4f} ms against the full "
+            f"launch's {full_ms:.4f} ms / {k} = {full_ms / k:.4f} ms "
+            f"({ms * k / full_ms:.2f}x its share)")
+        checks.record("K1", f"1000² shard S/{k} of S=10⁴ planned on S", err,
+                      "bitwise the full launch's columns", same and same_odd,
+                      ms=ms, plain_ms=cuda_ms(lambda: ci.fused_cost_plain(
+                          cols, parts[0], 1e-3)),
+                      work=work_k1(E, M, w, False), also_main=True)
+
+
 def check_kernels(checks, dev):
     import torch
     rng = np.random.default_rng(0)
@@ -648,6 +716,7 @@ def check_kernels(checks, dev):
     check_binning(checks, rng, f32)
     check_chol(checks, rng, f32, dev)
     check_frames(checks, rng, f32)
+    check_shard_widths(checks, rng, f32)
     # Release what the timing graphs left allocated before the traces, so
     # the traces' peak memory does not carry it: their pools, and the cuBLAS
     # workspace (32 MiB) made for the capture stream, which PyTorch keeps
@@ -659,10 +728,15 @@ def check_kernels(checks, dev):
 
 
 def reset_counts():
+    """Every kernel's launch count, the host reads and the collectives set
+    to 0."""
+    from gaussian_process_edge_trace_torch.ops import collectives
     from gaussian_process_edge_trace_torch.ops import cuda_chol as cc
     from gaussian_process_edge_trace_torch.ops import cuda_interp as ci
     from gaussian_process_edge_trace_torch.trace import cuda_kde as ck
-    for counts in (ci.LAUNCHES, cc.LAUNCHES, ck.LAUNCHES):
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    for counts in (ci.LAUNCHES, cc.LAUNCHES, ck.LAUNCHES, pd.HOST_READS,
+                   collectives.COLLECTIVES):
         for k in counts:
             counts[k] = 0
 
@@ -1198,6 +1272,226 @@ def multi_edge_phase(checks, dev):
     return got
 
 
+# --- sequences and the sharded batch --------------------------------------
+
+# The JAX package's sequence row (benchmarks/suite.py:307-335): three frames
+# of one 500² sinusoidal image (noise 0.03, no gaps), each with N(0, 0.02)
+# noise of its own from RandomState(0). DICE gate on every frame, against
+# the base image's edge: the JAX package's own readings of these frames on
+# a CPU are 0.9965-0.9981 over tracer seeds 1-6, every frame
+# (tests/torch_sequence_reference.py).
+SEQUENCE_FRAMES = 3
+SEQUENCE_DICE_GATE = 0.99
+
+
+def sequence_frames(dev):
+    """(gradient images (F, 500, 500) on ``dev``, inits, base edge)."""
+    import torch
+    import gaussian_process_edge_trace_torch as gpt
+    rngf = np.random.RandomState(0)
+    base, edge = gpt.construct_test_img((500, 500), 200, 4, 0.03,
+                                        "sinusoidal", 0.3, gaps=False)
+    kb = gpt.kernel_builder((11, 5), unit=False)
+    grads = torch.stack([
+        gpt.comp_grad_img(np.clip(base + rngf.normal(0, 0.02, base.shape),
+                                  0, 1), kb, device=dev)
+        for _ in range(SEQUENCE_FRAMES)])
+    inits = [edge[[0, -1]][:, [1, 0]]] * SEQUENCE_FRAMES
+    return grads, inits, edge
+
+
+def same_result(a, b):
+    """Two traces' results equal field by field, bit for bit."""
+    import torch
+    return all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+               for x, y in zip(a, b))
+
+
+def sequence_phase(checks, dev):
+    """``trace_sequence`` on the three frames (seed 1, the demo config),
+    cold then warm: each frame bitwise its stand-alone ``run_trace`` from
+    the handed-off state, n_iters (warm frames <= frame 0's + 1), DICE,
+    launches and host reads per frame, and the warm wall time per frame
+    beside a cold single trace's. Returns the sequence's launches."""
+    import torch
+    import gaussian_process_edge_trace_torch as gpt
+    from gaussian_process_edge_trace_torch.parallel import sharded as ps
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    tag = "sequence_demo_3"
+    grads, inits, edge = sequence_frames(dev)
+    cfg = pd.make_config(inits[0], (500, 500), {
+        "kernel": "RBF", "sigma_f": 75, "length_scale": 20}, N_samples=1000,
+        score_thresh=1, delta_x=5, keep_ratio=0.1, pixel_thresh=5, seed=1)
+    reset_counts()
+    res = ps.trace_sequence(cfg, grads, inits)
+    torch.cuda.synchronize()
+    got = read_counts()
+    reads = dict(pd.HOST_READS)
+    cold, warm = ps._sequence_configs(cfg)
+    total = {k: 0 for k in got}
+    for f, r in enumerate(res):
+        c = cold if f == 0 else warm
+        data = pd.make_data(c, grads[f], inits[f], dev)
+        if f == 0:
+            state = pd.init_state(c, dev)
+        else:
+            prev = res[f - 1]
+            state = pd.init_state(c, dev, *ps._compact_warm_obs(
+                prev.obs_x, prev.obs_y, prev.obs_valid, c.n_user_obs))
+        reset_counts()
+        alone = pd.run_trace(c, data, state)
+        torch.cuda.synchronize()
+        one = read_counts()
+        total = {k: total[k] + one[k] for k in total}
+        same = same_result(r, alone)
+        frame_ms, _ = warm_wall(lambda: pd.run_trace(c, data, state))
+        dice = gpt.trace_dicecoef(r.edge_trace.cpu().numpy(), edge)
+        mse = gpt.trace_MSE(r.edge_trace.cpu().numpy(), edge)
+        log(f"[{tag}] frame {f} ({'cold' if f == 0 else 'warm'}, n_user_obs "
+            f"{c.n_user_obs}, n_train {c.n_train}): n_iters {r.n_iters}, "
+            f"warm-start pixels {int(state.n_fobs)}, MSE {mse} DICE {dice} "
+            f"(gate > {SEQUENCE_DICE_GATE}); launches {json.dumps(one)}; "
+            f"host reads {r.n_iters + 2} (one before the loop, one after "
+            f"each iteration, one in finish_trace); bitwise its stand-alone "
+            f"run_trace from the handed-off state: {same}; its warm wall "
+            f"time {frame_ms:.2f} ms (median of 3)")
+        if not same:
+            checks.failed.append(f"{tag} frame {f} differs from its run_trace")
+        if not dice > SEQUENCE_DICE_GATE:
+            checks.failed.append(f"{tag} frame {f} DICE gate")
+        if f and r.n_iters > res[0].n_iters + 1:
+            checks.failed.append(f"{tag} frame {f}: n_iters {r.n_iters} > "
+                                 f"frame 0's + 1")
+    n_iters = [r.n_iters for r in res]
+    want_reads = {"active": sum(n_iters) + len(res), "finish": len(res)}
+    log(f"[{tag}] host reads over the sequence {json.dumps(reads)}, "
+        f"expected {json.dumps(want_reads)}")
+    if reads != want_reads:
+        checks.failed.append(f"{tag}: host reads {reads}")
+    check_launches(checks, tag, got, total)
+    seq_ms, seq_runs = warm_wall(lambda: ps.trace_sequence(cfg, grads,
+                                                           inits))
+    tracer = gpt.GP_Edge_Tracing(inits[0], grads[0], {
+        "kernel": "RBF", "sigma_f": 75, "length_scale": 20}, 1, np.array([]),
+        1000, 1, 5, 0.1, 5, 1, True, True, device=dev)
+    cold_ms, cold_runs = warm_wall(tracer)
+    log(f"[{tag}] warm wall time (median of 3 after warm-up): sequence of "
+        f"{len(res)} {seq_ms:.2f} ms, {seq_ms / len(res):.2f} ms per frame "
+        f"(runs {[round(w, 2) for w in seq_runs]}); a cold single trace of "
+        f"frame 0 through GP_Edge_Tracing {cold_ms:.2f} ms (runs "
+        f"{[round(w, 2) for w in cold_runs]}); n_iters {n_iters}")
+    return got
+
+
+def free_port():
+    """A free TCP port on localhost for the process group's store."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sharded_phase(checks, dev):
+    """``sharded_trace_batch`` on a (1, 1) NCCL mesh, world size 1, in this
+    process (the script needs one card, and NCCL refuses two ranks on one
+    device), on the inputs of ``batch_demo_B16`` and ``batch_1000_B4``:
+    each frame bitwise ``trace_batch``'s in the same phase, launches, the
+    collectives per loop iteration with their bytes and times, and the
+    wall time per trace beside ``trace_batch``'s. Returns the launches of
+    each batch by path."""
+    import torch
+    import torch.distributed as dist
+    from gaussian_process_edge_trace_torch.ops import collectives as col
+    from gaussian_process_edge_trace_torch.parallel import (
+        make_batch_data, make_batch_state, make_mesh, sharded_trace_batch,
+        trace_batch)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    paths = {}
+    try:
+        mesh = make_mesh(1, 1, "cuda")
+        for tag, make, images in (
+                ("sharded_1x1_demo_B16", demo_config, BATCH_DEMO_IMAGES),
+                ("sharded_1x1_1000_B4", big_config, BATCH_BIG_IMAGES)):
+            frames = [make(dev, image_seed=i) for i in images]
+            B = len(frames)
+            cfg = frames[0].tracer(1).cfg
+            data = make_batch_data(cfg, torch.stack([c.grad for c in frames]),
+                                   np.stack([c.init for c in frames]))
+
+            def batch():
+                return trace_batch(cfg, data, make_batch_state(cfg, B, dev))
+
+            def sharded():
+                return sharded_trace_batch(
+                    cfg, data, make_batch_state(cfg, B, dev), mesh, B)
+            want = batch()
+            reset_counts()
+            got = sharded()
+            torch.cuda.synchronize()
+            launches = read_counts()
+            coll = dict(col.COLLECTIVES)
+            loops = int(want.n_iters.max())
+            want_launches = {"K1": loops, "K1_transpose": 0, "K2": 1,
+                             "K3": loops, "K4": 0}
+            check_launches(checks, tag, {k: launches[k]
+                                         for k in want_launches},
+                           want_launches)
+            same = [same_result(tuple(getattr(got, f)[i] for f in
+                                      got._fields),
+                                tuple(getattr(want, f)[i] for f in
+                                      want._fields)) for i in range(B)]
+            log(f"[{tag}] n_iters {got.n_iters.tolist()}; launches "
+                f"{json.dumps(launches)}; every frame bitwise trace_batch's: "
+                f"{all(same)} ({sum(same)} of {B})")
+            if not all(same):
+                differ = [i for i, ok in enumerate(same) if not ok]
+                checks.failed.append(f"{tag}: frames {differ} differ from "
+                                     f"trace_batch")
+            want_coll = {"all_gather": loops + 1, "all_reduce": loops}
+            if coll != want_coll:
+                checks.failed.append(f"{tag}: collectives {coll}, "
+                                     f"{want_coll} expected")
+            group = mesh.get_group("sample")
+            costs = torch.zeros((B, cfg.N_samples), device=dev)
+            kept = torch.zeros((B, cfg.edge_length, cfg.N_keep), device=dev)
+            out_bytes = sum(t.numel() * t.element_size() for t in got
+                            if isinstance(t, torch.Tensor))
+            gather_ms, _ = warm_wall(
+                lambda: col.all_gather_stack(costs, group), runs=20)
+            reduce_ms, _ = warm_wall(
+                lambda: col.all_reduce_sum(kept, group), runs=20)
+            log(f"[{tag}] collectives {json.dumps(coll)} over {loops} loop "
+                f"iterations (expected {json.dumps(want_coll)}): per "
+                f"iteration one all_gather of the ({B}, {cfg.N_samples}) f32 "
+                f"costs, {costs.numel() * 4} bytes, {gather_ms:.4f} ms, and "
+                f"one all_reduce of the ({B}, {cfg.edge_length}, "
+                f"{cfg.N_keep}) f32 kept curves, {kept.numel() * 4} bytes, "
+                f"{reduce_ms:.4f} ms (host clock, median of 20); at the end "
+                f"one all_gather of the results, {out_bytes} bytes")
+            walls = {batch: [], sharded: []}
+            for fn in (batch, sharded, sharded, batch) * 2:
+                walls[fn].append(warm_wall(fn, runs=1)[0])
+            log(f"[{tag}] warm wall time per trace, median of 4 runs each "
+                f"taken in turns (batch, sharded, sharded, batch, twice): "
+                f"sharded_trace_batch "
+                f"{statistics.median(walls[sharded]) / B:.2f} ms (batch runs "
+                f"{[round(w, 2) for w in walls[sharded]]}), trace_batch "
+                f"{statistics.median(walls[batch]) / B:.2f} ms (batch runs "
+                f"{[round(w, 2) for w in walls[batch]]})")
+            for name, fn in (("trace_batch", batch),
+                             ("sharded_trace_batch", sharded)):
+                busy, wall = device_busy(fn)
+                log(f"[{tag}] profiled {name}: device busy {busy:.3f} ms of "
+                    f"{wall:.2f} ms, idle {100 * (1 - busy / wall):.1f}%")
+            paths[tag] = launches
+            del frames, data
+    finally:
+        dist.destroy_process_group()
+    return paths
+
+
 def _device_us(evt):
     for name in ("self_device_time_total", "self_cuda_time_total"):
         v = getattr(evt, name, None)
@@ -1405,6 +1699,8 @@ def main() -> int:
         del frames
     paths[f"ensemble_demo_K{ENSEMBLE_K}"] = ensemble_phase(checks, dev)
     paths["multi_edge"] = multi_edge_phase(checks, dev)
+    paths["sequence_demo_3"] = sequence_phase(checks, dev)
+    paths.update(sharded_phase(checks, dev))
     for tag, (cfg, seed) in configs.items():
         profile(checks, tag, cfg, seed)
 

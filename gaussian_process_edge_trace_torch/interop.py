@@ -7,8 +7,9 @@ given as plain Python scalars and numpy arrays — the caller does
 weights: the prior factor, the gradient image, its KDE and columns, and the
 loop state take their place. Batched data and states
 (``make_batch_data``/``make_batch_state``) carry over with their leading
-frame axis; a per-frame ``it`` becomes the batched state's (B,) tensor.
-This module imports no JAX.
+frame axis; a per-frame ``it`` becomes the batched state's (B,) tensor. A
+warm-started state keeps its warm-start valid mask (``user_valid``) and
+``n_fobs``, the count of its valid slots. This module imports no JAX.
 """
 
 from __future__ import annotations

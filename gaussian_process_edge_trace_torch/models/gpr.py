@@ -8,7 +8,9 @@ reference leaves them to XLA; :func:`batched_lml` runs its factorisations and
 solves through the K5 and K6 kernels (:mod:`..ops.cuda_chol`).
 
 Scalars such as the variance stay 0-d tensors on the device, so a sampling
-round never waits for the host. Every function takes an optional leading
+round never waits for the host. On the card a sampling round's library calls
+run one frame at a time (:func:`frame_by_frame`), so a frame's curves do not
+depend on the batch. Every function takes an optional leading
 frame axis: (B, n) training buffers give B fits at once, with the scalars
 then (B,) tensors, one per frame.
 
@@ -70,6 +72,18 @@ def fixed_sum(x, dim=-1):
     :func:`tree_sum` on the card, where ``torch.sum`` picks its thread
     layout from the number of sums it takes; ``torch.sum`` on the CPU."""
     return tree_sum(x, dim) if _on_card(x) else x.sum(dim)
+
+
+def frame_by_frame(fn, *xs):
+    """``fn(*xs)`` over the leading frame axis of (B, ...) tensors: on the
+    card one call per frame, each a batch of one as a single trace makes
+    it, since cuBLAS and cuSOLVER choose their kernels, and so their order
+    of operations, by the batch size; one call on the CPU, where the
+    library keeps one order per matrix."""
+    if not _on_card(xs[0]) or xs[0].dim() < 3 or xs[0].shape[0] == 1:
+        return fn(*xs)
+    return torch.cat([fn(*(x[f:f + 1] for x in xs))
+                      for f in range(xs[0].shape[0])])
 
 
 def safe_cholesky(K, jitter_scales=(0.0, 1e-5, 1e-3), per_matrix=False):
@@ -176,7 +190,10 @@ def fit_and_sample(spec: KernelSpec, x, y, length_scale, variance, diag_noise,
     result (B, E, S). Frames that draw the same normals (a batch: every
     frame draws from the config's seed) pass one (r, S) ``z`` and the prior
     draw ``F z`` is computed once for all of them; frames with draws of
-    their own (an ensemble's members) pass (B, r, S) and (B, n, S).
+    their own (an ensemble's members) pass (B, r, S) and (B, n, S). On the
+    card the solve, the cross product and a per-frame ``F z`` run frame by
+    frame (:func:`frame_by_frame`), so a frame draws the curves its single
+    trace draws, bit for bit.
 
     Args:
       x: (n,) padded training inputs (float); y: (n,) targets.
@@ -200,7 +217,8 @@ def fit_and_sample(spec: KernelSpec, x, y, length_scale, variance, diag_noise,
     L = safe_cholesky(K, jitter_scales=(0.0, 1e-3))
 
     # f0 = sqrt(variance)·F z, taken at the training and output rows only.
-    Fz = L_prior_unit @ z                                      # (..., G, S)
+    Fz = (L_prior_unit @ z if z.dim() == 2 or not _on_card(z)
+          else torch.stack([L_prior_unit @ zf for zf in z]))   # (..., G, S)
     scale = per_frame(torch.sqrt(variance))
     if Fz.dim() == 2:
         f0_x = scale * Fz[x_idx]                               # (..., n, S)
@@ -209,12 +227,13 @@ def fit_and_sample(spec: KernelSpec, x, y, length_scale, variance, diag_noise,
     f0_grid = scale * Fz.index_select(-2, grid_out)            # (..., E, S)
     eps = torch.sqrt(torch.clamp(diag_noise, min=0.0))[..., None] * w
     resid = torch.where(mask[..., None], yc[..., None] - f0_x - eps, zero)
-    A = torch.where(mask[..., None], torch.cholesky_solve(resid, L), zero)
+    A = torch.where(mask[..., None],
+                    frame_by_frame(torch.cholesky_solve, resid, L), zero)
 
     Kq = cross_gram(spec, grid_out.to(Fz.dtype), x, length_scale, variance)
     Kq = torch.where(mask[..., None, :], Kq, zero)             # (..., E, n)
-    return (per_frame(y_mean)
-            + per_frame(post_scale) * (f0_grid + Kq @ A))      # (..., E, S)
+    return (per_frame(y_mean) + per_frame(post_scale)
+            * (f0_grid + frame_by_frame(torch.matmul, Kq, A)))  # (..., E, S)
 
 
 def log_marginal_likelihood(spec: KernelSpec, x, yc, mask, theta,

@@ -195,7 +195,8 @@ def fused_cost_plain(cols, ys, kde_thresh=0.0, with_transpose=False):
     return line, arc
 
 
-def k1_launch_plan(E: int, M: int, S: int, with_transpose: bool = False):
+def k1_launch_plan(E: int, M: int, S: int, with_transpose: bool = False,
+                   plan_samples=None):
     """K1's launch: ``pairs_per_chunk`` pair windows per chunk
     (gridDim.y = ``n_chunks``), ``samples_per_block`` samples per block
     (gridDim.x = ``sample_groups``), ``threads`` per block, so each thread
@@ -211,7 +212,11 @@ def k1_launch_plan(E: int, M: int, S: int, with_transpose: bool = False):
     groups of whole thread tiles. Tall columns take fewer pairs per chunk,
     then one block per SM. The plan is that of one frame: B frames take B
     times the blocks (gridDim.z) and the same chunks, so the order of a
-    frame's sums does not depend on B. Raises where nothing fits."""
+    frame's sums does not depend on B. The chunks follow from
+    ``plan_samples`` (default S): a shard's launch over S/k of a sample
+    group's S samples, planned on S, sums every sample in the chunks of a
+    launch over S, so its costs are bitwise those columns of that launch.
+    Raises where nothing fits."""
     if E % 2 or E < 4:
         raise ValueError(f"fused cost kernel requires even E >= 4, got {E}")
     if M < 2 or S < 1:
@@ -229,11 +234,12 @@ def k1_launch_plan(E: int, M: int, S: int, with_transpose: bool = False):
         raise ValueError(f"fused cost kernel: M={M} rows do not fit shared "
                          f"memory")
     target = _K1_BLOCKS_PER_SM * cuda_build.SMS
-    groups_max = -(-S // threads)
-    want = -(-P * groups_max // target)       # pairs for chunks × groups
+    planned = S if plan_samples is None else int(plan_samples)
+    want = -(-P * -(-planned // threads) // target)  # pairs: chunks × groups
     ppc = min(_K1_PAIRS, max(4, -(-want // 4) * 4),
               cap if cap < 4 else cap // 4 * 4, P)
     n_chunks = -(-P // ppc)
+    groups_max = -(-S // threads)
     groups = min(groups_max, max(1, round(target / n_chunks)))
     spb = threads * -(-groups_max // groups)
     groups = -(-S // spb)
@@ -246,15 +252,17 @@ def k1_launch_plan(E: int, M: int, S: int, with_transpose: bool = False):
             "blocks": groups * n_chunks, "smem_bytes": smem}
 
 
-def fused_cost_cuda(cols, ys, kde_thresh=0.0, with_transpose=False):
+def fused_cost_cuda(cols, ys, kde_thresh=0.0, with_transpose=False,
+                    plan_samples=None):
     """K1 on the card, one launch (and one chunk sum) for every frame.
     Requires even E >= 4. Returns what :func:`fused_cost_plain` returns; the
-    transposed copy is written by the kernel itself."""
+    transposed copy is written by the kernel itself. ``plan_samples``: see
+    :func:`k1_launch_plan`."""
     B, shared = _frames(cols, ys)
     cuda_build.check_tensors("fused_cost", cols, ys)
     E, M = cols.shape[-2:]
     S = ys.shape[-1]
-    plan = k1_launch_plan(E, M, S, with_transpose)
+    plan = k1_launch_plan(E, M, S, with_transpose, plan_samples)
     lead = ys.shape[:-2]
     f32 = dict(dtype=torch.float32, device=ys.device)
     partial = torch.empty((B, plan["n_chunks"], 2, S), **f32)
@@ -278,13 +286,18 @@ def fused_cost_cuda(cols, ys, kde_thresh=0.0, with_transpose=False):
     return line, arc
 
 
-def fused_curve_cost(cols, ys, kde_thresh=0.0, want_transpose=False):
+def fused_curve_cost(cols, ys, kde_thresh=0.0, want_transpose=False,
+                     plan_samples=None):
     """``(line_integral, arc_length, samples_t)`` of every curve: K1 for
     CUDA tensors, the plain version on the CPU (pallas_interp.py:430-454).
     ``samples_t`` is ``ys`` transposed to (S, E) (per frame) when
     ``want_transpose`` and S >= ``_TRANSPOSE_MIN_S``, else ``None``; the
-    reference pads its columns to E_pad, the port does not."""
+    reference pads its columns to E_pad, the port does not.
+    ``plan_samples``: see :func:`k1_launch_plan`."""
     wt = bool(want_transpose) and ys.shape[-1] >= _TRANSPOSE_MIN_S
-    fn = fused_cost_plain if ys.device.type == "cpu" else fused_cost_cuda
-    out = fn(cols, ys, kde_thresh, with_transpose=wt)
+    if ys.device.type == "cpu":
+        out = fused_cost_plain(cols, ys, kde_thresh, with_transpose=wt)
+    else:
+        out = fused_cost_cuda(cols, ys, kde_thresh, with_transpose=wt,
+                              plan_samples=plan_samples)
     return out if wt else (*out, None)

@@ -31,7 +31,9 @@ normals of iteration ``it`` and the uniforms of the final fit's restarts. A
 caller may pass another source with the same two methods, for instance one
 that replays the JAX package's draws. A batch's frames share one source,
 as the JAX package's frames share one key; sources whose draws carry a
-leading frame axis give each frame its own (an ensemble's members).
+leading frame axis give each frame its own (an ensemble's members). Under a
+sample axis (``parallel/sharded.py::sharded_trace_batch``) a rank asks its
+source for its columns of the normals, ``normals(it, cols)``.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ from gaussian_process_edge_trace_torch.models.newton import (
 from gaussian_process_edge_trace_torch.trace.kde import (
     blur_matrices, curve_kde, gradient_kde)
 from gaussian_process_edge_trace_torch.trace.scoring import (
-    best_curves, curve_costs)
+    best_curves, curve_costs, sharded_best_curves)
 from gaussian_process_edge_trace_torch.trace.select import (
     BinSpec, make_bin_spec, select_consts, select_pixels)
 from gaussian_process_edge_trace_torch.utils.image import normalise
@@ -64,6 +66,11 @@ _PRIOR_RANK_RTOL = 1e-8
 # Largest training set the batched LML fit screens at full size; above it
 # the fit goes coarse-to-fine (driver.py:518-552).
 _DIRECT_FIT_N = 160
+
+# Reads of device values by the host: the loop's active mask (once before
+# the first iteration and once after each) and finish_trace's n_iters and
+# converged.
+HOST_READS = {"active": 0, "finish": 0}
 
 
 class TracerConfig(NamedTuple):
@@ -259,28 +266,44 @@ def make_data(cfg: TracerConfig, grad_img, init_xy, device) -> TracerData:
         init_x=ix, init_y=iy)
 
 
-def init_state(cfg: TracerConfig, device, user_obs_xy=None) -> TraceState:
+def init_state(cfg: TracerConfig, device, user_obs_xy=None,
+               user_obs_valid=None) -> TraceState:
     """Initial loop state; ``user_obs_xy`` is the (U, 2) xy warm-start
-    observation array (gpet.py:57-61,820)."""
+    observation array (gpet.py:57-61,820). ``user_obs_valid`` optionally
+    masks padded warm-start slots (driver.py:294-322 of the reference), and
+    ``n_fobs`` then counts the valid ones. Tensors stay on the device: a
+    sequence hands one frame's observations to the next without a host
+    copy."""
     B = cfg.bins.n_bins
     U = cfg.n_user_obs
     if user_obs_xy is None:
         user_obs_xy = np.zeros((0, 2), np.int64)
-    user = torch.as_tensor(np.array(user_obs_xy).reshape(-1, 2),
-                           dtype=torch.int64, device=device)
+    if not isinstance(user_obs_xy, torch.Tensor):
+        user_obs_xy = np.array(user_obs_xy)
+    user = torch.as_tensor(user_obs_xy, dtype=torch.int64,
+                           device=device).reshape(-1, 2)
     if user.shape[0] != U:
         raise ValueError(f"{user.shape[0]} warm-start observations for a "
                          f"config built with n_user_obs={U}")
     E, mi = cfg.edge_length, cfg.max_iters
     i64 = dict(dtype=torch.int64, device=device)
     f32 = dict(dtype=torch.float32, device=device)
+    if user_obs_valid is None:
+        valid = torch.ones(U, dtype=torch.bool, device=device)
+        n_fobs = torch.tensor(U, **i64)
+    else:
+        valid = torch.as_tensor(user_obs_valid, dtype=torch.bool,
+                                device=device)
+        if valid.shape != (U,):
+            raise ValueError(f"user_obs_valid of shape {tuple(valid.shape)} "
+                             f"for {U} warm-start observations")
+        n_fobs = valid.sum(dtype=torch.int64)
     return TraceState(
         obs_x=torch.zeros(B, **i64), obs_y=torch.zeros(B, **i64),
         obs_valid=torch.zeros(B, dtype=torch.bool, device=device),
         user_x=user[:, 0].contiguous(), user_y=user[:, 1].contiguous(),
-        user_valid=torch.ones(U, dtype=torch.bool, device=device),
-        score_thresh=torch.tensor(cfg.score_thresh0, **f32),
-        n_fobs=torch.tensor(U, **i64), it=0,
+        user_valid=valid, score_thresh=torch.tensor(cfg.score_thresh0, **f32),
+        n_fobs=n_fobs, it=0,
         iter_curves=torch.zeros((mi, E), **f32),
         iter_costs=torch.zeros(mi, **f32),
         iter_nobs=torch.zeros(mi, **i64),
@@ -313,20 +336,44 @@ def _train_set(cfg: TracerConfig, data: TracerData, state: TraceState):
     return x, y, mask, noise_w
 
 
+# The default draw layout: a generator seed packs (tracer seed, ensemble
+# member, stream slot) into 32 bits, the bits the CPU generator keeps.
+_MEMBER_BITS = 6
+_SLOT_BITS = 10
+
+
 class TorchDraws:
-    """The default draw source: ``torch.Generator``s on ``device``.
-    Iteration ``it`` draws from seed ``seed + it + 1`` (the reference's
-    ``fold_in(key, it+1)``, gpet.py:839); the final fit's restarts from
-    ``seed``. A trace thus takes the ``max_iters + 1`` seeds from ``seed``
-    on; ensemble ``member`` k takes the next block of as many, so no two
-    members' streams, of any iteration or of the restarts, share a seed,
-    and member 0 is the single trace's source. (An offset in the seed's
-    high 32 bits would not do: the CPU generator drops them.)"""
+    """The default draw source: ``torch.Generator``s on ``device``, one
+    generator seed per stream.
+
+    Tracer seed ``s``, ensemble member ``m`` and slot ``t`` (``it + 1`` for
+    the normals of iteration ``it``, the reference's ``fold_in(key,
+    it+1)``, gpet.py:839; 0 for the final fit's restarts) pack into the
+    generator seed ``(s·2¹⁶ + m·2¹⁰ + t) mod 2³²``. The packing is injective
+    for s < 2¹⁶, m < 64 and t < 1024, all within the 32 bits the CPU
+    generator keeps of a seed: no two (seed, member, iteration-or-restart)
+    streams share a generator seed, so seed s + 1 does not replay seed
+    s's normals, no two members of an ensemble share a stream, and member
+    0 is the single trace's source. Seeds 2¹⁶ apart share their streams.
+    Raises for a member outside [0, 64) or ``max_iters`` above 1022.
+
+    ``normals(it, cols)`` hands out columns ``cols`` of the iteration's
+    full (r, S) and (n_train, S) draws: a rank that holds samples
+    [off, off + S/k) of a sample group takes ``slice(off, off + S/k)``,
+    so every sample draws the numbers it draws on one device (the
+    reference's stream-slicing contract, gpr.py:189-200)."""
 
     def __init__(self, cfg: TracerConfig, rank: int, device, member=0):
+        if not 0 <= member < 2 ** _MEMBER_BITS:
+            raise ValueError(f"member {member} outside [0, "
+                             f"{2 ** _MEMBER_BITS})")
+        if cfg.max_iters + 1 >= 2 ** _SLOT_BITS:
+            raise ValueError(f"max_iters {cfg.max_iters} leaves no slot of "
+                             f"{_SLOT_BITS} bits for every iteration")
         self.cfg, self.rank = cfg, rank
         self.device = torch.device(device)
-        self.offset = int(member) * (cfg.max_iters + 1)
+        self.base = (cfg.seed << (_MEMBER_BITS + _SLOT_BITS)) + (
+            int(member) << _SLOT_BITS)
 
     def _gen(self, seed):
         g = torch.Generator(device=self.device)
@@ -334,19 +381,20 @@ class TorchDraws:
         return g
 
     def iteration_seed(self, it: int) -> int:
-        return self.cfg.seed + self.offset + it + 1
+        return (self.base + it + 1) % 2 ** 32
 
     def restart_seed(self) -> int:
-        return self.cfg.seed + self.offset
+        return self.base % 2 ** 32
 
-    def normals(self, it: int):
-        """(z (r, S), w (n_train, S)) standard normals of iteration ``it``."""
+    def normals(self, it: int, cols=slice(None)):
+        """(z (r, S), w (n_train, S)) standard normals of iteration ``it``,
+        or their columns ``cols``."""
         g = self._gen(self.iteration_seed(it))
         S = self.cfg.N_samples
         z = torch.randn((self.rank, S), generator=g, device=self.device)
         w = torch.randn((self.cfg.n_train, S), generator=g,
                         device=self.device)
-        return z, w
+        return z[:, cols], w[:, cols]
 
     def restarts(self):
         """(lml_restarts, 3) uniforms in [0, 1) for the final fit."""
@@ -358,13 +406,14 @@ class TorchDraws:
 class FrameDraws:
     """Draw sources of their own for each frame, as one source: the normals
     and restart uniforms of every frame's source stacked on a leading axis
-    ((B, r, S), (B, n_train, S), (B, lml_restarts, 3))."""
+    ((B, r, S), (B, n_train, S), (B, lml_restarts, 3)); ``normals(it,
+    cols)`` passes the columns on."""
 
     def __init__(self, sources):
         self.sources = list(sources)
 
-    def normals(self, it: int):
-        z, w = zip(*(src.normals(it) for src in self.sources))
+    def normals(self, it: int, *cols):
+        z, w = zip(*(src.normals(it, *cols) for src in self.sources))
         return torch.stack(z), torch.stack(w)
 
     def restarts(self):
@@ -414,11 +463,18 @@ def frame_of(batch, f: int):
 
 
 def _iteration(cfg: TracerConfig, data: TracerData, state: TraceState, z, w,
-               blur=None, consts=None, k=None, with_score=False):
+               blur=None, consts=None, k=None, with_score=False, shard=None):
     """One outer-loop iteration (gpet.py:829-861): sample, score, rank,
     KDE, select. Returns the new state and the (E, S) samples, and with
     ``with_score`` also the (M, N) pixel scores the selection ranked
     (gpet.py:582).
+
+    With ``shard`` (a :class:`~..ops.collectives.SampleShard`; the
+    reference's sample-axis arm, driver.py:372-429) ``z`` and ``w`` are the
+    rank's columns of the iteration's draws: it samples and scores its
+    ``shard.width`` curves, with K1 planned on the group's S and no
+    transposed copy, and :func:`sharded_best_curves` ranks over the group.
+    The KDE and the selection then run replicated on every rank.
 
     A batched state (``it`` a tensor) steps every frame, each stage once
     for all of them, and writes the telemetry of iteration ``k``, at which
@@ -429,11 +485,18 @@ def _iteration(cfg: TracerConfig, data: TracerData, state: TraceState, z, w,
         state, k = _lift(state), state.it
     x, y, mask, noise_w = _train_set(cfg, data, state)
     samples = _sample_round(cfg, data, x, y, mask, noise_w, z, w)
-    costs, samples_t = curve_costs(
-        data.grad_cols, samples, kde_thresh=cfg.kde_thresh,
-        even="avg" if cfg.legacy_simpson else "simpson",
-        return_samples_t=True)
-    bc, bcosts = best_curves(samples, costs, cfg.N_keep, samples_t=samples_t)
+    even = "avg" if cfg.legacy_simpson else "simpson"
+    if shard is None:
+        costs, samples_t = curve_costs(
+            data.grad_cols, samples, kde_thresh=cfg.kde_thresh, even=even,
+            return_samples_t=True)
+        bc, bcosts = best_curves(samples, costs, cfg.N_keep,
+                                 samples_t=samples_t)
+    else:
+        costs = curve_costs(data.grad_cols, samples,
+                            kde_thresh=cfg.kde_thresh, even=even,
+                            plan_samples=cfg.N_samples)
+        bc, bcosts = sharded_best_curves(samples, costs, cfg.N_keep, shard)
     inv = 1.0 / bcosts
     weights = inv / inv.sum(-1, keepdim=True)               # gpet.py:492-493
     kde_arr = curve_kde(bc, weights, cfg.M, cfg.N, cfg.x_st, blur=blur)
@@ -591,6 +654,7 @@ def finish_trace(cfg: TracerConfig, data: TracerData, state: TraceState,
                              else "simpson")[..., 0]
     host = torch.stack([state.it, (state.n_fobs >= cfg.algo_thresh).to(
         torch.int64)]).cpu()                                # one read
+    HOST_READS["finish"] += 1
     return TraceResult(
         edge_trace=edge_trace, y_mean=y_mean, y_std=y_std,
         cred_interval=cred, cred_interval_px=cred_px, n_iters=host[0],
@@ -616,24 +680,28 @@ def _keep_finished(active, new: TraceState, old: TraceState) -> TraceState:
 
 
 def run_loop(cfg: TracerConfig, data: TracerData, state0: TraceState,
-             draws=None) -> TraceState:
+             draws=None, shard=None) -> TraceState:
     """The outer loop alone: iterate while ``n_fobs < algo_thresh`` and
     ``it < max_iters`` (driver.py:687-688), one device read per
     iteration. With a batched state it steps all frames while any is
     active, one read of the (B,) active mask per iteration, and keeps each
     finished frame's state as it was (the JAX package's vmapped
-    ``while_loop``). The active frames must stand at one iteration."""
+    ``while_loop``). The active frames must stand at one iteration.
+    ``shard``: the sample arm of :func:`_iteration`; the rank draws its
+    columns ``draws.normals(it, shard.cols)``."""
     if isinstance(state0.it, int):
-        return frame_of(run_loop(cfg, data, _lift(state0), draws), 0)
+        return frame_of(run_loop(cfg, data, _lift(state0), draws, shard), 0)
     if draws is None:
         draws = _default_draws(cfg, data)
     blur = blur_matrices(cfg.M, cfg.N, data.grad_kde.dtype,
                          data.grad_kde.device)
     consts = select_consts(cfg.bins, cfg.N, cfg.max_decays,
                            data.grad_kde.device)
+    cols = () if shard is None else (shard.cols,)
     state = state0
     active = _active(cfg, state)
     at = set(torch.where(active, state.it, -1).tolist()) - {-1}
+    HOST_READS["active"] += 1
     if len(at) > 1:
         raise ValueError(f"the active frames stand at iterations "
                          f"{sorted(at)}; a batch steps them together")
@@ -641,21 +709,23 @@ def run_loop(cfg: TracerConfig, data: TracerData, state0: TraceState,
     # A lone frame is active whenever the loop steps it: nothing to keep.
     lone = state.it.shape[0] == 1
     while k < cfg.max_iters:
-        z, w = draws.normals(k)
+        z, w = draws.normals(k, *cols)
         new, _ = _iteration(cfg, data, state, z, w, blur=blur,
-                            consts=consts, k=k)
+                            consts=consts, k=k, shard=shard)
         state = new if lone else _keep_finished(active, new, state)
         active = _active(cfg, state)
+        HOST_READS["active"] += 1
         k = k + 1 if bool(active.any()) else cfg.max_iters
     return state
 
 
 def run_trace(cfg: TracerConfig, data: TracerData, state0: TraceState,
-              draws=None) -> TraceResult:
+              draws=None, shard=None) -> TraceResult:
     """The full trace (gpet.py:768-908): the outer loop, then
     :func:`finish_trace`; for one trace or, with a batched state, for every
-    frame. ``draws`` defaults to :class:`TorchDraws`."""
+    frame. ``draws`` defaults to :class:`TorchDraws`; ``shard``: see
+    :func:`run_loop` (the final fit runs whole on every rank)."""
     if draws is None:
         draws = _default_draws(cfg, data)
-    state = run_loop(cfg, data, state0, draws)
+    state = run_loop(cfg, data, state0, draws, shard)
     return finish_trace(cfg, data, state, draws)

@@ -11,6 +11,7 @@ normalised, so only the shape matters.
   Curve x-coordinates are integer columns, so binning reduces to a per-column
   1-D hat contraction (:func:`column_binning`, kernel K3 on the card, K4
   with ``use_pallas_binning``; ``trace/cuda_kde.py``).
+- :func:`kde_normalise` — the min-max step alone, for a summed raw grid.
 - :func:`gradient_kde` — the gradient image's pixels above ``kde_thresh``,
   weighted by intensity: binning integer points is a masked copy.
 
@@ -128,6 +129,13 @@ def curve_kde(y_curves, weights, M: int, N: int, x_start: int,
     return _minmax(curve_kde_raw(y_curves, weights, M, N, x_start, radius,
                                  bw, use_pallas_binning=use_pallas_binning,
                                  blur=blur))
+
+
+def kde_normalise(raw):
+    """Min-max normalise a raw KDE grid (gpet.py:527; kde.py:196 of the
+    reference), each frame by its own minimum and maximum: the last step of
+    :func:`curve_kde`, for a grid summed elsewhere."""
+    return _minmax(raw)
 
 
 def gradient_kde(grad_img, kde_thresh: float = 1e-3,

@@ -31,64 +31,13 @@ from gaussian_process_edge_trace_tpu.trace import driver as rd
 from gaussian_process_edge_trace_tpu.utils.image import (
     comp_grad_img, kernel_builder)
 from gaussian_process_edge_trace_tpu.utils.synthetic import construct_test_img
-from torch_parity import (SMALL_IMG, SMALL_KW, WIDE_IMG, WIDE_KW, JaxDraws,
-                          small_problem)
+from torch_parity import (ATOL, FINAL_FIT, RTOL, SMALL_IMG, SMALL_KW,
+                          WIDE_IMG, WIDE_KW, JaxDraws, assert_results_match,
+                          assert_same_bits, small_problem)
 
 torch.set_num_threads(1)
 
-# Fields whose values are selected, not accumulated: equal exactly, as in
-# the JAX package's own batch tests (test_parallel.py:103-104).
-EXACT = ("edge_trace", "n_iters", "converged", "iter_nobs", "iter_thresh",
-         "obs_x", "obs_y", "obs_valid")
-# Floats of the loop: the JAX package's tolerance for the same comparison
-# (test_parallel.py:134), f32 sums in other orders.
-RTOL, ATOL = 1e-4, 2e-3
-# The final fit's fields, as (rtol, atol). Its damped-Newton polish stops
-# along a flat ridge of the LML (ROADMAP queue 3), and the two packages'
-# rounding moves where: from identical training sets, member 2 of the
-# ensemble below ends 0.076 apart in log σn² and 0.038 in log c, at LMLs
-# 0.2% apart (the port's the higher), with mean curves 0.073 px apart and
-# one column of the integer trace one pixel apart (mean 35.481 vs 35.516).
-FINAL_FIT = {"theta": (0.0, 0.1), "lml": (5e-3, 0.0),
-             "y_mean": (0.0, 0.1), "cred_interval": (0.0, 0.1),
-             "cred_interval_px": (0.0, 0.15), "y_std": (0.0, 1e-2),
-             "final_cost": (1e-3, 0.0)}
-# The integer trace is held equal where the reference's mean curve lies
-# farther than this from a rounding boundary, and to one pixel elsewhere.
-ROUNDING_PX = 0.1
-
 ODD_IMG = dict(SMALL_IMG, size=(64, 95))
-
-
-def assert_results_match(got, ref):
-    """The port's batched TraceResult against the reference's: the
-    selected fields exactly, the loop's floats at the JAX package's
-    tolerance, the final fit's as ``FINAL_FIT`` says."""
-    for f in ref._fields:
-        r = np.asarray(getattr(ref, f))
-        g = np.asarray(getattr(got, f))
-        if f == "edge_trace":
-            mean = np.asarray(ref.y_mean)
-            far = np.abs(mean - np.floor(mean) - 0.5) > ROUNDING_PX
-            np.testing.assert_array_equal(g[..., 0][far], r[..., 0][far])
-            np.testing.assert_array_equal(g[..., 1], r[..., 1])
-            assert np.abs(g[..., 0] - r[..., 0]).max() <= 1
-        elif f in EXACT:
-            np.testing.assert_array_equal(g, r, err_msg=f)
-        else:
-            rtol, atol = FINAL_FIT.get(f, (RTOL, ATOL))
-            np.testing.assert_allclose(g, r, rtol=rtol, atol=atol,
-                                       err_msg=f)
-
-
-def assert_same_bits(a, b):
-    """Two results of one trace (or of one batch) equal field by field."""
-    for f in a._fields:
-        x, y = getattr(a, f), getattr(b, f)
-        if isinstance(x, torch.Tensor):
-            assert torch.equal(x, y), f
-        else:
-            assert x == y, f
 
 
 def _frames(img_kw, seeds):
@@ -245,6 +194,32 @@ def test_card_final_fit_does_not_depend_on_frames(small_batch, monkeypatch):
         rtol, atol = FINAL_FIT.get(name, (RTOL, ATOL))
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=rtol,
                                    atol=atol, err_msg=name)
+
+
+def test_card_sampling_round_runs_frame_by_frame(small_batch, monkeypatch):
+    """The sampling round's card path (forced on the CPU): the solve and
+    the cross product run once per frame, each on a batch of one as a
+    single trace runs them, and so does ``F z`` for frames with draws of
+    their own; the curves equal the CPU path's batched ones."""
+    pcfg, pdata, draws = (small_batch[k] for k in ("pcfg", "pdata", "draws"))
+    x, y, mask, noise_w = pd._train_set(pcfg, pdata, small_batch["pstates"])
+    z, w = draws.normals(0)
+    zs, ws = torch.stack([z] * 3), torch.stack([w] * 3)
+    cpu = pd._sample_round(pcfg, pdata, x, y, mask, noise_w, zs, ws)
+    calls = []
+
+    def counted(fn):
+        def run(*args):
+            calls.append((fn.__name__, args[0].shape[0]))
+            return fn(*args)
+        run.__name__ = fn.__name__
+        return run
+    monkeypatch.setattr(gpr, "_on_card", lambda t: True)
+    for name in ("cholesky_solve", "matmul"):
+        monkeypatch.setattr(torch, name, counted(getattr(torch, name)))
+    card = pd._sample_round(pcfg, pdata, x, y, mask, noise_w, zs, ws)
+    assert sorted(calls) == [("cholesky_solve", 1)] * 3 + [("matmul", 1)] * 3
+    assert torch.equal(card, cpu)
 
 
 def test_card_factor_ladder_skips_a_failed_factor(monkeypatch):

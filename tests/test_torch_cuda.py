@@ -1,9 +1,10 @@
 """PyTorch port on the card: each hand-written kernel (K1 with its
 transposed-samples output, K2, K3, K4, K5, K6) against its plain PyTorch
 version on CUDA tensors, K1, K2 and K3 over several frames in one launch
-against single-frame launches, the launch plans against the launchers, and
-the small slice traced on the card, at an even and at an odd edge length
-and as a batch of two frames.
+against single-frame launches, the launch plans against the launchers, the
+curve costs over sample shards against the full launch's columns, and the
+small slice traced on the card, at an even and at an odd edge length, as a
+batch of two frames and through a (1, 1) NCCL mesh.
 Every test here carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is false.
 
@@ -522,3 +523,80 @@ def test_final_fit_does_not_depend_on_frames(dev, n):
                                     *(a[f:f + 1] for a in args), nw)
         for a, b in zip(batch, one):
             assert torch.equal(a[f], b[0])
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_fused_cost_shard_widths_equal_full_launch_columns(dev, k):
+    """K1 at the 1000² trace's shape (E = M = 1000, S = 10⁴) over each of
+    k shards of S/k samples, planned on the global S as the sample arm
+    plans it: every shard's line and arc equal the full launch's columns
+    bit for bit."""
+    E = M = 1000
+    S = 10000
+    cols = torch.tensor(np.random.default_rng(k).random((E, M)),
+                        dtype=torch.float32, device=dev)
+    ys = torch.tensor(_curves(E, M, S, seed=k), device=dev)
+    line, arc = ci.fused_cost_cuda(cols, ys, 1e-3)
+    w = S // k
+    for j in range(k):
+        part = ys[:, j * w:(j + 1) * w].contiguous()
+        sl, sa = ci.fused_cost_cuda(cols, part, 1e-3, plan_samples=S)
+        assert torch.equal(sl, line[j * w:(j + 1) * w])
+        assert torch.equal(sa, arc[j * w:(j + 1) * w])
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_unfused_cost_shard_widths_equal_full_columns(dev, k):
+    """At an odd E the sample arm scores through K2 and ``line_and_arc``'s
+    PyTorch reductions over E: over each of k shards of S/k samples they
+    give the columns of the full S bit for bit."""
+    E, M, S = 999, 1000, 10000
+    cols = torch.tensor(np.random.default_rng(k).random((E, M)),
+                        dtype=torch.float32, device=dev)
+    ys = torch.tensor(_curves(E, M, S, seed=k), device=dev)
+
+    def cost(y):
+        return ci.line_and_arc(ci.column_interp(cols, y, 1e-3), y)
+    line, arc = cost(ys)
+    w = S // k
+    for j in range(k):
+        sl, sa = cost(ys[:, j * w:(j + 1) * w].contiguous())
+        assert torch.equal(sl, line[j * w:(j + 1) * w])
+        assert torch.equal(sa, arc[j * w:(j + 1) * w])
+
+
+def test_sharded_one_by_one_nccl_equals_trace_batch(dev, tmp_path):
+    """``sharded_trace_batch`` on a (1, 1) NCCL mesh in this process (NCCL
+    refuses two ranks on one device, and the GPU tests need one card):
+    bitwise ``trace_batch`` of the same two frames, with one all_gather
+    and one all_reduce per loop iteration and one all_gather at the end."""
+    import torch.distributed as dist
+
+    from gaussian_process_edge_trace_torch.ops import collectives
+    from gaussian_process_edge_trace_torch.parallel import (
+        make_batch_data, make_batch_state, make_mesh, sharded_trace_batch,
+        trace_batch)
+    from gaussian_process_edge_trace_torch.trace.driver import make_config
+    imgs = [gpt.construct_test_img((64, 96), 40, 2, 0.03, "sinusoidal", 0.3,
+                                   seed=s) for s in (1, 2)]
+    grads = torch.stack([gpt.comp_grad_img(img, gpt.kernel_builder((9, 5)),
+                                           device=dev) for img, _ in imgs])
+    inits = np.array([[[0, e[0, 0]], [95, e[95, 0]]] for _, e in imgs])
+    cfg = make_config(inits[0], (64, 96), {"kernel": "RBF", "sigma_f": 20,
+                                           "length_scale": 8},
+                      N_samples=256, delta_x=6, pixel_thresh=4, seed=1)
+    data = make_batch_data(cfg, grads, inits)
+    want = trace_batch(cfg, data, make_batch_state(cfg, 2, dev))
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rv",
+                            world_size=1, rank=0)
+    try:
+        collectives.COLLECTIVES.update(all_gather=0, all_reduce=0)
+        got = sharded_trace_batch(cfg, data, make_batch_state(cfg, 2, dev),
+                                  make_mesh(1, 1, "cuda"), 2)
+    finally:
+        dist.destroy_process_group()
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    loops = int(want.n_iters.max())
+    assert collectives.COLLECTIVES == {"all_gather": loops + 1,
+                                       "all_reduce": loops}

@@ -1,0 +1,169 @@
+"""Which stage of a loop iteration rounds a batch frame apart from the same
+frame traced alone, on a CUDA card.
+
+Run from the repository root on a machine with a CUDA card and ``nvcc``:
+
+    python3 tests/torch_batch_invariance.py [--iters 3]
+
+For ``chip_smoke.py``'s demo batch (image seeds 1-16) and 1000² batch
+(image seeds 1-4), tracer seed 1, it steps the batch's loop with
+``trace_batch``'s default draws, and at each iteration feeds every stage
+of ``trace/driver.py::_iteration`` the batch's own inputs to that stage,
+once for all frames and once for each frame alone (a batch of one, as a
+single trace runs it). It prints, per stage, how many frames' outputs
+differ from their single run in any bit and by how much at most: a stage
+whose output depends on the batch size moves a batch frame off its single
+trace. The sampling round's solve and cross product are shown as one
+batched library call each ("... batched call"), beside the port's own
+sampling round (``_sample_round``, which runs them frame by frame on the
+card); the stages after it take the port's curves. The last line is one
+JSON object of all rows.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import sys
+
+import numpy as np
+
+sys.path.append(str(pathlib.Path(__file__).resolve().parents[1]))
+
+
+def stages(cfg, data, state, z, w, blur, consts):
+    """Every stage's output of one iteration, each from the outputs of the
+    stage before it, as ``_iteration`` and ``fit_and_sample`` compute
+    them."""
+    import torch
+    from gaussian_process_edge_trace_torch.models import gpr
+    from gaussian_process_edge_trace_torch.models.kernels import (
+        cross_gram, per_frame, train_gram)
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    from gaussian_process_edge_trace_torch.trace.kde import curve_kde
+    from gaussian_process_edge_trace_torch.trace.scoring import (
+        best_curves, curve_costs)
+    from gaussian_process_edge_trace_torch.trace.select import select_pixels
+    out = {}
+    x, y, mask, noise_w = pd._train_set(cfg, data, state)
+    yf = y.to(torch.float32)
+    out["std_raw"] = std_raw = gpr.masked_std(yf, mask)
+    y_s = std_raw + 1.0
+    variance = cfg.sigma_f ** 2 / y_s ** 2
+    diag_noise = cfg.noise_y * noise_w + cfg.gp_jitter
+    s2 = std_raw / y_s
+    post_scale = torch.where(s2 == 0.0, torch.ones_like(s2), s2)
+    xs, ys = x.to(torch.float32), yf / y_s[..., None]
+    zero = torch.zeros((), dtype=ys.dtype, device=ys.device)
+    out["y_mean"] = y_mean = gpr.masked_mean(ys, mask)
+    yc = torch.where(mask, ys - y_mean[..., None], zero)
+    out["gram"] = K = train_gram(cfg.kernel, xs, cfg.sigma_l, variance,
+                                 diag_noise, mask=mask)
+    out["cholesky"] = L = gpr.safe_cholesky(K, jitter_scales=(0.0, 1e-3))
+    Fz = data.L_prior_unit @ z
+    scale = per_frame(torch.sqrt(variance))
+    f0_x = scale * Fz[x] if Fz.dim() == 2 else None
+    f0_grid = scale * Fz.index_select(-2, data.x_grid)
+    eps = torch.sqrt(torch.clamp(diag_noise, min=0.0))[..., None] * w
+    resid = torch.where(mask[..., None], yc[..., None] - f0_x - eps, zero)
+    out["cholesky_solve batched call"] = A = torch.where(
+        mask[..., None], torch.cholesky_solve(resid, L), zero)
+    Kq = cross_gram(cfg.kernel, data.x_grid.to(Fz.dtype), xs, cfg.sigma_l,
+                    variance)
+    Kq = torch.where(mask[..., None, :], Kq, zero)
+    out["Kq @ A batched call"] = KA = Kq @ A
+    out["batched samples"] = (per_frame(y_mean) + per_frame(post_scale)
+                              * (f0_grid + KA)) * per_frame(y_s)
+    out["samples"] = samples = pd._sample_round(cfg, data, x, y, mask,
+                                                noise_w, z, w)
+    costs, samples_t = curve_costs(data.grad_cols, samples,
+                                   kde_thresh=cfg.kde_thresh,
+                                   return_samples_t=True)
+    out["costs"] = costs
+    bc, bcosts = best_curves(samples, costs, cfg.N_keep, samples_t=samples_t)
+    out["kept curves"] = bc
+    inv = 1.0 / bcosts
+    out["weights"] = weights = inv / inv.sum(-1, keepdim=True)
+    out["kde"] = kde = curve_kde(bc, weights, cfg.M, cfg.N, cfg.x_st,
+                                 blur=blur)
+    sel = select_pixels(
+        kde, data.grad_kde, torch.cat([state.user_x, state.obs_x], dim=-1),
+        torch.cat([state.user_y, state.obs_y], dim=-1),
+        torch.cat([state.user_valid, state.obs_valid], dim=-1),
+        n_pre=state.n_fobs, score_thresh=state.score_thresh, spec=cfg.bins,
+        fix_endpoints=cfg.fix_endpoints, kde_thresh=cfg.kde_thresh,
+        pixel_thresh=cfg.pixel_thresh, algo_thresh=cfg.algo_thresh,
+        max_decays=cfg.max_decays, consts=consts)
+    out["selected x"] = sel.obs_x
+    return out
+
+
+def frame(tree, f, own):
+    return type(tree)(**{k: v[f:f + 1] if k in own else v
+                         for k, v in tree._asdict().items()})
+
+
+def run(tag, configs, iters):
+    import torch
+    from gaussian_process_edge_trace_torch.parallel import (
+        make_batch_data, make_batch_state)
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    from gaussian_process_edge_trace_torch.trace.kde import blur_matrices
+    from gaussian_process_edge_trace_torch.trace.select import select_consts
+    dev = configs[0].dev
+    cfg = configs[0].tracer(1).cfg
+    B = len(configs)
+    data = make_batch_data(cfg, torch.stack([c.grad for c in configs]),
+                           np.stack([c.init for c in configs]))
+    state = make_batch_state(cfg, B, dev)
+    draws = pd.TorchDraws(cfg, data.L_prior_unit.shape[1], dev)
+    blur = blur_matrices(cfg.M, cfg.N, torch.float32, dev)
+    consts = select_consts(cfg.bins, cfg.N, cfg.max_decays, dev)
+    own_d = ("grad_img", "grad_kde", "grad_cols", "init_x", "init_y")
+    rows = []
+    for k in range(iters):
+        z, w = draws.normals(k)
+        whole = stages(cfg, data, state, z, w, blur, consts)
+        alone = [stages(cfg, frame(data, f, own_d), frame(
+            state, f, pd.TraceState._fields), z, w, blur, consts)
+            for f in range(B)]
+        for name, v in whole.items():
+            diff = [f for f in range(B)
+                    if not torch.equal(v[f], alone[f][name][0])]
+            gap = max([(v[f].double() - alone[f][name][0].double()).abs()
+                       .max().item() for f in diff] or [0.0])
+            rows.append({"batch": tag, "iteration": k, "stage": name,
+                         "frames_differing": len(diff), "max_abs": gap})
+            print(f"[{tag}] iteration {k} {name:27s} frames differing from "
+                  f"their single run: {len(diff):2d} of {B}, max |diff| "
+                  f"{gap:.3e}", flush=True)
+        state, _ = pd._iteration(cfg, data, state, z, w, blur=blur,
+                                 consts=consts, k=k)
+    return rows
+
+
+def main(argv=None):
+    import torch
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--iters", type=int, default=3)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    dev = torch.device("cuda", 0)
+    print(f"[card] {cs.card_line()}")
+    rows = []
+    for tag, make, images in (("demo_B16", cs.demo_config,
+                               cs.BATCH_DEMO_IMAGES),
+                              ("1000_B4", cs.big_config,
+                               cs.BATCH_BIG_IMAGES)):
+        rows += run(tag, [make(dev, image_seed=i) for i in images],
+                    args.iters)
+    print(json.dumps(rows))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

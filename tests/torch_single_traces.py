@@ -26,11 +26,9 @@ and right endpoint (999: E = 1000, K1 scores; 998: E = 999, K2 scores) and
 reports DICE and MSE against the true edge, with the least, median and
 largest DICE per image and endpoint: the port's spread on the card, beside
 the JAX package's on a CPU from ``tests/torch_reference_1000.py
---image-seed K --reference-only ...``. The port's default draws give
-iteration ``it`` of tracer seed ``s`` the seed ``s + it + 1``, so seed
-``s + 1`` replays seed ``s``'s normals one iteration later; for samples
-that share no draws, take seeds ``max_iters + 1`` = 49 apart
-(``--seeds $(seq 1 49 1422)``).
+--image-seed K --reference-only ...``. The port's default draws give no
+two tracer seeds below 2¹⁶ a stream in common (``trace/driver.py::
+TorchDraws``), so consecutive seeds are independent samples.
 
 Each mode prints one line per trace and, last, one JSON object.
 """
