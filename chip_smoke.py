@@ -111,6 +111,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -771,11 +772,11 @@ class Config:
         self.E = int(self.init[1, 0] - self.init[0, 0]) + 1
         self.ko, self.n_samples, self.dev = ko, n_samples, dev
 
-    def tracer(self, seed):
+    def tracer(self, seed, return_std=True):
         import gaussian_process_edge_trace_torch as gpt
         return gpt.GP_Edge_Tracing(self.init, self.grad, self.ko, 1,
                                    np.array([]), self.n_samples, 1, 5, 0.1, 5,
-                                   seed, True, True, device=self.dev)
+                                   seed, return_std, True, device=self.dev)
 
     def trace(self, seed):
         import torch
@@ -1363,7 +1364,8 @@ def sequence_phase(checks, dev):
             checks.failed.append(f"{tag} frame {f}: n_iters {r.n_iters} > "
                                  f"frame 0's + 1")
     n_iters = [r.n_iters for r in res]
-    want_reads = {"active": sum(n_iters) + len(res), "finish": len(res)}
+    want_reads = {"active": sum(n_iters) + len(res), "finish": len(res),
+                  "state": 0, "samples": 0}
     log(f"[{tag}] host reads over the sequence {json.dumps(reads)}, "
         f"expected {json.dumps(want_reads)}")
     if reads != want_reads:
@@ -1490,6 +1492,280 @@ def sharded_phase(checks, dev):
     finally:
         dist.destroy_process_group()
     return paths
+
+
+def introspective_phase(checks, tag, c):
+    """``GP_Edge_Tracing(...)(return_lines=True)`` and ``(verbose=True)``
+    with tracer seed 1 against the fused call on the same tracer: every
+    field of the result bitwise, every kernel's launches equal, the lines'
+    shapes, the host reads (one of the state before the loop and after each
+    iteration, one of each iteration's curves) and the bytes they copy, and
+    the warm wall time per trace beside the fused call's. Returns the
+    launches of the ``return_lines`` call."""
+    import contextlib
+    import io
+    import torch
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    tracer = c.tracer(1, return_std=False)
+    runs = {}
+    for name, kw in (("fused", {}), ("return_lines", {"return_lines": True}),
+                     ("verbose", {"verbose": True})):
+        reset_counts()
+        for k in pd.HOST_BYTES:
+            pd.HOST_BYTES[k] = 0
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            out = tracer(**kw)
+        torch.cuda.synchronize()
+        runs[name] = (out, tracer.last_result, read_counts(),
+                      dict(pd.HOST_READS), dict(pd.HOST_BYTES),
+                      printed.getvalue().count("\n"))
+    fused, res_f, launches_f = runs["fused"][:3]
+    n = res_f.n_iters
+    for name in ("return_lines", "verbose"):
+        out, res, launches, reads, nbytes, lines = runs[name]
+        edge = out[0] if name == "return_lines" else out
+        same = same_result(res, res_f) and np.array_equal(edge, fused)
+        diff = [f for f in res._fields if not (
+            torch.equal(getattr(res, f), getattr(res_f, f))
+            if isinstance(getattr(res, f), torch.Tensor)
+            else getattr(res, f) == getattr(res_f, f))]
+        want_reads = {"state": n + 1, "samples": n}
+        got_reads = {k: reads[k] for k in want_reads}
+        log(f"[{tag}] {name}: n_iters {res.n_iters}, iter_nobs "
+            f"{res.iter_nobs[:n].tolist()}, theta {res.theta.tolist()}; "
+            f"every field bitwise the fused call's: {same}"
+            f"{'' if same else f' (differs in {diff})'}; launches "
+            f"{json.dumps(launches)} (fused {json.dumps(launches_f)}); host "
+            f"reads {json.dumps(reads)} (expected {json.dumps(want_reads)} "
+            f"beside finish_trace's), bytes copied {json.dumps(nbytes)}, "
+            f"{nbytes['samples'] // max(n, 1)} bytes of curves and "
+            f"{nbytes['state'] // (n + 1)} bytes of state per read; "
+            f"{lines} lines printed")
+        if not same:
+            checks.failed.append(f"{tag} {name} differs from the fused call "
+                                 f"in {diff}")
+        if launches != launches_f:
+            checks.failed.append(f"{tag} {name}: launches {launches}, the "
+                                 f"fused call's {launches_f}")
+        if got_reads != want_reads:
+            checks.failed.append(f"{tag} {name}: host reads {got_reads}")
+    _, (samples, obs, curves) = runs["return_lines"][0]
+    shapes_ok = (len(samples) == n + 1 and len(obs) == n + 2
+                 and len(curves) == n + 1
+                 and samples[0].shape == (c.E, c.n_samples)
+                 and samples[0].dtype == np.float32)
+    log(f"[{tag}] lines: {len(samples)} sample blocks of "
+        f"{samples[0].shape}, {len(obs)} observation lists, {len(curves)} "
+        f"curves; shapes as the reference's: {shapes_ok}")
+    if not shapes_ok:
+        checks.failed.append(f"{tag}: the lines' shapes")
+    fused_ms, fused_runs = warm_wall(tracer)
+    intro_ms, intro_runs = warm_wall(lambda: tracer(return_lines=True))
+    log(f"[{tag}] warm wall time per trace (median of 3 after warm-up): "
+        f"return_lines {intro_ms:.2f} ms (runs "
+        f"{[round(w, 2) for w in intro_runs]}), fused {fused_ms:.2f} ms "
+        f"(runs {[round(w, 2) for w in fused_runs]}); n_iters {n}")
+    return runs["return_lines"][2]
+
+
+class IterationDraws:
+    """Iteration ``it``'s draws of a trace's source as a source for the
+    per-stage methods: its prior normals, and the first ``n`` rows of its
+    noise normals (the training slots that hold the inits first in both
+    buffer layouts)."""
+
+    def __init__(self, draws, it):
+        self.z, self.w = draws.normals(it)
+
+    def sample_normals(self, n):
+        return self.z, self.w[:n]
+
+
+def per_stage_phase(checks, dev):
+    """One manual iteration the reference's way (``fit_predict_GP``,
+    ``get_best_curves``, ``kernel_density_estimate``, ``get_best_pixels``)
+    on the demo config, tracer seed 1, from the first iteration's draws:
+    its accepted pixels and threshold must equal the first ``trace_step``'s.
+    Then ``fit_predict_GP(converged=True)`` on those pixels. Returns the
+    phase's launches."""
+    import torch
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    tag = "per_stage_demo"
+    tracer = demo_config(dev).tracer(1)
+    cfg, data = tracer.cfg, tracer.data
+    draws = pd.TorchDraws(cfg, data.L_prior_unit.shape[1], dev)
+    state, samples = pd.trace_step(cfg, data, pd.init_state(cfg, dev), draws)
+    valid = state.obs_valid.cpu().numpy()
+    want = np.stack([state.obs_x.cpu().numpy()[valid],
+                     state.obs_y.cpu().numpy()[valid]], axis=1)
+    empty = np.zeros((0, 2), np.int64)
+    reset_counts()
+    t0 = time.perf_counter()
+    mine = tracer.fit_predict_GP(empty, draws=IterationDraws(draws, 0))
+    curves, costs, (opt, opt_cost) = tracer.get_best_curves(mine)
+    kde = tracer.kernel_density_estimate(curves, costs)
+    fobs = tracer.get_best_pixels(curves, costs, empty)
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t0) * 1e3
+    y_mean, y_std = tracer.fit_predict_GP(fobs, converged=True, seed=1)
+    torch.cuda.synchronize()
+    got = read_counts()
+    dsamp = float(np.abs(mine - samples.cpu().numpy()).max())
+    same = np.array_equal(fobs, want)
+    thresh_ok = tracer.score_thresh == float(state.score_thresh)
+    fit_ok = bool(np.isfinite(y_mean).all() and (y_std >= 0).all()
+                  and np.abs(y_mean[fobs[:, 0] - cfg.x_st]
+                             - fobs[:, 1]).max() < 5.0)
+    log(f"[{tag}] samples: max |fit_predict_GP - trace_step| {dsamp:.3e}; "
+        f"kept {curves.shape[1]} curves, optimal cost {opt_cost:.6f}; KDE "
+        f"{kde.shape} in [{kde.min()}, {kde.max()}]; {len(fobs)} pixels "
+        f"accepted, equal to the first trace_step's: {same}; threshold "
+        f"{tracer.score_thresh} (trace_step's {float(state.score_thresh)}); "
+        f"the four stages {stage_ms:.2f} ms on the host clock; "
+        f"fit_predict_GP(converged=True) on the pixels finite and within 5 "
+        f"px of them: {fit_ok}; launches {json.dumps(got)}")
+    if not same:
+        checks.failed.append(f"{tag}: pixels {fobs.tolist()} differ from "
+                             f"trace_step's {want.tolist()}")
+    if not (thresh_ok and fit_ok):
+        checks.failed.append(f"{tag}: threshold or converged fit")
+    # K1 in get_best_curves, K3 in kernel_density_estimate and again in
+    # get_best_pixels, K5 and K6 in the converged fit.
+    check_launches(checks, tag, got, {"K1": 1, "K1_transpose": 0, "K2": 0,
+                                      "K3": 2, "K4": 0})
+    if not (got["K5"] and got["K6"]):
+        checks.failed.append(f"{tag}: the converged fit launched no K5/K6")
+    return got
+
+
+def checkpoint_phase(checks, dev):
+    """The 1000² config, tracer seed 1: two ``trace_step``s,
+    ``save_checkpoint`` to a temporary directory, ``load_checkpoint`` with
+    the config and data, ``resume_trace``: bitwise the uninterrupted
+    ``run_trace``; a changed config and an image with one pixel changed
+    raise ``ValueError``. The round trip's times. Returns the launches of
+    the resumed trace."""
+    import tempfile
+    import torch
+    from gaussian_process_edge_trace_torch.trace import checkpoint as pck
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    tag = "checkpoint_1000_S1e4"
+    c = big_config(dev)
+    tracer = c.tracer(1)
+    cfg, data = tracer.cfg, tracer.data
+    full = pd.run_trace(cfg, data, pd.init_state(cfg, dev))
+    state = pd.init_state(cfg, dev)
+    for _ in range(2):
+        state, _ = pd.trace_step(cfg, data, state)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/trace.npz"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pck.save_checkpoint(path, cfg, state, data=data)
+        t1 = time.perf_counter()
+        lcfg, loaded = pck.load_checkpoint(path, expect_cfg=cfg, data=data)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        reset_counts()
+        resumed = pck.resume_trace(lcfg, data, loaded)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        got = read_counts()
+        size = os.path.getsize(path)
+        grad = c.grad.clone()
+        grad[500, 500] += 0.25
+        refused = []
+        for what, kw in (
+                ("config", dict(expect_cfg=cfg._replace(N_samples=9999),
+                                device=dev)),
+                ("image", dict(data=pd.make_data(cfg, grad, tracer.init,
+                                                 dev)))):
+            try:
+                pck.load_checkpoint(path, **kw)
+            except ValueError as exc:
+                refused.append(what)
+                log(f"[{tag}] changed {what} refused: {exc}")
+    same = same_result(resumed, full)
+    log(f"[{tag}] after 2 steps: save {(t1 - t0) * 1e3:.2f} ms "
+        f"({size} bytes), load with config and fingerprint checks "
+        f"{(t2 - t1) * 1e3:.2f} ms, resume to the end {(t3 - t2) * 1e3:.2f} "
+        f"ms; n_iters {resumed.n_iters} (uninterrupted {full.n_iters}); "
+        f"resumed bitwise the uninterrupted run_trace: {same}; launches "
+        f"of the resumed trace {json.dumps(got)}")
+    if not same:
+        checks.failed.append(f"{tag}: resumed trace differs")
+    if refused != ["config", "image"]:
+        checks.failed.append(f"{tag}: refused only {refused}")
+    loops = full.n_iters - 2
+    check_launches(checks, tag, got, {"K1": loops, "K1_transpose": loops,
+                                      "K2": 1, "K3": loops, "K4": 0})
+    if not (got["K5"] and got["K6"]):
+        checks.failed.append(f"{tag}: the final fit launched no K5/K6")
+    return got
+
+
+def sklearn_phase(checks, dev):
+    """A float64 ``GaussianProcessRegressor`` (C·RBF + white noise, all
+    three free, 12 restarts) on the demo trace's accepted pixels (tracer
+    seed 1): ``fit`` and ``predict(return_std=True)`` on the card against
+    the same calls on the CPU, mean and std within relative 1e-9, the LML
+    within 1e-6; the fit's wall time on each. Its Cholesky factors and
+    solves are the library's in float64 (K5/K6 take float32), so it must
+    launch none of K1-K6. Returns its launches."""
+    import torch
+    from gaussian_process_edge_trace_torch.models import sklearn_api as ska
+    from gaussian_process_edge_trace_torch.trace.checkpoint import (
+        obs_from_result)
+    tag = "sklearn_gpr"
+    c = demo_config(dev)
+    obs = obs_from_result(c.trace(1)[2])
+    X, y = obs[:, 0].astype(np.float64), obs[:, 1].astype(np.float64)
+    xq = np.arange(c.E, dtype=np.float64)
+
+    def fit(device):
+        kernel = (ska.ConstantKernel(1.0, (1e-2, 1e3))
+                  * ska.RBF(10.0, (1e-1, 1e3))
+                  + ska.WeightedWhiteKernel(noise_weight=1.0,
+                                            noise_level=0.1,
+                                            noise_level_bounds=(1e-6, 10.0)))
+        gp = ska.GaussianProcessRegressor(kernel=kernel, alpha=1e-6,
+                                          n_restarts_optimizer=12,
+                                          random_state=0, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gp.fit(X, y)
+        torch.cuda.synchronize()
+        return gp, (time.perf_counter() - t0) * 1e3
+    reset_counts()
+    card, card_ms = fit(dev)
+    m_card, s_card = card.predict(xq, return_std=True)
+    got = read_counts()
+    cpu, cpu_ms = fit("cpu")
+    m_cpu, s_cpu = cpu.predict(xq, return_std=True)
+    card_again_ms = fit(dev)[1]
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+    r_mean, r_std = rel(m_card, m_cpu), rel(s_card, s_cpu)
+    r_lml = abs(card.log_marginal_likelihood_value_
+                - cpu.log_marginal_likelihood_value_) / abs(
+                    cpu.log_marginal_likelihood_value_)
+    ok = r_mean <= 1e-9 and r_std <= 1e-9 and r_lml <= 1e-6
+    k = card.kernel_
+    log(f"[{tag}] {len(X)} accepted pixels, float64: fit on the card "
+        f"{card_ms:.1f} ms (again {card_again_ms:.1f} ms), on the CPU "
+        f"{cpu_ms:.1f} ms; c {k.signal.k1.constant_value:.6g}, ℓ "
+        f"{k.signal.k2.length_scale:.6g}, noise {k.noise.noise_level:.6g}; "
+        f"LML card {card.log_marginal_likelihood_value_!r} CPU "
+        f"{cpu.log_marginal_likelihood_value_!r}; max relative difference "
+        f"mean {r_mean:.3e}, std {r_std:.3e} (<= 1e-9), LML {r_lml:.3e} "
+        f"(<= 1e-6) {'ok' if ok else 'FAIL'}; launches {json.dumps(got)}")
+    if not ok:
+        checks.failed.append(f"{tag}: card and CPU differ")
+    if any(got.values()):
+        checks.failed.append(f"{tag}: launched a float32 kernel")
+    return got
 
 
 def _device_us(evt):
@@ -1701,6 +1977,14 @@ def main() -> int:
     paths["multi_edge"] = multi_edge_phase(checks, dev)
     paths["sequence_demo_3"] = sequence_phase(checks, dev)
     paths.update(sharded_phase(checks, dev))
+    # The reference-compatible API.
+    paths["introspective_demo"] = introspective_phase(
+        checks, "introspective_demo", configs["demo"][0])
+    paths["introspective_1000_S1e4"] = introspective_phase(
+        checks, "introspective_1000_S1e4", configs["1000²"][0])
+    paths["per_stage_demo"] = per_stage_phase(checks, dev)
+    paths["checkpoint_1000_S1e4"] = checkpoint_phase(checks, dev)
+    paths["sklearn_gpr"] = sklearn_phase(checks, dev)
     for tag, (cfg, seed) in configs.items():
         profile(checks, tag, cfg, seed)
 

@@ -16,7 +16,7 @@ import torch
 from gaussian_process_edge_trace_torch.models.tracer import GP_Edge_Tracing
 from gaussian_process_edge_trace_torch.utils import (
     comp_grad_img, construct_test_img, kernel_builder, normalise,
-    trace_dicecoef, trace_MSE)
+    trace_dicecoef, trace_MSE, trace_relarea)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -25,5 +25,18 @@ __version__ = "0.1.0"
 
 __all__ = [
     "GP_Edge_Tracing", "kernel_builder", "normalise", "comp_grad_img",
-    "construct_test_img", "trace_MSE", "trace_dicecoef",
+    "construct_test_img", "trace_MSE", "trace_relarea", "trace_dicecoef",
 ]
+
+
+def __getattr__(name):
+    # The reference package's other public names (reference
+    # __init__.py:10-15), imported on first use.
+    if name == "GaussianProcessRegressor":
+        from gaussian_process_edge_trace_torch.models.sklearn_api import (
+            GaussianProcessRegressor)
+        return GaussianProcessRegressor
+    if name == "gpet_utils":
+        from gaussian_process_edge_trace_torch import utils as gpet_utils
+        return gpet_utils
+    raise AttributeError(name)

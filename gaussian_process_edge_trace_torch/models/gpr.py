@@ -151,23 +151,44 @@ def gp_fit(spec: KernelSpec, x, y, length_scale, variance, diag_noise, mask,
     return GPState(L=L, alpha=alpha, x=x, y_mean=y_mean, mask=mask)
 
 
-def gp_predict(spec: KernelSpec, state: GPState, xq, length_scale, variance,
-               return_std=False):
-    """Posterior mean and, with ``return_std``, the std at query points
-    (zero query noise, with the negative-variance clamp)."""
+def _masked_cross(spec, state: GPState, xq, length_scale, variance):
     Kq = cross_gram(spec, xq, state.x, length_scale, variance)
-    Kq = torch.where(state.mask[..., None, :], Kq, torch.zeros_like(Kq))
+    return torch.where(state.mask[..., None, :], Kq, torch.zeros_like(Kq))
+
+
+def _mean(Kq, state: GPState):
     # A row sum, not a matrix-vector product: its bits do not depend on
     # the number of frames.
-    mean = (fixed_sum(Kq * state.alpha[..., None, :])
+    return (fixed_sum(Kq * state.alpha[..., None, :])
             + state.y_mean[..., None])
-    if not return_std:
+
+
+def gp_predict_mean(spec: KernelSpec, state: GPState, xq, length_scale,
+                    variance):
+    """Posterior mean at query points (sklearn_gpr.py:381-385)."""
+    return _mean(_masked_cross(spec, state, xq, length_scale, variance),
+                 state)
+
+
+def gp_predict(spec: KernelSpec, state: GPState, xq, length_scale, variance,
+               return_std=False, return_cov=False):
+    """Posterior mean and, with ``return_std``, the std at query points
+    (zero query noise, with the negative-variance clamp), or with
+    ``return_cov`` the (nq, nq) covariance ``K** − VᵀV`` (gpr.py:107-128;
+    ``return_cov`` wins over ``return_std``, as there)."""
+    Kq = _masked_cross(spec, state, xq, length_scale, variance)
+    mean = _mean(Kq, state)
+    if not (return_std or return_cov):
         return mean
     if _on_card(Kq):
         V = forward_solve_auto(state.L, Kq.transpose(-1, -2).contiguous())
     else:
         V = torch.linalg.solve_triangular(state.L, Kq.transpose(-1, -2),
                                           upper=False)
+    if return_cov:
+        cov = (cross_gram(spec, xq, xq, length_scale, variance)
+               - V.transpose(-1, -2) @ V)
+        return mean, cov
     var = torch.clamp(per_frame(variance, 1) - fixed_sum(V * V, dim=-2),
                       min=0.0)
     return mean, torch.sqrt(var)
@@ -251,6 +272,48 @@ def log_marginal_likelihood(spec: KernelSpec, x, yc, mask, theta,
     d = torch.diagonal(L[0])
     ok = (torch.isfinite(d) & (d > 0)).all()
     return torch.where(ok, val[0], torch.full_like(val[0], -math.inf))
+
+
+def library_lml(spec: KernelSpec, x, yc, mask, thetas, noise_weight,
+                jitter=1e-6, pd_guard=True):
+    """LML of θ = (log c, log ℓ, log σn²) for centred targets through the
+    library's Cholesky and triangular solves (``torch.linalg``), in the
+    dtype of ``thetas`` and differentiable by autograd and ``torch.func``:
+    the JAX package's :func:`log_marginal_likelihood` on its non-TPU path
+    (gpr.py:274-313), which XLA computes outside any Pallas kernel.
+
+    ``thetas`` (..., 3) gives one value per θ. ``yc`` (n,) or (n, m): m
+    target columns share one Gram and their LMLs are summed
+    (sklearn_gpr.py:542-546). With ``pd_guard`` a Gram that is not positive
+    definite gives −inf with a zero gradient (a probe factorisation decides,
+    and the Gram is replaced by the identity there); without it, NaN."""
+    dt = thetas.dtype
+    zero = torch.zeros((), dtype=dt, device=thetas.device)
+    x = x.to(dt)
+    yc = yc.to(dt)
+    if yc.dim() == 1:
+        yc = yc[:, None]
+    yc = torch.where(mask[:, None], yc, zero)
+    c = torch.exp(thetas[..., 0])
+    ls = torch.exp(thetas[..., 1])
+    nz = torch.exp(thetas[..., 2])
+    diag_noise = nz[..., None] * noise_weight.to(dt) + jitter
+    K = train_gram(spec, x, ls, c, diag_noise, mask=mask)
+    L, info = torch.linalg.cholesky_ex(K.detach())
+    ok = (info == 0) & (torch.diagonal(L, dim1=-2, dim2=-1) > 0).all(-1)
+    if pd_guard:
+        eye = torch.eye(K.shape[-1], dtype=dt, device=K.device)
+        K = torch.where(ok[..., None, None], K, eye)
+    L = torch.linalg.cholesky_ex(K).L
+    w = torch.linalg.solve_triangular(L, yc.expand(K.shape[:-1] + (
+        yc.shape[-1],)), upper=False)
+    m = yc.shape[-1]
+    diag = torch.where(mask, torch.diagonal(L, dim1=-2, dim2=-1),
+                       zero + 1.0)
+    lml = (-0.5 * (w * w).sum((-2, -1)) - m * torch.log(diag).sum(-1)
+           - 0.5 * m * mask.sum().to(dt) * math.log(2.0 * math.pi))
+    bad = torch.full_like(lml, -math.inf if pd_guard else math.nan)
+    return torch.where(ok, lml, bad)
 
 
 def batched_lml(spec: KernelSpec, x, yc, mask, thetas, noise_weight,

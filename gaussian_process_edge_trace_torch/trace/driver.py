@@ -46,12 +46,12 @@ import numpy as np
 import torch
 
 from gaussian_process_edge_trace_torch.models.gpr import (
-    batched_lml, fit_and_sample, fixed_sum, gp_fit, gp_predict, masked_mean,
-    masked_std)
+    batched_lml, fit_and_sample, fixed_sum, gp_fit, gp_predict, library_lml,
+    masked_mean, masked_std)
 from gaussian_process_edge_trace_torch.models.kernels import (
     KernelSpec, k_unit_np, per_frame, resolve_kernel_options)
 from gaussian_process_edge_trace_torch.models.newton import (
-    lml_screen_grid, screen_and_polish_batched)
+    lml_screen_grid, screen_and_polish, screen_and_polish_batched)
 from gaussian_process_edge_trace_torch.trace.kde import (
     blur_matrices, curve_kde, gradient_kde)
 from gaussian_process_edge_trace_torch.trace.scoring import (
@@ -68,9 +68,12 @@ _PRIOR_RANK_RTOL = 1e-8
 _DIRECT_FIT_N = 160
 
 # Reads of device values by the host: the loop's active mask (once before
-# the first iteration and once after each) and finish_trace's n_iters and
-# converged.
-HOST_READS = {"active": 0, "finish": 0}
+# the first iteration and once after each), finish_trace's n_iters and
+# converged, and the introspective tracer's reads (:func:`to_host`) of the
+# state (once before the first iteration and once after each) and of each
+# iteration's samples. HOST_BYTES counts the bytes that ``to_host`` copies.
+HOST_READS = {"active": 0, "finish": 0, "state": 0, "samples": 0}
+HOST_BYTES = {"state": 0, "samples": 0}
 
 
 class TracerConfig(NamedTuple):
@@ -420,8 +423,69 @@ class FrameDraws:
         return torch.stack([src.restarts() for src in self.sources])
 
 
+# The slot of a seed's own stream: iterations take slots 1..max_iters <=
+# 1022 and the final fit's restarts slot 0, so this one is never a trace's.
+SEED_SLOT = 2 ** _SLOT_BITS - 1
+
+
+class SeedDraws:
+    """The draws of one unfolded seed: the reference's ``PRNGKey(seed)``
+    taken without a fold, as ``fit_predict_GP(seed=k)`` and
+    ``preview_samples`` take it (models/tracer.py:159, driver.py:719).
+
+    One generator seed, ``(seed·2¹⁶ + SEED_SLOT) mod 2³²``: member 0's slot
+    1023 of tracer seed ``seed`` in :class:`TorchDraws`' layout, which no
+    trace stream uses. ``sample_normals(n)`` gives the sampling round's
+    (z (r, S), w (n, S)) for a training buffer of ``n`` slots, and
+    ``restarts()`` the final fit's (lml_restarts, 3) uniforms, both from
+    that generator seed, as the reference draws both from one key."""
+
+    def __init__(self, cfg: TracerConfig, rank: int, device, seed=0):
+        self.cfg, self.rank = cfg, rank
+        self.device = torch.device(device)
+        self.seed = ((int(seed) << (_MEMBER_BITS + _SLOT_BITS))
+                     + SEED_SLOT) % 2 ** 32
+
+    def _gen(self):
+        g = torch.Generator(device=self.device)
+        g.manual_seed(self.seed)
+        return g
+
+    def sample_normals(self, n: int):
+        g = self._gen()
+        S = self.cfg.N_samples
+        z = torch.randn((self.rank, S), generator=g, device=self.device)
+        w = torch.randn((n, S), generator=g, device=self.device)
+        return z, w
+
+    def restarts(self):
+        return torch.rand((self.cfg.lml_restarts, 3), generator=self._gen(),
+                          device=self.device)
+
+
 def _default_draws(cfg: TracerConfig, data: TracerData) -> TorchDraws:
     return TorchDraws(cfg, data.L_prior_unit.shape[1], data.grad_img.device)
+
+
+def _seed_draws(cfg: TracerConfig, data: TracerData, seed) -> SeedDraws:
+    return SeedDraws(cfg, data.L_prior_unit.shape[1], data.grad_img.device,
+                     seed)
+
+
+def to_host(tree, kind: str):
+    """``tree`` (a tensor, or a NamedTuple of tensors and host values) on
+    the CPU, copied with one wait for the device, counted as one read of
+    ``kind`` in :data:`HOST_READS` and its bytes in :data:`HOST_BYTES`."""
+    one = isinstance(tree, torch.Tensor)
+    items = [tree] if one else list(tree)
+    out = [v.to("cpu", non_blocking=True) if isinstance(v, torch.Tensor)
+           else v for v in items]
+    if any(isinstance(v, torch.Tensor) and v.is_cuda for v in items):
+        torch.cuda.current_stream().synchronize()
+    HOST_READS[kind] += 1
+    HOST_BYTES[kind] += sum(v.numel() * v.element_size() for v in out
+                            if isinstance(v, torch.Tensor))
+    return out[0] if one else type(tree)(*out)
 
 
 def _sample_round(cfg: TracerConfig, data: TracerData, x, y, mask, noise_w,
@@ -534,24 +598,41 @@ def _iteration(cfg: TracerConfig, data: TracerData, state: TraceState, z, w,
 
 
 def optimize_lml(kernel: KernelSpec, xs, ys, mask, noise_w, starts, lb, ub,
-                 jitter=1e-6, n_polish=8, polish_iters=4):
+                 jitter=1e-6, n_polish=8, polish_iters=4, use_batched=True):
     """Maximise the LML over θ = (log c, log ℓ, log σn²) within [lb, ub]
-    (driver.py:467-552, its batched path): one batched screen of the starts
-    and a static grid, then a short damped-Newton polish, every objective
-    batch through :func:`batched_lml` (K5 + K6). Above ``_DIRECT_FIT_N``
-    training points it screens and polishes on a stride-subsampled set,
-    then re-polishes the coarse optimum at full size. ``lb``/``ub`` are host
-    tensors. Returns ``(theta, lml)``.
+    (driver.py:467-552): one batched screen of the starts and a static
+    grid, then a short damped-Newton polish. ``lb``/``ub`` are host tensors.
+    Returns ``(theta, lml)``.
 
-    Frames: (F, n) buffers fit F frames at once, each from ``starts``
-    ((T, 3) shared, or (F, T, 3)), with one objective batch per step for
-    all of them; frames share n, so they all take the same branch."""
+    ``use_batched`` (the default, on the card and on the CPU) sends every
+    objective batch through :func:`batched_lml` (K5 + K6). Above
+    ``_DIRECT_FIT_N`` training points it screens and polishes on a
+    stride-subsampled set, then re-polishes the coarse optimum at full size.
+    ``use_batched=False`` is the JAX package's path off the TPU: one fit,
+    the LML through the library's Cholesky (:func:`library_lml`) and
+    :func:`screen_and_polish` with ``torch.func`` derivatives.
+
+    Frames (batched path only): (F, n) buffers fit F frames at once, each
+    from ``starts`` ((T, 3) shared, or (F, T, 3)), with one objective batch
+    per step for all of them; frames share n, so they all take the same
+    branch."""
     dev = starts.device
     lead = xs.shape[:-1]
     starts = starts.expand(lead + starts.shape[-2:])
     grid = lml_screen_grid(lb, ub, dev)
     allstarts = torch.cat([starts, grid.expand(lead + grid.shape)], dim=-2)
     lb_d, ub_d = lb.to(dev), ub.to(dev)
+    if not use_batched:
+        if lead:
+            raise ValueError("use_batched=False fits one training set")
+
+        def neg_lml(th):
+            # pd_guard=False: the polish sanitises NaN values itself.
+            return -library_lml(kernel, xs, ys, mask, th, noise_w,
+                                jitter=jitter, pd_guard=False)
+        res = screen_and_polish(neg_lml, allstarts, lb_d, ub_d,
+                                n_polish=n_polish, iters=polish_iters)
+        return res.x, -res.f
 
     def fns(xs_, ys_, mask_, nw_):
         def values_fn(th):
@@ -627,6 +708,70 @@ def _final_fit_buffers(cfg: TracerConfig, data: TracerData, restarts_u, x,
     return y_mean, std, y_s, theta, lml
 
 
+def sample_round_buffers(cfg: TracerConfig, data: TracerData, x, y, mask,
+                         noise_w, draws=None, seed=0):
+    """The sampling-mode GP round on explicit padded buffers (driver.py:
+    609-616), behind ``GP_Edge_Tracing.fit_predict_GP(converged=False)``
+    (gpet.py:182-261): (E, S) posterior curves. ``draws`` (a source with
+    ``sample_normals(n)``) defaults to :class:`SeedDraws` of ``seed``."""
+    if draws is None:
+        draws = _seed_draws(cfg, data, seed)
+    z, w = draws.sample_normals(x.shape[-1])
+    return _sample_round(cfg, data, x, y, mask, noise_w, z, w)
+
+
+def final_fit_buffers(cfg: TracerConfig, data: TracerData, x, y, mask,
+                      noise_w, draws=None, seed=0):
+    """The converged LML fit on explicit padded buffers (driver.py:619-628),
+    behind ``GP_Edge_Tracing.fit_predict_GP(converged=True)``
+    (gpet.py:233-266): ``(y_mean, y_std)``, the std in standardised units
+    (the reference's quirk). ``draws`` (a source with ``restarts()``)
+    defaults to :class:`SeedDraws` of ``seed``."""
+    if draws is None:
+        draws = _seed_draws(cfg, data, seed)
+    y_mean, y_std, _, _, _ = _final_fit_buffers(cfg, data, draws.restarts(),
+                                                x, y, mask, noise_w)
+    return y_mean, y_std
+
+
+def preview_samples(cfg: TracerConfig, data: TracerData, state: TraceState,
+                    draws=None):
+    """Curves of the initial posterior (gpet.py:806:
+    ``fit_predict_GP(self.obs, converged=False, seed=0)``): the sampling
+    round on ``state``'s training set, from the literal seed 0 whatever the
+    config's seed (:class:`SeedDraws` of seed 0 by default)."""
+    x, y, mask, noise_w = _train_set(cfg, data, state)
+    return sample_round_buffers(cfg, data, x, y, mask, noise_w,
+                                draws=draws, seed=0)
+
+
+def loop_invariants(cfg: TracerConfig, data: TracerData):
+    """The loop's invariants, built once per trace: the KDE's blur factors
+    (:func:`blur_matrices`) and the selection's constants
+    (:func:`select_consts`)."""
+    dev = data.grad_kde.device
+    return (blur_matrices(cfg.M, cfg.N, data.grad_kde.dtype, dev),
+            select_consts(cfg.bins, cfg.N, cfg.max_decays, dev))
+
+
+def trace_step(cfg: TracerConfig, data: TracerData, state: TraceState,
+               draws=None, invariants=None):
+    """One outer iteration of one trace (driver.py:699-706): ``(state,
+    samples)``, the (E, S) curves it drew. It draws ``draws.normals(it)``
+    (:class:`TorchDraws` by default), so stepping a state to the end of
+    the loop and calling :func:`finish_trace` gives :func:`run_trace`'s
+    result bit for bit. A caller that steps a whole trace builds
+    :func:`loop_invariants` once and passes them."""
+    if not isinstance(state.it, int):
+        raise ValueError("trace_step steps one trace; trace_batch steps "
+                         "frames")
+    if draws is None:
+        draws = _default_draws(cfg, data)
+    blur, consts = invariants or loop_invariants(cfg, data)
+    z, w = draws.normals(state.it)
+    return _iteration(cfg, data, state, z, w, blur=blur, consts=consts)
+
+
 def finish_trace(cfg: TracerConfig, data: TracerData, state: TraceState,
                  draws) -> TraceResult:
     """Post-loop finalisation (gpet.py:874-890): the converged LML fit, the
@@ -693,10 +838,7 @@ def run_loop(cfg: TracerConfig, data: TracerData, state0: TraceState,
         return frame_of(run_loop(cfg, data, _lift(state0), draws, shard), 0)
     if draws is None:
         draws = _default_draws(cfg, data)
-    blur = blur_matrices(cfg.M, cfg.N, data.grad_kde.dtype,
-                         data.grad_kde.device)
-    consts = select_consts(cfg.bins, cfg.N, cfg.max_decays,
-                           data.grad_kde.device)
+    blur, consts = loop_invariants(cfg, data)
     cols = () if shard is None else (shard.cols,)
     state = state0
     active = _active(cfg, state)

@@ -107,8 +107,8 @@ def select_consts(spec: BinSpec, N: int, max_decays: int,
 def select_pixels(kde_arr, grad_kde, obs_x, obs_y, obs_valid, n_pre,
                   score_thresh, spec: BinSpec, fix_endpoints: bool,
                   kde_thresh: float, pixel_thresh: int, algo_thresh: int,
-                  max_decays: int = 400, consts: SelectConsts = None
-                  ) -> Selection:
+                  max_decays: int = 400, consts: SelectConsts = None,
+                  cand_mask=None) -> Selection:
     """One selection round: scores, adaptive threshold, per-bin argmax.
 
     Args:
@@ -120,6 +120,10 @@ def select_pixels(kde_arr, grad_kde, obs_x, obs_y, obs_valid, n_pre,
       n_pre: scalar count of previous observations (gpet.py:561).
       score_thresh: scalar threshold carried from the last iteration.
       consts: :func:`select_consts` for this config (built if omitted).
+      cand_mask: optional (M, N) bool candidate set in place of the one
+        derived from ``kde_arr`` (the reference's ``pixel_idx`` argument of
+        ``compute_new_obs``, gpet.py:532-535; select.py:100,111); the
+        endpoint exclusion is then the caller's.
     """
     M, N = kde_arr.shape[-2:]
     lead = kde_arr.shape[:-2]
@@ -128,7 +132,12 @@ def select_pixels(kde_arr, grad_kde, obs_x, obs_y, obs_valid, n_pre,
         consts = select_consts(spec, N, max_decays, dev)
 
     dense_cand = kde_arr > kde_thresh                      # gpet.py:651
-    cand = dense_cand & consts.col_ok if fix_endpoints else dense_cand
+    if cand_mask is not None:
+        cand = torch.as_tensor(cand_mask, dtype=torch.bool, device=dev)
+    elif fix_endpoints:
+        cand = dense_cand & consts.col_ok
+    else:
+        cand = dense_cand
     # Previous observations still covered by the KDE (gpet.py:571): a bool
     # grid written at each valid (y, x), each frame in its own M·N cells;
     # invalid slots go to a spare cell.

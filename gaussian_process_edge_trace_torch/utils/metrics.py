@@ -1,5 +1,6 @@
-"""Trace-quality metrics (reference: gpet_utils.py:256-313): column-wise MSE
-and the DICE coefficient over binarised under-edge masks.
+"""Trace-quality metrics (reference: gpet_utils.py:256-313): column-wise MSE,
+the relative under-edge area difference and the DICE coefficient over
+binarised under-edge masks.
 
 Port of ``gaussian_process_edge_trace_tpu/utils/metrics.py``. The metrics
 are host-side bookkeeping: they run on the CPU in float64 and return Python
@@ -26,6 +27,20 @@ def trace_MSE(edge_pred, edge_true):
     t = torch.as_tensor(_as_2d(edge_true)[:, 0], dtype=torch.float64)
     N = p.shape[0]
     return float(torch.round((1.0 / N) * ((p - t) ** 2).sum(), decimals=4))
+
+
+def trace_relarea(edge_pred, edge_true):
+    """Relative difference of the areas under the two edges
+    (gpet_utils.py:271-286), rounded to 5 decimals."""
+    p = torch.as_tensor(_as_2d(edge_pred)[:, 0], dtype=torch.float64)
+    t = torch.as_tensor(_as_2d(edge_true)[:, 0], dtype=torch.float64)
+    N = p.shape[0]
+    true_area = (N - t).sum() / N ** 2
+    pred_area = (N - p).sum() / N ** 2
+    # Half to even at the fifth decimal as the reference's compiled
+    # ``jnp.round`` computes it: x·10⁵ rounded, times the reciprocal 1e-5.
+    return float(torch.round(
+        torch.abs((true_area - pred_area) / true_area) * 1e5) * 1e-5)
 
 
 def trace_dicecoef(edge_pred, edge_true, jaccard=False):

@@ -483,9 +483,15 @@ def test_small_batch_trace_on_the_card(dev):
     assert ci.LAUNCHES["fused_cost"] == int(res.n_iters.max())
     assert ck.LAUNCHES["binning_2l"] == int(res.n_iters.max())
     assert ci.LAUNCHES["column_interp"] == 1
-    for f, (_, edge) in enumerate(imgs):
-        assert gpt.trace_dicecoef(res.edge_trace[f].cpu().numpy(),
-                                  edge) > 0.97
+    # The gates lie at the JAX package's own spread on these images
+    # (tests/torch_small_reference.py, tracer seeds 1-30, on a CPU): its
+    # lowest DICE is 0.9593 on image seed 1 and 0.9515 on image seed 2, and
+    # the median of its two frames' DICE at one tracer seed reads 0.98865
+    # over the 30 seeds, with a spread down to 0.9672.
+    dice = [gpt.trace_dicecoef(res.edge_trace[f].cpu().numpy(), edge)
+            for f, (_, edge) in enumerate(imgs)]
+    assert dice[0] > 0.959 and dice[1] > 0.951, dice
+    assert np.median(dice) > 0.967, dice
 
 
 @pytest.mark.parametrize("n", [104, 208])
@@ -600,3 +606,71 @@ def test_sharded_one_by_one_nccl_equals_trace_batch(dev, tmp_path):
     loops = int(want.n_iters.max())
     assert collectives.COLLECTIVES == {"all_gather": loops + 1,
                                        "all_reduce": loops}
+
+
+def _small_tracer(dev, **kw):
+    img, edge = gpt.construct_test_img((64, 96), 40, 2, 0.03, "sinusoidal",
+                                       0.3)
+    grad = gpt.comp_grad_img(img, gpt.kernel_builder((9, 5)), device=dev)
+    init = np.array([[0, edge[0, 0]], [95, edge[95, 0]]])
+    return gpt.GP_Edge_Tracing(init, grad, {"kernel": "RBF", "sigma_f": 20,
+                                            "length_scale": 8}, 1,
+                               np.array([]), 256, 1, 6, 0.1, 4, 1, False,
+                               True, device=dev, **kw)
+
+
+def _same_result(a, b):
+    return all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+               for x, y in zip(a, b))
+
+
+def test_introspective_trace_on_the_card(dev):
+    """``return_lines`` and ``verbose`` on the card: the fused call's result
+    bit for bit, with the same launches of every kernel."""
+    tracer = _small_tracer(dev)
+    counts = (ci.LAUNCHES, cc.LAUNCHES, ck.LAUNCHES)
+    launches = []
+    results = []
+    for kw in ({}, {"return_lines": True}, {"verbose": True}):
+        for c in counts:
+            for k in c:
+                c[k] = 0
+        out = tracer(**kw)
+        torch.cuda.synchronize()
+        launches.append([dict(c) for c in counts])
+        results.append(tracer.last_result)
+        edge = out[0] if kw.get("return_lines") else out
+        if not kw:
+            fused = out
+        np.testing.assert_array_equal(edge, fused)
+    assert launches[1] == launches[0] == launches[2]
+    assert _same_result(results[1], results[0])
+    assert _same_result(results[2], results[0])
+    n = results[0].n_iters
+    _, (samples, obs, curves) = tracer(return_lines=True)
+    assert len(samples) == n + 1 and samples[0].shape == (96, 256)
+    assert len(obs) == n + 2 and len(curves) == n + 1
+
+
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """Two ``trace_step``s on the card, ``save_checkpoint``,
+    ``load_checkpoint`` onto the card and ``resume_trace``: the
+    uninterrupted trace bit for bit; a changed image is refused."""
+    from gaussian_process_edge_trace_torch.trace import checkpoint as pck
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    tracer = _small_tracer(dev)
+    cfg, data = tracer.cfg, tracer.data
+    full = pd.run_trace(cfg, data, pd.init_state(cfg, dev))
+    state = pd.init_state(cfg, dev)
+    for _ in range(2):
+        state, _ = pd.trace_step(cfg, data, state)
+    p = tmp_path / "ckpt.npz"
+    pck.save_checkpoint(p, cfg, state, data=data)
+    lcfg, loaded = pck.load_checkpoint(p, expect_cfg=cfg, data=data)
+    assert loaded.obs_x.device.type == "cuda" and loaded.it == 2
+    assert _same_result(pck.resume_trace(lcfg, data, loaded), full)
+    grad = data.grad_img.clone()
+    grad[10, 20] += 0.25
+    other = pd.make_data(cfg, grad, tracer.init, dev)
+    with pytest.raises(ValueError, match="fingerprint"):
+        pck.load_checkpoint(p, data=other)

@@ -97,3 +97,48 @@ def test_layout_bounds_raise():
     with pytest.raises(ValueError, match="max_iters"):
         pd.TorchDraws(cfg._replace(max_iters=1023), 8, "cpu")
     pd.TorchDraws(cfg._replace(max_iters=1022), 8, "cpu")
+
+
+def _used_streams(cfg, seed, member):
+    """The generator seeds a trace of one tracer seed and member draws:
+    the restarts and iterations 0..max_iters-1."""
+    d = pd.TorchDraws(cfg._replace(seed=seed), 8, "cpu", member=member)
+    return [d.restart_seed()] + [d.iteration_seed(it)
+                                 for it in range(cfg.max_iters)]
+
+
+@pytest.mark.parametrize("max_iters", [48, 1022])
+def test_seed_streams_collide_with_no_trace_stream(max_iters):
+    """``SeedDraws`` (``fit_predict_GP(seed=k)`` and ``preview_samples``,
+    the reference's unfolded ``PRNGKey(k)``) takes slot 1023 of member 0:
+    over every seed below 2¹⁶ its generator seeds are distinct, and none is
+    a stream of any trace (every member, the restarts and every iteration,
+    at the largest ``max_iters`` the layout takes too)."""
+    cfg = _cfg(max_iters=max_iters)
+    seed_streams = {pd.SeedDraws(cfg, 8, "cpu", s).seed
+                    for s in range(2 ** 16)}
+    assert len(seed_streams) == 2 ** 16
+    assert all(k % 2 ** 16 == pd.SEED_SLOT for k in seed_streams)
+    # Trace streams are seed·2¹⁶ plus an offset below 2¹⁶ that depends on
+    # the member and the slot alone (test_layout_is_injective_...), so one
+    # seed's offsets cover every seed's.
+    offsets = {k for m in range(64) for k in _used_streams(cfg, 0, m)}
+    assert pd.SEED_SLOT not in offsets
+    for s in (1, 2, 2 ** 15, 2 ** 16 - 1):
+        assert not seed_streams & set(_used_streams(cfg, s, 0))
+
+
+def test_seed_draws_of_one_seed_repeat_and_differ_from_another():
+    """One seed's draws repeat; another seed's differ; the normals' noise
+    rows follow the buffer's length."""
+    cfg = _cfg()
+    a = pd.SeedDraws(cfg, 8, "cpu", 1)
+    z, w = a.sample_normals(24)
+    assert z.shape == (8, cfg.N_samples) and w.shape == (24, cfg.N_samples)
+    z2, w2 = a.sample_normals(24)
+    assert torch.equal(z, z2) and torch.equal(w, w2)
+    assert torch.equal(a.restarts(), pd.SeedDraws(cfg, 8, "cpu", 1)
+                       .restarts())
+    b = pd.SeedDraws(cfg, 8, "cpu", 2)
+    assert not torch.equal(b.sample_normals(24)[0], z)
+    assert not torch.equal(b.restarts(), a.restarts())

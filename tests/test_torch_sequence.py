@@ -191,9 +191,10 @@ def test_sequence_frames_equal_their_runs_from_the_handoff(sequences):
 def test_sequence_default_draws_and_host_reads(sequences):
     """With its default draws, each frame reads the host once before its
     loop, once after each iteration and once in ``finish_trace``."""
-    pd.HOST_READS.update(active=0, finish=0)
+    pd.HOST_READS.update(active=0, finish=0, state=0, samples=0)
     res = ps.trace_sequence(sequences["pcfg"], torch.tensor(
         sequences["grads"]), sequences["inits"], device="cpu")
     n = sum(r.n_iters for r in res)
-    assert pd.HOST_READS == {"active": n + 3, "finish": 3}
+    assert pd.HOST_READS == {"active": n + 3, "finish": 3, "state": 0,
+                             "samples": 0}
     assert all(r.edge_trace.shape == (64, 2) for r in res)

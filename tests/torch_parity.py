@@ -53,6 +53,30 @@ class JaxDraws:
         return t32(u, self.device)
 
 
+class JaxKeyDraws:
+    """A draw source for the port's buffer entry points
+    (``sample_round_buffers``, ``final_fit_buffers``, ``preview_samples``
+    and ``GP_Edge_Tracing.fit_predict_GP``) that replays one JAX key taken
+    without a fold, as the reference's ``fit_predict_GP(seed=k)`` takes
+    ``PRNGKey(k)`` (models/tracer.py:159, driver.py:719): the sampling
+    round splits it (gpr.py:208,233,238), the final fit draws its restart
+    uniforms from it (driver.py:590)."""
+
+    def __init__(self, cfg, rank, key, device="cpu"):
+        self.cfg, self.rank, self.key, self.device = cfg, rank, key, device
+
+    def sample_normals(self, n):
+        k_prior, k_noise = jax.random.split(self.key)
+        S = self.cfg.N_samples
+        z = jax.random.normal(k_prior, (self.rank, S), jnp.float32)
+        w = jax.random.normal(k_noise, (n, S), jnp.float32)
+        return t32(z, self.device), t32(w, self.device)
+
+    def restarts(self):
+        return t32(jax.random.uniform(self.key, (self.cfg.lml_restarts, 3),
+                                      jnp.float32), self.device)
+
+
 # Fields whose values are selected, not accumulated: equal exactly, as in
 # the JAX package's own batch tests (test_parallel.py:103-104).
 EXACT = ("edge_trace", "n_iters", "converged", "iter_nobs", "iter_thresh",
