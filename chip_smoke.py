@@ -100,7 +100,43 @@ Phases, one line or more each; any failure exits non-zero:
    planned on the global S (k = 2, 4), each shard bitwise the full
    launch's columns and timed beside its share, and K2 + ``line_and_arc``
    at E = 999 over the same shards, bitwise;
-9. one JSON line of kernel results, the card line again, and as the last
+9. the last modules, after every phase above:
+   - ``k4_frames``: K4 over 16 frames at E = S_keep = M = 1000 in one
+     launch, each frame bitwise its single launch and the sequential plain
+     version, timed against 16 single launches; then ``curve_kde(...,
+     use_pallas_binning=True)`` over the frames (one K4 launch) bitwise
+     the per-frame calls;
+   - ``selftest``: ``utils.selftest.run_selftest`` (K1-K6 against their
+     plain versions, K4 over frames) green, with its seconds;
+   - ``cli_trace_demo``: ``python -m gaussian_process_edge_trace_torch
+     trace`` on the README demo image (``.npy``) in a subprocess for seeds
+     1-3, each ``edge_trace`` and interval bitwise the in-process
+     ``GP_Edge_Tracing(...)()`` under the demo DICE gates, the
+     subprocess's wall beside the in-process warm wall;
+     ``cli_batch_demo_B16`` (``batch`` over ``batch_demo_B16``'s frames,
+     each bitwise ``trace_batch``'s) and ``cli_sequence_demo_3`` (``batch
+     --sequence`` over ``sequence_demo_3``'s frames, each bitwise
+     ``trace_sequence``'s); each path's launches from the CLI's ``main``
+     run in this process;
+   - ``denoise_1000``: every technique on the 1000² config's noisy image
+     on the card against the same call on this machine's CPU through the
+     port (``DENOISE_CASES``: bitwise where it only sorts or compares,
+     else within the stated tolerance), its PSNR against the noise-free
+     image (it must rise for tvc, nl, wavelet and tvb) and its time;
+   - ``denoised_trace_1000``: the 1000² config traced from
+     ``comp_grad_img(denoise(img, 'tvc', {}))`` for seeds 1-3 as in phase
+     4, with gates below the JAX package's readings of that pipeline
+     (``DENOISED_GATES``, ``tests/torch_denoised_reference.py``);
+   - ``profiling``: ``device_op_breakdown`` of one demo trace names K1,
+     K3, K5 and K6; ``sync_timer`` of K1 at 1000² within 2x of its
+     ``cuda_ms``; ``trace_telemetry`` of the trace;
+   - ``debug``: ``debug_nans`` raises on a NaN made on the card and is
+     restored after; ``assert_all_finite`` passes the demo result;
+   - ``examples``: each ``python -m
+     gaussian_process_edge_trace_torch.examples.*`` exits 0 (``multichip``
+     on a (1, 1) NCCL mesh; ``demo --plot`` is not run, as it needs
+     matplotlib);
+10. one JSON line of kernel results, the card line again, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -1285,19 +1321,25 @@ SEQUENCE_FRAMES = 3
 SEQUENCE_DICE_GATE = 0.99
 
 
-def sequence_frames(dev):
-    """(gradient images (F, 500, 500) on ``dev``, inits, base edge)."""
-    import torch
+def sequence_images():
+    """(the noisy 500² frames, inits, base edge) of the sequence row."""
     import gaussian_process_edge_trace_torch as gpt
     rngf = np.random.RandomState(0)
     base, edge = gpt.construct_test_img((500, 500), 200, 4, 0.03,
                                         "sinusoidal", 0.3, gaps=False)
+    images = [np.clip(base + rngf.normal(0, 0.02, base.shape), 0, 1)
+              for _ in range(SEQUENCE_FRAMES)]
+    return images, [edge[[0, -1]][:, [1, 0]]] * SEQUENCE_FRAMES, edge
+
+
+def sequence_frames(dev):
+    """(gradient images (F, 500, 500) on ``dev``, inits, base edge)."""
+    import torch
+    import gaussian_process_edge_trace_torch as gpt
+    images, inits, edge = sequence_images()
     kb = gpt.kernel_builder((11, 5), unit=False)
-    grads = torch.stack([
-        gpt.comp_grad_img(np.clip(base + rngf.normal(0, 0.02, base.shape),
-                                  0, 1), kb, device=dev)
-        for _ in range(SEQUENCE_FRAMES)])
-    inits = [edge[[0, -1]][:, [1, 0]]] * SEQUENCE_FRAMES
+    grads = torch.stack([gpt.comp_grad_img(img, kb, device=dev)
+                         for img in images])
     return grads, inits, edge
 
 
@@ -1889,6 +1931,427 @@ def profile(checks, tag, cfg, seed):
         log(line)
 
 
+# --- the last modules: K4's frames, the self-test, the CLI, denoising,
+# --- profiling, debug and the examples -----------------------------------
+
+def k4_frames_phase(checks, dev):
+    """K4 over FRAMES frames at the 1000² kept-curve shape in one launch:
+    every frame bitwise its single launch and the sequential plain version,
+    the launch timed against FRAMES single launches; then ``curve_kde(...,
+    use_pallas_binning=True)`` over the frames (one K4 launch, counted)
+    bitwise the per-frame calls. Returns that call's launches."""
+    import torch
+    from gaussian_process_edge_trace_torch.trace import cuda_kde as ck
+    from gaussian_process_edge_trace_torch.trace.kde import curve_kde
+    rng = np.random.default_rng(4)
+    E = S = M = 1000
+    kept = [kept_curves(rng, E, S, M) for _ in range(FRAMES)]
+    f32 = dict(dtype=torch.float32, device=dev)
+    y = torch.tensor(np.stack([k[0] for k in kept]), **f32)
+    w = torch.tensor(np.stack([k[1] for k in kept]), **f32)
+    frames_case(checks, "K4", "1000² kept curves E=S=M=1000",
+                lambda: (ck.binning_dense_cuda(y, w, M),),
+                lambda f: (ck.binning_dense_cuda(y[f], w[f], M),),
+                work_binning(E, S, M, FRAMES))
+    seq = torch.equal(ck.binning_dense_cuda(y, w, M),
+                      ck.column_binning_sequential(y, w, M))
+    reset_counts()
+    kde = curve_kde(y, w, M, 1000, 0, use_pallas_binning=True)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    same = all(torch.equal(kde[f], curve_kde(y[f], w[f], M, 1000, 0,
+                                             use_pallas_binning=True))
+               for f in range(FRAMES))
+    log(f"[k4_frames] {FRAMES} frames bitwise the sequential plain version: "
+        f"{seq}; curve_kde(use_pallas_binning=True) over the frames: "
+        f"launches {json.dumps(launches)}, each frame bitwise its own call: "
+        f"{same}")
+    if not (seq and same and launches["K4"] == 1):
+        checks.failed.append("k4_frames")
+    return launches
+
+
+def selftest_phase(checks):
+    from gaussian_process_edge_trace_torch.utils.selftest import run_selftest
+    t0 = time.perf_counter()
+    results = run_selftest(lambda line: log(f"[selftest] {line}"))
+    log(f"[selftest] {len(results)} checks green in "
+        f"{time.perf_counter() - t0:.2f} s: "
+        f"{json.dumps({n: round(s, 3) for n, s in results})}")
+
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI_DEMO_FLAGS = ["--sigma-f", "75", "--length-scale", "20", "--n-samples",
+                  "1000", "--delta-x", "5"]
+CLI = "gaussian_process_edge_trace_torch"
+
+
+def run_module(module, args, timeout=600):
+    """``python -m module *args`` in a subprocess from the repository root:
+    (its stdout lines, wall seconds). A nonzero exit raises."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    if done.returncode:
+        raise RuntimeError(f"python -m {module} {' '.join(args)} exited "
+                           f"{done.returncode}:\n{done.stdout[-3000:]}\n"
+                           f"{done.stderr[-3000:]}")
+    return done.stdout.splitlines(), wall
+
+
+def cli_in_process(args):
+    """The CLI's ``main(args)`` in this process, its counts set to 0 before
+    and read after: (launches, its JSON lines)."""
+    import contextlib
+    import io
+
+    import torch
+    from gaussian_process_edge_trace_torch.__main__ import main as cli
+    buf = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(buf):
+        cli(args)
+    torch.cuda.synchronize()
+    return read_counts(), [json.loads(ln) for ln in
+                           buf.getvalue().splitlines()]
+
+
+def init_flags(init):
+    return ["--init", f"{init[0, 0]},{init[0, 1]}",
+            f"{init[1, 0]},{init[1, 1]}"]
+
+
+def check_path_launches(checks, tag, launches, need, absent=("K4",)):
+    log(f"[{tag}] launches {json.dumps(launches)}")
+    for k in need:
+        if launches[k] <= 0:
+            checks.failed.append(f"{tag} did not launch {k}")
+    for k in absent:
+        if launches[k]:
+            checks.failed.append(f"{tag} launched {k}")
+
+
+def cli_trace_phase(checks, dev, tmp):
+    """``python -m gaussian_process_edge_trace_torch trace`` on the README
+    demo image (``.npy``) for seeds 1-3 in a subprocess each: every
+    ``edge_trace`` and interval bitwise the in-process
+    ``GP_Edge_Tracing(...)()``, its JSON line equal, the demo DICE gates;
+    the subprocess's wall (CUDA start-up and the library load included)
+    beside the in-process warm wall. The launches are those of the CLI's
+    ``main`` run in this process for seed 1."""
+    import gaussian_process_edge_trace_torch as gpt
+    tag = "cli_trace_demo"
+    c = demo_config(dev)
+    path = os.path.join(tmp, "demo.npy")
+    np.save(path, c.img)
+    flags = [*init_flags(c.init), *CLI_DEMO_FLAGS]
+    dices = []
+    for seed in DEMO_SEEDS:
+        out = os.path.join(tmp, f"demo_seed{seed}.npz")
+        lines, wall = run_module(CLI, ["trace", path, *flags, "--seed",
+                                       str(seed), "--out", out])
+        line = json.loads(lines[-1])
+        z = np.load(out)
+        edge, cred, res = c.trace(seed)
+        same = (np.array_equal(z["edge_trace"], edge)
+                and np.array_equal(z["cred_lower"], cred[0])
+                and np.array_equal(z["cred_upper"], cred[1])
+                and np.array_equal(z["y_mean"], res.y_mean.cpu().numpy())
+                and line["n_iters"] == res.n_iters
+                and line["lml"] == round(float(res.lml), 3))
+        dice = gpt.trace_dicecoef(z["edge_trace"], c.true_edge[:c.E])
+        dices.append(dice)
+        api_ms, _ = warm_wall(lambda: c.trace(seed))
+        log(f"[{tag}] seed {seed}: n_iters {line['n_iters']} DICE {dice}; "
+            f"bitwise the in-process GP_Edge_Tracing: {same}; subprocess "
+            f"wall {wall * 1e3:.1f} ms (start-up and library load "
+            f"included), its trace {line['wall_s'] * 1e3:.1f} ms; "
+            f"in-process warm wall {api_ms:.2f} ms (median of 3)")
+        if not same:
+            checks.failed.append(f"{tag} seed {seed} differs from the API")
+    median = sorted(dices)[len(dices) // 2]
+    if not (median > 0.985 and min(dices) > 0.97):
+        checks.failed.append(f"{tag} DICE gates")
+    launches, _ = cli_in_process(["trace", path, *flags, "--seed", "1",
+                                  "--out", os.path.join(tmp, "in.npz")])
+    check_path_launches(checks, tag, launches, ("K1", "K2", "K3", "K5",
+                                                "K6"))
+    return launches
+
+
+def cli_batch_phase(checks, dev, tmp):
+    """``batch`` over the 16 frames of ``batch_demo_B16`` (``.npy`` files)
+    in a subprocess: every frame's ``edge_trace`` bitwise
+    ``trace_batch``'s, DICE median > 0.97."""
+    import torch
+    import gaussian_process_edge_trace_torch as gpt
+    from gaussian_process_edge_trace_torch.parallel import (
+        make_batch_data, make_batch_state, trace_batch)
+    tag = "cli_batch_demo_B16"
+    frames = [demo_config(dev, image_seed=i) for i in BATCH_DEMO_IMAGES]
+    d = os.path.join(tmp, "batch")
+    os.makedirs(d)
+    for i, c in enumerate(frames):
+        np.save(os.path.join(d, f"f{i:02d}.npy"), c.img)
+    args = ["batch", os.path.join(d, "*.npy"), *init_flags(frames[0].init),
+            *CLI_DEMO_FLAGS, "--seed", "1"]
+    lines, wall = run_module(CLI, args + ["--out-dir",
+                                          os.path.join(tmp, "batch_out")])
+    rows = [json.loads(ln) for ln in lines]
+    B = len(frames)
+    cfg = frames[0].tracer(1).cfg
+    data = make_batch_data(cfg, torch.stack([c.grad for c in frames]),
+                           np.stack([c.init for c in frames]))
+    want = trace_batch(cfg, data, make_batch_state(cfg, B, dev))
+    edges = want.edge_trace.cpu().numpy()
+    same, dices = [], []
+    for f, row in enumerate(rows[:-1]):
+        got = np.load(row["out"])["edge_trace"]
+        same.append(np.array_equal(got, edges[f])
+                    and row["n_iters"] == int(want.n_iters[f]))
+        dices.append(gpt.trace_dicecoef(got, frames[f].true_edge))
+    median = sorted(dices)[B // 2]
+    log(f"[{tag}] {len(rows) - 1} frames, each bitwise trace_batch's: "
+        f"{all(same)} ({sum(same)} of {B}); DICE median {median} min "
+        f"{min(dices)} (gate median > 0.97); subprocess wall "
+        f"{wall * 1e3:.1f} ms, its batch {rows[-1]['wall_s'] * 1e3:.1f} ms")
+    if len(rows) != B + 1 or not all(same):
+        checks.failed.append(f"{tag} differs from trace_batch")
+    if not median > 0.97:
+        checks.failed.append(f"{tag} DICE gate")
+    launches, _ = cli_in_process(args + ["--out-dir",
+                                         os.path.join(tmp, "batch_in")])
+    check_path_launches(checks, tag, launches, ("K1", "K2", "K3", "K5",
+                                                "K6"))
+    return launches
+
+
+def cli_sequence_phase(checks, dev, tmp):
+    """``batch --sequence`` over ``sequence_demo_3``'s frames in a
+    subprocess: every frame bitwise ``trace_sequence``'s, DICE > 0.99."""
+    import gaussian_process_edge_trace_torch as gpt
+    from gaussian_process_edge_trace_torch.parallel import sharded as ps
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    tag = "cli_sequence_demo_3"
+    images, inits, edge = sequence_images()
+    d = os.path.join(tmp, "sequence")
+    os.makedirs(d)
+    for i, img in enumerate(images):
+        np.save(os.path.join(d, f"f{i}.npy"), img)
+    args = ["batch", os.path.join(d, "*.npy"), "--sequence",
+            *init_flags(inits[0]), *CLI_DEMO_FLAGS, "--seed", "1"]
+    lines, wall = run_module(CLI, args + ["--out-dir",
+                                          os.path.join(tmp, "seq_out")])
+    rows = [json.loads(ln) for ln in lines]
+    grads, _, _ = sequence_frames(dev)
+    cfg = pd.make_config(inits[0], (500, 500), {
+        "kernel": "RBF", "sigma_f": 75, "length_scale": 20}, N_samples=1000,
+        score_thresh=1, delta_x=5, keep_ratio=0.1, pixel_thresh=5, seed=1)
+    want = ps.trace_sequence(cfg, grads, inits)
+    same, dices = [], []
+    for row, r in zip(rows[:-1], want):
+        got = np.load(row["out"])["edge_trace"]
+        same.append(np.array_equal(got, r.edge_trace.cpu().numpy())
+                    and row["n_iters"] == r.n_iters)
+        dices.append(gpt.trace_dicecoef(got, edge))
+    log(f"[{tag}] {len(rows) - 1} frames, each bitwise trace_sequence's: "
+        f"{same}; n_iters {[r['n_iters'] for r in rows[:-1]]}; DICE "
+        f"{dices} (gate > {SEQUENCE_DICE_GATE}); subprocess wall "
+        f"{wall * 1e3:.1f} ms, its sequence {rows[-1]['wall_s'] * 1e3:.1f} ms")
+    if len(rows) != SEQUENCE_FRAMES + 1 or not all(same):
+        checks.failed.append(f"{tag} differs from trace_sequence")
+    if not min(dices) > SEQUENCE_DICE_GATE:
+        checks.failed.append(f"{tag} DICE gate")
+    launches, _ = cli_in_process(args + ["--out-dir",
+                                         os.path.join(tmp, "seq_in")])
+    check_path_launches(checks, tag, launches, ("K1", "K2", "K3", "K5",
+                                                "K6"))
+    return launches
+
+
+# (technique, kwargs, tolerance of the card against the CPU relative to the
+# largest magnitude; 0: bitwise, the filter only sorts or compares). tvc's
+# 100 projections amplify last-bit differences (the library's exp, sqrt
+# and reductions are the same functions, rounded otherwise on the card);
+# tvb's stop reads a mean.
+DENOISE_CASES = (
+    ("gaussian", {}, 1e-5), ("median", {"size": 3}, 0.0),
+    ("median", {"size": 4}, 0.0), ("minimum", {}, 0.0), ("tvc", {}, 5e-4),
+    ("nl", {}, 1e-5),
+    ("wavelet", {"wavelet": "db1"}, 1e-5),
+    ("wavelet", {"wavelet": "db1", "method": "VisuShrink"}, 1e-5),
+    ("wavelet", {"wavelet": "db4"}, 1e-5),
+    ("wavelet", {"wavelet": "db4", "method": "VisuShrink"}, 1e-5),
+    ("wavelet", {"wavelet": "sym8"}, 1e-5),
+    ("wavelet", {"wavelet": "sym8", "method": "VisuShrink"}, 1e-5),
+    ("tvb", {}, 1e-4))
+PSNR_MUST_RISE = ("tvc", "nl", "wavelet", "tvb")
+
+
+def event_ms(fn, runs=3):
+    """Median ms of ``fn`` between two CUDA events after a warm-up call
+    (the host's launches included where the card waits for them)."""
+    import torch
+    fn()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def denoise_phase(checks, dev):
+    """Every technique on the 1000² config's noisy image (image seed 1)
+    on the card against the same call on this machine's CPU through the
+    port, with its tolerance; PSNR against the noise-free image, which must
+    rise over the noisy input's for tvc, nl, wavelet and tvb; each
+    technique's time on the card (``event_ms``) and on the CPU."""
+    import torch
+    import gaussian_process_edge_trace_torch as gpt
+    from gaussian_process_edge_trace_torch.utils import denoise_native as dn
+    tag = "denoise_1000"
+    kw = dict(size=(1000, 1000), amplitude=400, curvature=4,
+              ltype="sinusoidal", intensity=0.3, gaps=True, seed=1)
+    noisy, _ = gpt.construct_test_img(noise_level=0.05, **kw)
+    clean, _ = gpt.construct_test_img(noise_level=0.0, **kw)
+    clean_t = torch.tensor(clean, dtype=torch.float64, device=dev)
+    x_cpu = torch.tensor(noisy, dtype=torch.float32)
+    x = x_cpu.to(dev)
+    base = float(dn.peak_signal_noise_ratio(clean_t, x, data_range=1.0))
+    log(f"[{tag}] noisy input PSNR {base:.4f} dB")
+    for technique, kwargs, tol in DENOISE_CASES:
+        got = gpt.denoise(x, technique, kwargs)
+        t0 = time.perf_counter()
+        cpu = gpt.denoise(x_cpu, technique, kwargs)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        ms = event_ms(lambda: gpt.denoise(x, technique, kwargs))
+        err = ((got.cpu() - cpu).abs().max().item()
+               / cpu.abs().max().item())
+        ok = torch.equal(got.cpu(), cpu) if tol == 0.0 else err <= tol
+        psnr = float(dn.peak_signal_noise_ratio(
+            clean_t, got[:1000, :1000], data_range=1.0))
+        rises = psnr > base
+        log(f"[{tag}] {technique} {json.dumps(kwargs)}: card {ms:.3f} ms, "
+            f"CPU {cpu_ms:.1f} ms; card vs CPU relative error {err:.3e} "
+            f"({'bitwise' if tol == 0.0 else f'tol {tol:g}'}) "
+            f"{'ok' if ok else 'FAIL'}; PSNR {psnr:.4f} dB "
+            f"({'rises' if rises else 'does not rise'})")
+        if not ok:
+            checks.failed.append(f"{tag} {technique} {kwargs}: card vs CPU")
+        if technique in PSNR_MUST_RISE and not rises:
+            checks.failed.append(f"{tag} {technique} {kwargs}: PSNR")
+
+
+# The JAX package's DICE on the denoised 1000² pipeline over tracer seeds
+# 1-12, on a CPU: 0.9853-0.9952, median 0.9927
+# (tests/torch_denoised_reference.py); the gates lie below that spread.
+DENOISED_GATES = (0.985, 0.975)
+
+
+def denoised_trace_phase(checks, dev):
+    """The 1000² S=10⁴ config traced from ``comp_grad_img(denoise(img,
+    'tvc', {}))`` for seeds 1-3 through ``traced``: launches per trace, the
+    gates, a rerun and the warm wall. Returns the summed launches."""
+    import gaussian_process_edge_trace_torch as gpt
+    c = big_config(dev)
+    t0 = time.perf_counter()
+    den = gpt.denoise(c.img, "tvc", {}, device=dev)
+    c.grad = gpt.comp_grad_img(den, gpt.kernel_builder((11, 5), unit=False),
+                               device=dev)
+    log(f"[denoised_trace_1000] denoise + gradient image "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host clock)")
+    return traced(checks, "denoised_trace_1000", c, BIG_SEEDS,
+                  ("K1", "K1_transpose", "K2", "K3", "K5", "K6"), ("K4",),
+                  DENOISED_GATES)
+
+
+def profiling_phase(checks, dev, demo):
+    """``device_op_breakdown`` of one demo trace names K1, K3, K5 and K6;
+    ``sync_timer`` of K1 at 1000² (with its copy) within 2x of
+    ``cuda_ms``; ``trace_telemetry`` of the demo trace."""
+    import torch
+    from gaussian_process_edge_trace_torch.ops import cuda_interp as ci
+    from gaussian_process_edge_trace_torch.utils import profiling as prof
+    tag = "profiling"
+    tracer = demo.tracer(1)
+    rows = prof.device_op_breakdown(tracer, top=400)
+    names = {"K1": ("fused_cost_partial_kernel",),
+             "K3": ("binning_2l_kernel",), "K5": ("batched_chol_kernel",),
+             "K6": ("batched_trsv_kernel", "batched_trsm_kernel")}
+    found = {k: round(sum(ms for ms, n in rows if any(s in n for s in v)),
+                      4) for k, v in names.items()}
+    log(f"[{tag}] device_op_breakdown of one demo trace: {len(rows)} rows; "
+        f"top 5 {[(round(ms, 4), n[:60]) for ms, n in rows[:5]]}; ms by "
+        f"kernel {json.dumps(found)}")
+    if not all(v > 0 for v in found.values()):
+        checks.failed.append(f"{tag}: breakdown lacks one of K1/K3/K5/K6")
+    rng = np.random.default_rng(5)
+    f32 = dict(dtype=torch.float32, device=dev)
+    cols = torch.tensor(rng.random((1000, 1000)), **f32)
+    ys = torch.tensor(curve_samples(rng, 1000, 1000, 10000), **f32)
+
+    def k1():
+        return ci.fused_cost_cuda(cols, ys, 1e-3, with_transpose=True)
+    st_ms = prof.sync_timer(k1) * 1e3
+    g_ms = cuda_ms(k1)
+    ratio = st_ms / g_ms
+    log(f"[{tag}] sync_timer K1 1000² with copy {st_ms:.4f} ms, cuda_ms "
+        f"{g_ms:.4f} ms, ratio {ratio:.3f} (gate 0.5-2)")
+    if not 0.5 <= ratio <= 2.0:
+        checks.failed.append(f"{tag}: sync_timer off cuda_ms by {ratio}")
+    tel = prof.trace_telemetry(tracer.last_result)
+    log(f"[{tag}] trace_telemetry of the demo trace: " + json.dumps(
+        {k: (v.tolist() if hasattr(v, "tolist") else v)
+         for k, v in tel.items()}))
+
+
+def debug_phase(checks, dev, demo):
+    """``debug_nans`` raises on a NaN made on the card and leaves no mode
+    behind; ``assert_all_finite`` passes the demo result."""
+    import torch
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+    from gaussian_process_edge_trace_torch.utils import debug
+    neg = torch.tensor(-1.0, device=dev)
+    raised = False
+    try:
+        with debug.debug_nans():
+            torch.log(neg) / torch.log(neg)
+    except FloatingPointError as e:
+        raised = True
+        log(f"[debug] debug_nans raised on the card: {e}")
+    restored = (_get_current_dispatch_mode() is None
+                and bool(torch.isnan(torch.log(neg) / torch.log(neg))))
+    tracer = demo.tracer(1)
+    tracer()
+    debug.assert_all_finite(tracer.last_result, "demo result")
+    log(f"[debug] raised: {raised}; restored afterwards: {restored}; "
+        f"assert_all_finite passed the demo result")
+    if not (raised and restored):
+        checks.failed.append("debug_nans")
+
+
+EXAMPLES = (("demo", []), ("serving", []), ("sequence", []),
+            ("checkpoint_resume", []), ("multichip", ["--mesh", "1,1"]))
+
+
+def examples_phase(checks):
+    """Each ``python -m gaussian_process_edge_trace_torch.examples.*`` on
+    the card exits 0 (``demo --plot`` needs matplotlib and is not run)."""
+    for name, args in EXAMPLES:
+        lines, wall = run_module(f"{CLI}.examples.{name}", args)
+        log(f"[examples] {name} {' '.join(args)}: exit 0 in {wall:.1f} s; "
+            f"{' | '.join(ln for ln in lines[-4:] if 'W1' not in ln)}")
+
+
 KERNEL_ROWS = {
     "K1": ("fused_curve_cost", "gaussian_process_edge_trace_torch/csrc/"
            "fused_cost_kernel.cu",
@@ -1987,6 +2450,19 @@ def main() -> int:
     paths["sklearn_gpr"] = sklearn_phase(checks, dev)
     for tag, (cfg, seed) in configs.items():
         profile(checks, tag, cfg, seed)
+    # The last modules' phases.
+    import tempfile
+    paths["k4_frames_curve_kde"] = k4_frames_phase(checks, dev)
+    selftest_phase(checks)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["cli_trace_demo"] = cli_trace_phase(checks, dev, tmp)
+        paths["cli_batch_demo_B16"] = cli_batch_phase(checks, dev, tmp)
+        paths["cli_sequence_demo_3"] = cli_sequence_phase(checks, dev, tmp)
+    denoise_phase(checks, dev)
+    paths["denoised_trace_1000"] = denoised_trace_phase(checks, dev)
+    profiling_phase(checks, dev, configs["demo"][0])
+    debug_phase(checks, dev, configs["demo"][0])
+    examples_phase(checks)
 
     rows = []
     for key, (name, source, replaces) in KERNEL_ROWS.items():

@@ -15,17 +15,24 @@ import torch
 
 from gaussian_process_edge_trace_torch.models.tracer import GP_Edge_Tracing
 from gaussian_process_edge_trace_torch.utils import (
-    comp_grad_img, construct_test_img, kernel_builder, normalise,
+    comp_grad_img, construct_test_img, denoise, kernel_builder, normalise,
     trace_dicecoef, trace_MSE, trace_relarea)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+# GPET_DEBUG=1 turns on the NaN check of utils/debug.py at import.
+import os as _os
+
+if _os.environ.get("GPET_DEBUG") == "1":
+    from gaussian_process_edge_trace_torch.utils.debug import enable_debug
+    enable_debug()
+
 __version__ = "0.1.0"
 
 __all__ = [
     "GP_Edge_Tracing", "kernel_builder", "normalise", "comp_grad_img",
-    "construct_test_img", "trace_MSE", "trace_relarea", "trace_dicecoef",
+    "denoise", "construct_test_img", "trace_MSE", "trace_relarea", "trace_dicecoef",
 ]
 
 

@@ -48,6 +48,11 @@
 //   stores are `cols` consecutive floats.
 // - No float atomics: reruns are bitwise equal. The worst case is every
 //   sample in one row: two rows add all S terms, one after another.
+//
+// Frames: y may hold B frames, (B, E, S), with w (B, S) and H (B, M+2, E).
+// The frame is gridDim.y and only offsets the pointers; the plan comes from
+// (E, S, M) alone, so each frame's rows are summed in the order of a
+// single-frame launch, bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -84,6 +89,10 @@ __global__ void binning_dense_kernel(const float* __restrict__ y,
                                      float* __restrict__ H, int E, int S,
                                      int M, int tile) {
   extern __shared__ __align__(16) float smem[];
+  const size_t frame = blockIdx.y;
+  y += frame * E * S;
+  w += frame * S;
+  H += frame * (M + 2) * E;
   const int R = M + 2;
   const int cols = blockDim.x / kColThreads;  // a power of two
   const int g = threadIdx.x / kColThreads;    // the block's column g ...
@@ -248,7 +257,8 @@ extern "C" int gpet_binning_dense_smem(int M, int tile, int cols) {
 
 extern "C" int gpet_binning_dense(const float* y, const float* w, float* H,
                                   int E, int S, int M, int tile, int cols,
-                                  void* stream) {
+                                  int frames, void* stream) {
+  if (frames < 1 || frames > 65535) return (int)cudaErrorInvalidValue;
   const int smem = gpet_binning_dense_smem(M, tile, cols);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -257,7 +267,8 @@ extern "C" int gpet_binning_dense(const float* y, const float* w, float* H,
     if (err != cudaSuccess) return (int)err;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  binning_dense_kernel<<<(E + cols - 1) / cols, cols * kColThreads, smem,
-                         st>>>(y, w, H, E, S, M, tile);
+  binning_dense_kernel<<<dim3((E + cols - 1) / cols, frames),
+                         cols * kColThreads, smem, st>>>(y, w, H, E, S, M,
+                                                         tile);
   return (int)cudaGetLastError();
 }

@@ -194,6 +194,22 @@ def gp_predict(spec: KernelSpec, state: GPState, xq, length_scale, variance,
     return mean, torch.sqrt(var)
 
 
+def prior_grid_cholesky(spec: KernelSpec, grid, length_scale, jitter=1e-6):
+    """A square-root factor F (F Fᵀ = K) of the unit-variance prior Gram
+    over ``grid``, by a symmetric eigendecomposition, ``V·√max(λ, 0)``
+    (gpr.py:131 of the reference package): a noise-free RBF Gram over
+    hundreds of unit-spaced points is rank-deficient in float32, where a
+    Cholesky fails. Public but unused by the trace, which takes its prior
+    factor from ``trace/driver.py::prior_factor``. The eigenvectors' signs
+    are the library's: any F with F Fᵀ = K gives the same sampling
+    distribution."""
+    Kg = cross_gram(spec, grid, grid, length_scale, 1.0)
+    Kg = Kg + jitter * torch.eye(grid.shape[-1], dtype=Kg.dtype,
+                                 device=Kg.device)
+    w, V = torch.linalg.eigh(Kg)
+    return V * torch.sqrt(torch.clamp(w, min=0.0))[..., None, :]
+
+
 def fit_and_sample(spec: KernelSpec, x, y, length_scale, variance, diag_noise,
                    mask, L_prior_unit, x_idx, grid_out, z, w, centre=True,
                    post_scale=1.0):

@@ -15,8 +15,9 @@ reference class's positional constructor signature, defaults and clamps
 The reference's pipeline stages are methods of the tracer
 (gpet.py:182-662), thin wrappers of the functional core with the
 reference's signatures and return shapes. Arrays come back as numpy. The
-plotting options need ``utils/plotting.py``, which the port does not have
-yet; they raise ``NotImplementedError``.
+plotting options and methods (``show_init_post``, ``show_post_iter``,
+``print_final_diagnostics``, :meth:`plot_iter`, :meth:`plot_diagnostics`)
+draw with ``utils/plotting.py`` on the host and need matplotlib.
 """
 
 from __future__ import annotations
@@ -36,16 +37,13 @@ from gaussian_process_edge_trace_torch.trace.checkpoint import (
     obs_from_result)
 from gaussian_process_edge_trace_torch.trace.driver import (
     _default_draws, _round_up, final_fit_buffers, finish_trace, init_state,
-    loop_invariants, make_config, make_data, run_trace, sample_round_buffers,
-    to_host, trace_step)
+    loop_invariants, make_config, make_data, preview_samples, run_trace,
+    sample_round_buffers, to_host, trace_step)
 from gaussian_process_edge_trace_torch.trace.kde import (
     curve_kde, gradient_kde)
 from gaussian_process_edge_trace_torch.trace.scoring import (
     best_curves, curve_costs)
 from gaussian_process_edge_trace_torch.trace.select import select_pixels
-
-_PLOTTING = ("needs utils/plotting.py, which is not ported to the PyTorch "
-             "package yet")
 
 
 def _numpy(t):
@@ -287,13 +285,20 @@ class GP_Edge_Tracing:
         (gpet.py:857)."""
         return self._select(self._kde(best_curves, costs), pre_fobs)
 
-    def plot_iter(self, *args, **kwargs):
-        """Posterior fan chart (gpet.py:666-723)."""
-        raise NotImplementedError(f"plot_iter {_PLOTTING}")
+    def plot_iter(self, y_samples, N_plt_samples, obs):
+        """Posterior fan chart of (E, S) curves (gpet.py:666-723)."""
+        from gaussian_process_edge_trace_torch.utils.plotting import plot_iter
+        return plot_iter(self.x_grid, y_samples, N_plt_samples, obs,
+                         self.init, (self.M, self.N))
 
-    def plot_diagnostics(self, *args, **kwargs):
+    def plot_diagnostics(self, iter_optimal_curves, iter_optimal_costs,
+                         credint=None):
         """Optimal curve per iteration and cost scatter (gpet.py:727-764)."""
-        raise NotImplementedError(f"plot_diagnostics {_PLOTTING}")
+        from gaussian_process_edge_trace_torch.utils.plotting import (
+            plot_diagnostics)
+        return plot_diagnostics(self.grad_img, self.x_grid,
+                                iter_optimal_curves, iter_optimal_costs,
+                                credint)
 
     # -- the trace ---------------------------------------------------------
 
@@ -305,32 +310,38 @@ class GP_Edge_Tracing:
                                 state.obs_valid.numpy()])
         return np.stack([xs[valid], ys[valid]], axis=1).astype(np.int64)
 
-    def _introspect(self, state, draws, verbose):
+    def _introspect(self, state, draws, verbose, show_post_iter):
         """The loop one :func:`trace_step` at a time (gpet.py:829-870):
         the last state, each iteration's (E, S) curves, the observations
         before the first iteration and after each, and each iteration's
-        optimal curve as (E, 2) xy. One read of the state by the host
-        before the first iteration and after each, one of the curves."""
+        optimal curve as (E, 2) xy and its cost. One read of the state by
+        the host before the first iteration and after each, one of the
+        curves. ``show_post_iter`` draws each iteration's fan chart with
+        the observations it started from."""
         cfg, data = self.cfg, self.data
         invariants = loop_invariants(cfg, data)
-        all_samples, all_obs, iter_curves = [], [self.obs], []
+        all_samples, all_obs, iter_curves, iter_costs = [], [self.obs], [], []
         h = to_host(state, "state")
         while int(h.n_fobs) < cfg.algo_thresh and h.it < cfg.max_iters:
             st = time.time()
             if verbose:
                 print("Fitting Gaussian process and computing next set of "
                       "observations...")
+            prev_obs = all_obs[-1]
             state, samples = trace_step(cfg, data, state, draws, invariants)
             all_samples.append(to_host(samples, "samples").numpy())
+            if show_post_iter:
+                self.plot_iter(all_samples[-1], 20, prev_obs)
             h = to_host(state, "state")
             all_obs.append(self._obs_list(h))
             iter_curves.append(np.stack(
                 [self.x_grid, h.iter_curves[h.it - 1].numpy()], axis=1))
+            iter_costs.append(float(h.iter_costs[h.it - 1]))
             if verbose:
                 print(f"Number of observations: {int(h.n_fobs)}")
                 print(f"Iteration {h.it} - Time Elapsed: "
                       f"{round(time.time() - st, 4)}\n\n")
-        return state, all_samples, all_obs, iter_curves
+        return state, all_samples, all_obs, iter_curves, iter_costs
 
     def __call__(self, print_final_diagnostics=False, show_init_post=False,
                  show_post_iter=False, verbose=False, return_lines=False,
@@ -341,12 +352,18 @@ class GP_Edge_Tracing:
         standardised units unless ``reference_quirks=False``
         (gpet.py:876); else with ``return_lines``, ``(edge_trace,
         (all_samples, all_obs, iter_curves))``: each iteration's (E, S)
-        curves and then the final mean, the (n, 2) xy observations before
-        the first iteration, after each and at the end, and each
-        iteration's optimal curve and then the trace, (E, 2) xy.
+        curves (after the initial posterior's, with ``show_init_post``) and
+        then the final mean, the (n, 2) xy observations before the first
+        iteration, after each and at the end, and each iteration's optimal
+        curve and then the trace, (E, 2) xy.
 
-        ``return_lines`` and ``verbose`` step the loop one iteration at a
-        time (the introspective path); the result is the fused path's.
+        ``show_init_post`` draws the initial posterior's curves
+        (:func:`~..trace.driver.preview_samples`), asks whether the kernel
+        will do and returns ``None`` unless the answer starts with "y"
+        (gpet.py:805-812). ``show_post_iter``, ``return_lines`` and
+        ``verbose`` step the loop one iteration at a time (the introspective
+        path); the result is the fused path's. ``print_final_diagnostics``
+        draws each iteration's optimal curve and cost (gpet.py:888-893).
         ``ensemble=K`` traces K seeds at once and keeps the member with the
         lowest final cost (:func:`..parallel.sharded.trace_ensemble`;
         member 0 is the single trace, so K = 1 is the same as ``None``);
@@ -354,17 +371,11 @@ class GP_Edge_Tracing:
         take the constructor's ``draws``, and it excludes the
         introspective options. ``last_result`` is the (chosen) trace's
         result."""
-        plots = {"print_final_diagnostics": print_final_diagnostics,
-                 "show_init_post": show_init_post,
-                 "show_post_iter": show_post_iter}
-        asked = [k for k, v in plots.items() if v]
-        if asked:
-            raise NotImplementedError(f"{', '.join(asked)} {_PLOTTING}")
-        introspective = bool(return_lines or verbose)
+        introspective = bool(show_post_iter or return_lines or verbose)
         if ensemble is not None and introspective:
             raise ValueError("ensemble= is incompatible with the "
-                             "introspective options (return_lines / "
-                             "verbose)")
+                             "introspective options (show_post_iter / "
+                             "return_lines / verbose)")
         K = 1 if ensemble is None else int(ensemble)
         if K < 1:
             raise ValueError(f"ensemble must be >= 1, got {ensemble}")
@@ -374,13 +385,20 @@ class GP_Edge_Tracing:
                              "trace_ensemble instead of draws=")
         cfg, data = self.cfg, self.data
         state = init_state(cfg, self.device, user_obs_xy=self.obs)
+        preview = []
+        if show_init_post:
+            preview.append(_numpy(preview_samples(cfg, data, state)))
+            self.plot_iter(preview[0], 20, self.obs)
+            print("Are you happy with your choice of kernel? y/n")
+            if input().lower()[:1] != "y":
+                return None
         alg_st = time.time()
         if introspective:
             draws = self.draws or _default_draws(cfg, data)
-            state, all_samples, all_obs, iter_curves = self._introspect(
-                state, draws, verbose)
+            state, all_samples, all_obs, iter_curves, iter_costs = \
+                self._introspect(state, draws, verbose, show_post_iter)
             res = finish_trace(cfg, data, state, draws)
-            all_samples.append(_numpy(res.y_mean))
+            all_samples = preview + all_samples + [_numpy(res.y_mean)]
             all_obs.append(obs_from_result(res))
         elif K > 1:
             res = trace_ensemble(cfg, data, state, n_seeds=K)
@@ -391,15 +409,25 @@ class GP_Edge_Tracing:
         n_it = res.n_iters
         self.score_thresh = (float(res.iter_thresh[n_it - 1]) if n_it > 0
                              else float(cfg.score_thresh0))
+        self.last_result = res
+        edge_trace = _numpy(res.edge_trace)
+        cred = _numpy(res.cred_interval)
+        if print_final_diagnostics:
+            if not introspective:
+                curves = _numpy(res.iter_curves[:n_it])
+                iter_curves = [np.stack([self.x_grid, c], axis=1)
+                               for c in curves]
+                iter_costs = [float(c) for c in _numpy(
+                    res.iter_costs[:n_it])]
+            self.plot_diagnostics(
+                iter_curves + [edge_trace[:, [1, 0]]],
+                iter_costs + [float(res.final_cost)], (cred[0], cred[1]))
         if verbose:
             print(f"Time elapsed before algorithm converged: "
                   f"{round(time.time() - alg_st, 3)}")
-        self.last_result = res
-        edge_trace = _numpy(res.edge_trace)
         if self.return_std:
-            cred = _numpy(res.cred_interval)
             return edge_trace, (cred[0], cred[1])
         if return_lines:
-            iter_curves.append(edge_trace[:, [1, 0]])
-            return edge_trace, (all_samples, all_obs, iter_curves)
+            return edge_trace, (all_samples, all_obs,
+                                iter_curves + [edge_trace[:, [1, 0]]])
         return edge_trace

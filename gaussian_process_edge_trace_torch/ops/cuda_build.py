@@ -49,7 +49,7 @@ _SIGNATURES = {
     "gpet_column_interp": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I,
                            _P],
     "gpet_binning_2l": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "gpet_binning_dense": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gpet_binning_dense": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gpet_batched_cholesky": [_P, _P, _I, _I, _P],
     "gpet_batched_trsm": [_P, _P, _P, _I, _I, _I, _I, _P],
     # Shared-memory bytes of one block (not kernels: ints, not cudaError_t).

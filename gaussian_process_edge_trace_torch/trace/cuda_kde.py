@@ -25,10 +25,10 @@ returned as (M+2, E) float32:
   time in sample order, the order K4 keeps; only the tests and
   ``chip_smoke.py`` call it.
 
-K3 and the plain version take a leading frame axis, y (B, E, S) with
-w (B, S), and return (B, M+2, E); one K3 launch serves all frames, and its
-plan depends on (E, S, M) alone, so a frame's output is bitwise that of a
-single-frame launch. K4 takes one frame.
+Every version takes a leading frame axis, y (B, E, S) with w (B, S), and
+returns (B, M+2, E); one K3 or K4 launch serves all frames (the frame is
+gridDim.y), and each plan depends on (E, S, M) alone, so a frame's output is
+bitwise that of a single-frame launch.
 
 The wrappers take CUDA tensors only and raise otherwise; ``LAUNCHES`` counts
 kernel launches. Neither kernel uses float atomics: reruns are bitwise
@@ -108,7 +108,8 @@ def k4_launch_plan(E: int, S: int, M: int):
     samples taken ``tile`` at a time in ``tiles`` steps, and ``smem_bytes``
     of shared memory. The tile is the whole column up to ``_K4_TILE``
     samples; where shared memory does not fit, the columns per block are
-    halved, then the tile. Raises where nothing fits."""
+    halved, then the tile. The plan is that of one frame: B frames take B
+    times the blocks (gridDim.y). Raises where nothing fits."""
     if E < 1 or S < 0 or M < 1:
         raise ValueError(f"binning_dense: no launch for E={E}, S={S}, M={M}")
     tile = max(1, min(S, _K4_TILE))
@@ -154,19 +155,22 @@ def column_binning_sequential(y_curves, weights, M: int):
     (M+2, E) term ``hat·w``, rounded on its own, is added to the running
     sum. K4 adds the same terms in the same order, so for finite weights it
     equals this bit for bit (it skips the terms that are exactly zero,
-    which leave a sum that starts at +0 unchanged). S steps of a few
-    elementwise passes each: for the tests and ``chip_smoke.py`` only."""
-    E, S = y_curves.shape
+    which leave a sum that starts at +0 unchanged). y (E, S) with w (S,),
+    or frames y (B, E, S) with w (B, S), each frame summed on its own.
+    S steps of a few elementwise passes each: for the tests,
+    ``chip_smoke.py`` and the self-test only."""
+    E, S = y_curves.shape[-2:]
     rows = torch.arange(M + 2, dtype=y_curves.dtype,
                         device=y_curves.device)[:, None]
     zero = torch.zeros((), dtype=y_curves.dtype, device=y_curves.device)
-    H = torch.zeros((M + 2, E), dtype=y_curves.dtype, device=y_curves.device)
+    H = torch.zeros(y_curves.shape[:-2] + (M + 2, E), dtype=y_curves.dtype,
+                    device=y_curves.device)
     for s in range(S):
-        y = y_curves[:, s]
-        w = torch.where((y >= 0) & (y <= M - 1), weights[s], zero)
-        hat = torch.clamp(1.0 - torch.abs((y + 1.0)[None, :] - rows),
+        y = y_curves[..., s]                                 # (..., E)
+        w = torch.where((y >= 0) & (y <= M - 1), weights[..., s, None], zero)
+        hat = torch.clamp(1.0 - torch.abs((y + 1.0)[..., None, :] - rows),
                           min=0.0)
-        H = H + hat * w[None, :]
+        H = H + hat * w[..., None, :]
     return H
 
 
@@ -210,17 +214,20 @@ def binning_2l_cuda(y_curves, weights, M: int):
 
 
 def binning_dense_cuda(y_curves, weights, M: int):
-    """K4 on the card, one frame: (M+2, E) float32."""
-    _check("binning_dense", y_curves, weights, M)
-    E, S = y_curves.shape
+    """K4 on the card: (M+2, E) float32, or (B, M+2, E) for B frames in
+    one launch."""
+    _check("binning_dense", y_curves, weights, M, frames=True)
+    E, S = y_curves.shape[-2:]
+    B = y_curves.shape[0] if y_curves.dim() == 3 else 1
     plan = k4_launch_plan(E, S, M)
-    H = torch.empty((M + 2, E), dtype=torch.float32, device=y_curves.device)
+    H = torch.empty(y_curves.shape[:-2] + (M + 2, E), dtype=torch.float32,
+                    device=y_curves.device)
     lib = cuda_build.library()
     with torch.cuda.device(y_curves.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gpet_binning_dense(y_curves.data_ptr(), weights.data_ptr(),
                                     H.data_ptr(), E, S, M, plan["tile"],
-                                    plan["cols"], stream)
+                                    plan["cols"], B, stream)
     cuda_build.check(rc, "binning_dense")
     LAUNCHES["binning_dense"] += 1
     return H
@@ -228,8 +235,8 @@ def binning_dense_cuda(y_curves, weights, M: int):
 
 def column_binning(y_curves, weights, M: int, use_pallas: bool = False):
     """Binned column masses H (M+2, E), or (B, M+2, E) for frames, for the
-    curve KDE (pallas_kde.py:225): K3 for CUDA tensors, K4 (one frame only)
-    with ``use_pallas``, the plain version on the CPU. The reference's
+    curve KDE (pallas_kde.py:225): K3 for CUDA tensors, K4 with
+    ``use_pallas``, the plain version on the CPU. The reference's
     ``_2L_MIN_S`` gate is a TPU crossover and is not carried over: K3 runs
     at every S."""
     if y_curves.device.type == "cpu":

@@ -486,10 +486,26 @@ def test_introspective_options_refuse_an_ensemble():
 
 
 @pytest.mark.parametrize("method", ["plot_iter", "plot_diagnostics"])
-def test_plot_methods_name_the_missing_module(method):
+def test_plot_methods_name_the_missing_module(method, monkeypatch):
+    """The tracer's plotting methods, once refused for want of
+    ``utils/plotting.py``, now build their figure (Agg) from the
+    introspective path's curves and costs, as the JAX tracer's do."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    monkeypatch.setattr(plt, "show", lambda: None)
     _, got, _ = _tracers()
-    with pytest.raises(NotImplementedError, match="utils/plotting.py"):
-        getattr(got, method)()
+    _, (samples, obs, curves) = got(return_lines=True)
+    if method == "plot_iter":
+        fig = got.plot_iter(samples[0], 10, obs[0])
+    else:
+        res = got.last_result
+        costs = list(res.iter_costs[:res.n_iters].numpy()) + [
+            float(res.final_cost)]
+        cred = res.cred_interval_px.numpy()
+        fig = got.plot_diagnostics(curves, costs, (cred[0], cred[1]))
+    assert isinstance(fig, matplotlib.figure.Figure) and fig.axes
+    plt.close("all")
 
 
 # -- the unbatched polish and the aliases ------------------------------------

@@ -1,10 +1,11 @@
 """PyTorch port on the card: each hand-written kernel (K1 with its
 transposed-samples output, K2, K3, K4, K5, K6) against its plain PyTorch
-version on CUDA tensors, K1, K2 and K3 over several frames in one launch
+version on CUDA tensors, K1-K4 over several frames in one launch
 against single-frame launches, the launch plans against the launchers, the
 curve costs over sample shards against the full launch's columns, and the
 small slice traced on the card, at an even and at an odd edge length, as a
-batch of two frames and through a (1, 1) NCCL mesh.
+batch of two frames and through a (1, 1) NCCL mesh; the self-test, the CLI's
+``trace`` against the API and each denoiser against the port's CPU path.
 Every test here carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is false.
 
@@ -460,6 +461,33 @@ def test_binning_2l_frames_equal_single_launches(dev, E, S, M):
         assert torch.equal(H[f], ck.binning_2l_cuda(y[f], w[f], M))
 
 
+@pytest.mark.parametrize("E,S,M", [(37, 33, 129), (300, 1000, 400),
+                                   (700, 200, 700)])
+def test_binning_dense_frames_equal_single_launches(dev, E, S, M):
+    """K4 over 16 frames in one launch: each frame's (M+2, E) masses equal
+    its single-frame launch and the sequential plain version bit for bit,
+    and ``curve_kde(..., use_pallas_binning=True)`` over the frames equals
+    the per-frame calls (both axes past ``_BLUR_MATMUL_MAX``, where the blur
+    is elementwise)."""
+    from gaussian_process_edge_trace_torch.trace.kde import curve_kde
+    kept = [_kept(dev, E, S, M, seed=f) for f in range(16)]
+    y = torch.stack([k[0] for k in kept])
+    w = torch.stack([k[1] for k in kept])
+    n0 = ck.LAUNCHES["binning_dense"]
+    H = ck.binning_dense_cuda(y, w, M)
+    assert ck.LAUNCHES["binning_dense"] == n0 + 1
+    assert H.shape == (16, M + 2, E)
+    assert torch.equal(H, ck.column_binning_sequential(y, w, M))
+    for f in range(16):
+        assert torch.equal(H[f], ck.binning_dense_cuda(y[f], w[f], M))
+    if M < 700:
+        return
+    kde = curve_kde(y, w, M, E + 5, 2, use_pallas_binning=True)
+    for f in range(16):
+        assert torch.equal(kde[f], curve_kde(y[f], w[f], M, E + 5, 2,
+                                             use_pallas_binning=True))
+
+
 def test_small_batch_trace_on_the_card(dev):
     """Two frames of the small slice traced as one batch: K1 and K3 launch
     once per loop iteration for both frames, K2 once for both final costs,
@@ -674,3 +702,66 @@ def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
     other = pd.make_data(cfg, grad, tracer.init, dev)
     with pytest.raises(ValueError, match="fingerprint"):
         pck.load_checkpoint(p, data=other)
+
+
+def test_selftest_is_green_on_the_card(dev):
+    """``run_selftest`` pins K1-K6 (K4 over frames too) on the card."""
+    from gaussian_process_edge_trace_torch.utils.selftest import run_selftest
+    lines = []
+    results = run_selftest(lines.append)
+    assert [name for name, _ in results] == [
+        "fused_cost_vs_plain", "column_interp_vs_plain",
+        "binning_2l_vs_plain", "binning_dense_frames_vs_sequential",
+        "cholesky_and_solves_vs_plain"]
+    assert len(lines) == len(results) and all(s > 0 for _, s in results)
+
+
+def test_cli_trace_on_the_card_equals_the_api(dev, tmp_path, capsys):
+    """``trace`` through the CLI on the card: the ``.npz`` trace and
+    interval bit for bit the in-process ``GP_Edge_Tracing``'s."""
+    from gaussian_process_edge_trace_torch.__main__ import main
+    img, edge = gpt.construct_test_img((64, 96), 40, 2, 0.03, "sinusoidal",
+                                       0.3, seed=1)
+    np.save(tmp_path / "img.npy", img)
+    init = np.array([[0, edge[0, 0]], [95, edge[95, 0]]])
+    main(["trace", str(tmp_path / "img.npy"), "--init",
+          f"0,{init[0, 1]}", f"95,{init[1, 1]}", "--sigma-f", "20",
+          "--length-scale", "8", "--n-samples", "256", "--delta-x", "6",
+          "--pixel-thresh", "4", "--seed", "1", "--out",
+          str(tmp_path / "r.npz")])
+    capsys.readouterr()
+    grad = gpt.comp_grad_img(img, gpt.kernel_builder((11, 5)), device=dev)
+    tracer = gpt.GP_Edge_Tracing(
+        init, grad, {"kernel": "RBF", "sigma_f": 20, "length_scale": 8}, 1,
+        np.zeros((0, 2)), 256, 1, 6, 0.1, 4, 1, True, True, device=dev)
+    edge_pred, (lo, hi) = tracer()
+    z = np.load(tmp_path / "r.npz")
+    np.testing.assert_array_equal(z["edge_trace"], edge_pred)
+    np.testing.assert_array_equal(z["cred_lower"], lo)
+    np.testing.assert_array_equal(z["cred_upper"], hi)
+
+
+@pytest.mark.parametrize("technique,kwargs,rtol", [
+    ("gaussian", {}, 1e-5), ("median", {"size": 4}, 0.0),
+    ("minimum", {"size": 3}, 0.0), ("tvc", {}, 5e-4),
+    ("nl", {"patch_distance": 5}, 1e-5),
+    ("wavelet", {"wavelet": "db4"}, 1e-5),
+    ("wavelet", {"wavelet": "sym8", "method": "VisuShrink"}, 1e-5),
+    ("tvb", {}, 1e-4)])
+def test_denoisers_on_the_card_match_the_cpu(dev, technique, kwargs, rtol):
+    """Each denoiser on the card against the port's CPU path on one noisy
+    image: bitwise where the filter only sorts or compares, else within
+    ``rtol`` of the largest magnitude (reductions and the library's exp
+    round otherwise on the card; tvc amplifies last-bit differences over
+    its 100 projections, tvb's stopping test may fall an iteration apart)."""
+    img, _ = gpt.construct_test_img((200, 150), 60, 2, 0.05, "sinusoidal",
+                                    0.3, gaps=True)
+    cpu = gpt.denoise(torch.tensor(img, dtype=torch.float32), technique,
+                      kwargs)
+    got = gpt.denoise(img, technique, kwargs, device=dev)
+    assert got.device.type == "cuda" and got.shape == cpu.shape
+    if rtol == 0.0:
+        assert torch.equal(got.cpu(), cpu)
+    else:
+        err = (got.cpu() - cpu).abs().max().item() / cpu.abs().max().item()
+        assert err <= rtol

@@ -220,3 +220,28 @@ def test_binning_wrappers_refuse_cpu_tensors():
             fn(t32(y), t32(w), 20)
     with pytest.raises(ValueError, match="expected"):
         ck.binning_2l_cuda(t32(y), t32(w[:-1]), 20)
+
+
+def test_sequential_binning_takes_frames():
+    """The sequential plain version over (B, E, S) frames with (B, S)
+    weights: each frame bitwise its single-frame call, which the GPU tests
+    and the smoke hold K4's frames to."""
+    frames = [_binning_inputs(12, 40, 30, seed=f) for f in range(3)]
+    y = t32(np.stack([f[0] for f in frames]))
+    w = t32(np.stack([f[1] for f in frames]))
+    H = ck.column_binning_sequential(y, w, 30)
+    assert H.shape == (3, 32, 12)
+    for f in range(3):
+        assert torch.equal(H[f], ck.column_binning_sequential(y[f], w[f], 30))
+
+
+def test_binning_dense_wrapper_takes_frames():
+    """K4's wrapper accepts (B, E, S) with (B, S), as K3's does: on CPU
+    tensors it gets past the shape check and refuses the device."""
+    y, w = _binning_inputs(8, 16, 20)
+    yb, wb = t32(np.stack([y, y])), t32(np.stack([w, w]))
+    for fn in (ck.binning_2l_cuda, ck.binning_dense_cuda):
+        with pytest.raises(ValueError, match="not cuda"):
+            fn(yb, wb, 20)
+        with pytest.raises(ValueError, match="B, S"):
+            fn(yb, wb[:, :-1], 20)

@@ -278,15 +278,33 @@ def test_gp_edge_tracing_default_draws_on_cpu():
 
 @pytest.mark.parametrize("option", ["print_final_diagnostics",
                                     "show_init_post", "show_post_iter"])
-def test_unported_call_options_raise(option):
-    """The plotting options wait for ``utils/plotting.py`` (``verbose``
-    and ``return_lines`` are ported: tests/test_torch_api.py)."""
+def test_unported_call_options_raise(option, monkeypatch):
+    """The plotting options, once refused here, now draw (matplotlib,
+    Agg; ``utils/plotting.py``) and raise nothing: the trace they return
+    is the plain call's, bit for bit; ``show_init_post`` goes on after a
+    "y" and draws one more fan chart than it would without."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from gaussian_process_edge_trace_torch.utils import plotting
+    monkeypatch.setattr(plt, "show", lambda: None)
+    monkeypatch.setattr("builtins.input", lambda: "y")
+    drawn = []
+    for name in ("plot_iter", "plot_diagnostics"):
+        fn = getattr(plotting, name)
+        monkeypatch.setattr(plotting, name, lambda *a, _f=fn, _n=name, **k:
+                            drawn.append(_n) or _f(*a, **k))
     _, _, grad, init = small_problem()
     tracer = gpt.GP_Edge_Tracing(init, grad, device="cpu")
-    with pytest.raises(NotImplementedError, match=option):
-        tracer(**{option: True})
-    with pytest.raises(NotImplementedError, match="utils/plotting.py"):
-        tracer(**{option: True})
+    plain = tracer()
+    out = tracer(**{option: True})
+    np.testing.assert_array_equal(out, plain)
+    n = tracer.last_result.n_iters
+    want = {"print_final_diagnostics": ["plot_diagnostics"],
+            "show_init_post": ["plot_iter"],
+            "show_post_iter": ["plot_iter"] * n}[option]
+    assert drawn == want
+    plt.close("all")
 
 
 def test_gp_edge_tracing_ensemble():

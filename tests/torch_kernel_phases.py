@@ -135,7 +135,7 @@ def main() -> int:
     k4 = instrumented("binning_dense_kernel")
     k1[0].gpet_fused_cost.argtypes = [P] * 6 + [I, I, I, F] + [I] * 6 + [P]
     k3[0].gpet_binning_2l.argtypes = [P] * 3 + [I] * 7 + [P]
-    k4[0].gpet_binning_dense.argtypes = [P] * 3 + [I] * 5 + [P]
+    k4[0].gpet_binning_dense.argtypes = [P] * 3 + [I] * 6 + [P]
 
     for E, M, S, transpose in ((1000, 1000, 10000, True),
                                (1000, 1000, 10000, False),
@@ -179,7 +179,7 @@ def main() -> int:
         plan = ck.k4_launch_plan(E, S, M)
         c = phases(k4, lambda: k4[0].gpet_binning_dense(
             y.data_ptr(), w.data_ptr(), H.data_ptr(), E, S, M, plan["tile"],
-            plan["cols"], stream()), plan["blocks"])
+            plan["cols"], 1, stream()), plan["blocks"])
         print(f"[K4] E=S=M=1000 {kind} ({plan['blocks']} blocks of "
               f"{plan['cols']} columns): {c} cycles per block")
     return 0

@@ -299,7 +299,7 @@ def k2_k4(dev, previous):
             def other(cols=cols, Hc=Hc):
                 cuda_build.check(lib.gpet_binning_dense(
                     y.data_ptr(), w.data_ptr(), Hc.data_ptr(), 1000, 1000,
-                    1000, 1000, cols, stream()), "binning_dense")
+                    1000, 1000, cols, 1, stream()), "binning_dense")
                 return Hc
             runs[f"shipped at {cols} columns per block"] = other
         for name, fn in runs.items():
