@@ -15,10 +15,11 @@ Subcommands:
   demo   points to ``python -m gaussian_process_edge_trace_torch.examples.demo``
 
 ``--device`` (``cuda`` by default) says where the trace runs; ``--device
-cpu`` runs the kernels' plain versions. The JAX CLI's
-``--compilation-cache`` has no counterpart: nothing is compiled per call,
-and the kernels build once into ``build/gpet_torch_kernels/``, named by a
-digest of their sources.
+cpu`` runs the kernels' plain versions. ``--compilation-cache DIR`` (before
+the subcommand, as in the JAX CLI) says where the CUDA kernels build once
+and load from, named by a digest of their sources: it sets
+``$GPET_TORCH_BUILD_DIR`` (``ops/cuda_build.py``); by default
+``build/gpet_torch_kernels/`` beside the package.
 """
 
 from __future__ import annotations
@@ -207,11 +208,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="gaussian_process_edge_trace_torch",
         description="Trace edges by Gaussian-process regression on an "
-                    "NVIDIA GPU (or the CPU with --device cpu).",
-        epilog="The JAX CLI's --compilation-cache has no counterpart here: "
-               "nothing is compiled per call, and the CUDA kernels build "
-               "once into build/gpet_torch_kernels/, named by a digest of "
-               "their sources.")
+                    "NVIDIA GPU (or the CPU with --device cpu).")
+    ap.add_argument("--compilation-cache", default=None, metavar="DIR",
+                    help="directory the CUDA kernels build into and load "
+                         "from (sets $GPET_TORCH_BUILD_DIR; default "
+                         "build/gpet_torch_kernels beside the package)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     t = sub.add_parser("trace", help="trace one edge in an image")
@@ -242,6 +243,12 @@ def main(argv=None):
     d.set_defaults(fn=cmd_demo)
 
     args = ap.parse_args(argv)
+    if args.compilation_cache:
+        import os
+
+        from gaussian_process_edge_trace_torch.ops.cuda_build import (
+            BUILD_DIR_ENV)
+        os.environ[BUILD_DIR_ENV] = os.path.abspath(args.compilation_cache)
     args.fn(args)
 
 

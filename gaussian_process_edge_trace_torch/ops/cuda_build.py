@@ -4,9 +4,11 @@ The sources under ``gaussian_process_edge_trace_torch/csrc/`` have a plain C
 interface. At first use they are compiled with ``nvcc`` for Hopper
 (``sm_90a``), one ``nvcc`` process per source, all started together, then
 linked into one shared library that is loaded with :mod:`ctypes`. The library
-lands in ``build/gpet_torch_kernels/`` beside the package and is named by a
-digest of the sources and flags, so an edited source builds anew and an
-unchanged one loads the library already built.
+lands in ``build/gpet_torch_kernels/`` beside the package, or in the
+directory that ``$GPET_TORCH_BUILD_DIR`` names (read at first use; the CLI's
+``--compilation-cache DIR`` sets it), and is named by a digest of the
+sources and flags, so an edited source builds anew and an unchanged one
+loads the library already built.
 
 Nothing here runs at import: the CPU tests import every module, and a
 machine without a GPU has no ``nvcc``.
@@ -28,6 +30,7 @@ import torch
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "gpet_torch_kernels"
+BUILD_DIR_ENV = "GPET_TORCH_BUILD_DIR"
 
 # The card the kernels are planned for (H100 SXM): streaming multiprocessors,
 # the shared memory one block can use, and that of one SM, of which every
@@ -88,19 +91,28 @@ def _digest(files) -> str:
     return h.hexdigest()[:16]
 
 
+def build_dir() -> Path:
+    """The directory the kernels build into and load from:
+    ``$GPET_TORCH_BUILD_DIR`` where it is set, else :data:`BUILD_DIR`."""
+    env = os.environ.get(BUILD_DIR_ENV)
+    return Path(env).expanduser().resolve() if env else BUILD_DIR
+
+
 def build() -> Path:
-    """Compile the sources into the shared library, unless it is built.
-    Returns the library's path. Compiler output goes to ``build.log``."""
+    """Compile the sources into the shared library in :func:`build_dir`,
+    unless it is built there. Returns the library's path. Compiler output
+    goes to ``build.log``."""
     global build_seconds
+    where = build_dir()
     cu, cuh = _sources()
-    lib_path = BUILD_DIR / f"libgpet_kernels_{_digest(cu + cuh)}.so"
+    lib_path = where / f"libgpet_kernels_{_digest(cu + cuh)}.so"
     if lib_path.exists():
         return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    where.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
     tag = f"{os.getpid()}"
-    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in cu]
+    objs = [where / f"{src.stem}.{tag}.o" for src in cu]
     procs = [subprocess.Popen(
         [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", str(src), "-o",
          str(obj)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -108,11 +120,11 @@ def build() -> Path:
     logs = []
     failed = []
     for src, p in zip(cu, procs):
-        out, _ = p.communicate()
-        logs.append(f"== {src.name} (rc {p.returncode})\n{out}")
+        output, _ = p.communicate()
+        logs.append(f"== {src.name} (rc {p.returncode})\n{output}")
         if p.returncode != 0:
             failed.append(src.name)
-    tmp = BUILD_DIR / f"{lib_path.name}.{tag}.tmp"
+    tmp = where / f"{lib_path.name}.{tag}.tmp"
     if not failed:
         link = subprocess.run(
             [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
@@ -120,13 +132,13 @@ def build() -> Path:
         logs.append(f"== link (rc {link.returncode})\n{link.stdout}")
         if link.returncode != 0:
             failed.append("link")
-    (BUILD_DIR / "build.log").write_text("\n".join(logs))
+    (where / "build.log").write_text("\n".join(logs))
     for obj in objs:
         obj.unlink(missing_ok=True)
     if failed:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {failed}; see "
-                           f"{BUILD_DIR / 'build.log'}:\n" + "\n".join(logs))
+                           f"{where / 'build.log'}:\n" + "\n".join(logs))
     os.replace(tmp, lib_path)
     build_seconds = time.perf_counter() - t0
     return lib_path

@@ -15,7 +15,8 @@ fits one block's shared memory in both kernels, so the 1000² config's
 n = 208 runs direct); :func:`cholesky_auto`, :func:`forward_solve_auto` and
 :func:`backward_solve_auto` run a blocked right-looking orchestration above
 that (pallas_chol.py:334-410): panels through the kernels, trailing updates
-as batched ``torch.matmul``, as the reference leaves them to XLA. On the
+as batched ``torch.matmul`` (as the reference leaves them to XLA), on the
+card one per frame, so a frame's factor does not depend on the batch. On the
 CPU the plain versions run whole only up to ``_CPU_DIRECT_N`` = 160 and
 blocked above it: run whole at n = 176, the CPU parity test of the
 coarse-to-fine fit moves one column of the integer trace against the JAX
@@ -23,7 +24,9 @@ package (:func:`runs_direct`).
 
 Extra leading axes flatten into the batch. Each wrapper takes its plain
 version only for tensors on the CPU; for CUDA tensors it launches the kernel
-or raises. ``LAUNCHES`` counts kernel launches.
+or raises. ``LAUNCHES`` counts kernel launches; ``BLOCKED`` counts the calls
+that took the blocked orchestration, each of which launches its kernel once
+per panel.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 from gaussian_process_edge_trace_torch.ops import cuda_build
 
 LAUNCHES = {"cholesky": 0, "trsm": 0}
+BLOCKED = {"cholesky": 0, "forward": 0, "backward": 0}
 
 _PANEL = 128        # panel width of the blocked orchestration
 _CPU_DIRECT_N = 160  # largest n the plain versions take whole on the CPU
@@ -206,6 +210,17 @@ def batched_backward_solve(L, R):
 
 # --- blocked orchestration above the direct limit ----------------------------
 
+def _product(a, b):
+    """``a @ b`` for the blocked orchestration's trailing updates, (F, ...)
+    batches of matrices: on the card one batched product per leading frame,
+    each as a single trace (F = 1) forms it, since cuBLAS chooses its
+    kernel, and so its order of operations, by the batch size; one product
+    on the CPU (as ``models/gpr.py::frame_by_frame``)."""
+    if a.device.type != "cuda" or a.dim() < 3 or a.shape[0] == 1:
+        return a @ b
+    return torch.cat([a[f:f + 1] @ b[f:f + 1] for f in range(a.shape[0])])
+
+
 def cholesky_auto(K):
     """Batched lower Cholesky for any n: the direct kernel up to
     ``_DIRECT_N``, blocked panels above it (see :func:`runs_direct`)."""
@@ -215,18 +230,21 @@ def cholesky_auto(K):
 
 
 def _cholesky_blocked(K):
+    BLOCKED["cholesky"] += 1
     n = K.shape[-1]
     L = torch.zeros_like(K)
     off = 0
     while off < n:
         w = min(_PANEL, n - off)
         Lrow = L[..., off:off + w, :off]
-        D = K[..., off:off + w, off:off + w] - Lrow @ Lrow.transpose(-1, -2)
+        D = (K[..., off:off + w, off:off + w]
+             - _product(Lrow, Lrow.transpose(-1, -2)))
         Lkk = batched_cholesky(D.contiguous())
         L[..., off:off + w, off:off + w] = Lkk
         if off + w < n:
             Lbelow = L[..., off + w:, :off]
-            R = K[..., off + w:, off:off + w] - Lbelow @ Lrow.transpose(-1, -2)
+            R = (K[..., off + w:, off:off + w]
+                 - _product(Lbelow, Lrow.transpose(-1, -2)))
             # Solve X Lkkᵀ = R  ⇔  Lkk Xᵀ = Rᵀ.
             Xt = batched_forward_solve(Lkk, R.transpose(-1, -2).contiguous())
             L[..., off + w:, off:off + w] = Xt.transpose(-1, -2)
@@ -239,12 +257,13 @@ def forward_solve_auto(L, R):
     n = R.shape[-2]
     if runs_direct(n, R.device):
         return batched_forward_solve(L, R)
+    BLOCKED["forward"] += 1
     Z = torch.zeros_like(R)
     off = 0
     while off < n:
         w = min(_PANEL, n - off)
         Lrow = L[..., off:off + w, :off]
-        rhs = R[..., off:off + w, :] - Lrow @ Z[..., :off, :]
+        rhs = R[..., off:off + w, :] - _product(Lrow, Z[..., :off, :])
         Z[..., off:off + w, :] = batched_forward_solve(
             L[..., off:off + w, off:off + w].contiguous(), rhs.contiguous())
         off += w
@@ -256,12 +275,13 @@ def backward_solve_auto(L, R):
     n = R.shape[-2]
     if runs_direct(n, R.device):
         return batched_backward_solve(L, R)
+    BLOCKED["backward"] += 1
     Z = torch.zeros_like(R)
     for off in reversed(range(0, n, _PANEL)):
         w = min(_PANEL, n - off)
         Lcol = L[..., off + w:, off:off + w]
         rhs = (R[..., off:off + w, :]
-               - Lcol.transpose(-1, -2) @ Z[..., off + w:, :])
+               - _product(Lcol.transpose(-1, -2), Z[..., off + w:, :]))
         Z[..., off:off + w, :] = batched_backward_solve(
             L[..., off:off + w, off:off + w].contiguous(), rhs.contiguous())
     return Z

@@ -34,17 +34,11 @@ from gaussian_process_edge_trace_torch.ops.collectives import (
     SampleShard, all_gather_stack)
 from gaussian_process_edge_trace_torch.trace.driver import (
     FrameDraws, TorchDraws, TraceResult, TracerConfig, TracerData,
-    TraceState, _round_up, frame_arrays, frame_of, init_state, prior_factor,
-    run_trace)
+    TraceState, _device_at, _round_up, frame_arrays, frame_of, init_state,
+    prior_factor, resolve_device, run_trace)
 
 DATA_AXIS = "data"
 SAMPLE_AXIS = "sample"
-
-
-def _device(x, device):
-    if device is not None:
-        return torch.device(device)
-    return x.device if isinstance(x, torch.Tensor) else torch.device("cuda")
 
 
 def _shared_leaves(cfg: TracerConfig, device):
@@ -60,7 +54,7 @@ def make_batch_data(cfg: TracerConfig, grad_imgs, inits,
     grid are shared. ``grad_imgs`` (B, M, N) and ``inits`` (B, n, 2) in
     xy-space; ``device`` defaults to that of a tensor input, else the
     card."""
-    device = _device(grad_imgs, device)
+    device = resolve_device(device, grad_imgs)
     per = [frame_arrays(cfg, g, i, device) for g, i in zip(grad_imgs, inits)]
     g, gkde, gcols, ix, iy = (torch.stack(leaf) for leaf in zip(*per))
     L_unit, x_grid = _shared_leaves(cfg, device)
@@ -69,12 +63,17 @@ def make_batch_data(cfg: TracerConfig, grad_imgs, inits,
                       init_y=iy)
 
 
-def make_batch_state(cfg: TracerConfig, n_frames: int, device,
-                     user_obs_xy=None) -> TraceState:
+@_device_at(2)
+def make_batch_state(cfg: TracerConfig, n_frames: int, user_obs_xy=None,
+                     device=None) -> TraceState:
     """Initial states of ``n_frames`` traces (sharded.py:170), stacked;
-    ``user_obs_xy`` is None or an (F, U, 2) warm-start array."""
-    states = [init_state(cfg, device, None if user_obs_xy is None
-                         else user_obs_xy[f]) for f in range(n_frames)]
+    ``user_obs_xy`` is None or an (F, U, 2) warm-start array. ``device``
+    defaults to that of a tensor input, else the card; the port's earlier
+    form ``make_batch_state(cfg, n_frames, device, ...)`` still works."""
+    device = resolve_device(device, user_obs_xy)
+    states = [init_state(cfg, None if user_obs_xy is None
+                         else user_obs_xy[f], device=device)
+              for f in range(n_frames)]
     return TraceState(*(
         torch.zeros(n_frames, dtype=torch.int64, device=device)
         if k == "it" else torch.stack([getattr(s, k) for s in states])
@@ -102,11 +101,12 @@ def trace_ensemble(cfg: TracerConfig, data: TracerData, state0: TraceState,
     lowest ``final_cost`` is kept; a NaN cost counts as +inf.
 
     ``draws``: one draw source per member. By default member k is
-    :class:`TorchDraws` with ``member=k``, whose streams take the generator
-    seeds ``seed·2¹⁶ + k·2¹⁰ + t``: member 0 draws what the single trace
-    draws, and no two members' streams, nor those of another tracer seed's
-    members, share a seed (the JAX package's member key ``seed + k`` would
-    make member k of one seed member 0 of seed + k). At most 64 members.
+    :class:`TorchDraws` with ``member=k``: member 0 draws what the single
+    trace draws, and no two members' streams, nor those of another tracer
+    seed's members, share a generator seed (the JAX package's member key
+    ``seed + k`` would make member k of one seed member 0 of seed + k).
+    On the card any number of members below 2¹⁶; on the CPU, whose
+    generator keeps 32 bits of a seed, at most 64 (more raise).
     Returns the chosen member as one trace's :class:`TraceResult`, or with
     ``return_all`` the pair ``(chosen, all)``, ``all`` with a leading
     member axis."""
@@ -156,7 +156,7 @@ def trace_multi_edge(cfg: TracerConfig, grad_img, inits, user_obs_xy=None,
       inits: (F, n_inits, 2) per-edge init points in xy-space.
       user_obs_xy: optional (F, U, 2) warm-start observations.
     """
-    device = _device(grad_img, device)
+    device = resolve_device(device, grad_img)
     ix, iy = _sorted_edge_inits(inits, device)
     g, gkde, gcols, _, _ = frame_arrays(cfg, grad_img, np.asarray(inits)[0],
                                         device)
@@ -164,7 +164,7 @@ def trace_multi_edge(cfg: TracerConfig, grad_img, inits, user_obs_xy=None,
     data = TracerData(grad_img=g, grad_kde=gkde, grad_cols=gcols,
                       L_prior_unit=L_unit, x_grid=x_grid, init_x=ix,
                       init_y=iy)
-    states = make_batch_state(cfg, ix.shape[0], device, user_obs_xy)
+    states = make_batch_state(cfg, ix.shape[0], user_obs_xy, device=device)
     return run_trace(cfg, data, states, draws)
 
 
@@ -223,7 +223,7 @@ def trace_sequence(cfg: TracerConfig, grad_imgs, inits, device=None,
 
     Returns a list of one :class:`TraceResult` per frame.
     """
-    device = _device(grad_imgs, device)
+    device = resolve_device(device, grad_imgs)
     if isinstance(grad_imgs, torch.Tensor):
         grads = grad_imgs.to(device=device, dtype=torch.float32)
     else:
@@ -240,11 +240,12 @@ def trace_sequence(cfg: TracerConfig, grad_imgs, inits, device=None,
                           L_prior_unit=L_unit, x_grid=x_grid, init_x=ix,
                           init_y=iy)
         if f == 0:
-            state = init_state(c, device)
+            state = init_state(c, device=device)
         else:
             prev = results[-1]
-            state = init_state(c, device, *_compact_warm_obs(
-                prev.obs_x, prev.obs_y, prev.obs_valid, c.n_user_obs))
+            state = init_state(c, *_compact_warm_obs(
+                prev.obs_x, prev.obs_y, prev.obs_valid, c.n_user_obs),
+                device=device)
         src = (TorchDraws(c, L_unit.shape[1], device) if draws is None
                else draws(c))
         results.append(run_trace(c, data, state, src))

@@ -213,10 +213,43 @@ def make_config(init, grad_img_shape, kernel_options=(1, 3, 3), noise_y=1,
         legacy_simpson=bool(legacy_simpson))
 
 
-def frame_arrays(cfg: TracerConfig, grad_img, init_xy, device):
+def resolve_device(device, *inputs) -> torch.device:
+    """``device`` if given, else the device of the first tensor among
+    ``inputs``, else the card: where an entry point runs when the caller
+    does not say."""
+    if device is not None:
+        return torch.device(device)
+    for x in inputs:
+        if isinstance(x, torch.Tensor):
+            return x.device
+    return torch.device("cuda")
+
+
+def _device_at(pos: int):
+    """Accept the port's earlier form of a constructor, which took the
+    device as positional argument ``pos``, where the reference has its
+    optional arguments: a ``str`` or ``torch.device`` there is the device,
+    and the arguments after it move up one place. Anything else there (an
+    array, a tensor, None) is the reference's argument."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if len(args) > pos and isinstance(args[pos], (str, torch.device)):
+                if "device" in kwargs:
+                    raise TypeError(f"{fn.__name__}() got two devices")
+                kwargs["device"] = args[pos]
+                args = args[:pos] + args[pos + 1:]
+            return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def frame_arrays(cfg: TracerConfig, grad_img, init_xy, device=None):
     """Per-frame tensors (gpet.py:97,127): normalised gradient image, its
     KDE, the (E, M) gradient columns along the x grid and the init points
-    sorted by x."""
+    sorted by x. ``device`` defaults to that of a tensor input, else the
+    card."""
+    device = resolve_device(device, grad_img, init_xy)
     g = normalise(grad_img, (0, 1), device=device)
     gkde = gradient_kde(g, kde_thresh=cfg.kde_thresh)
     gcols = g.T[cfg.x_st:cfg.x_st + cfg.edge_length].contiguous()
@@ -259,8 +292,11 @@ def prior_factor(cfg: TracerConfig) -> np.ndarray:
                             full)
 
 
-def make_data(cfg: TracerConfig, grad_img, init_xy, device) -> TracerData:
-    """Precompute the per-image tensors (gpet.py:97,122-127) on ``device``."""
+def make_data(cfg: TracerConfig, grad_img, init_xy,
+              device=None) -> TracerData:
+    """Precompute the per-image tensors (gpet.py:97,122-127) on ``device``,
+    by default that of a tensor input, else the card."""
+    device = resolve_device(device, grad_img, init_xy)
     g, gkde, gcols, ix, iy = frame_arrays(cfg, grad_img, init_xy, device)
     return TracerData(
         grad_img=g, grad_kde=gkde, grad_cols=gcols,
@@ -269,14 +305,17 @@ def make_data(cfg: TracerConfig, grad_img, init_xy, device) -> TracerData:
         init_x=ix, init_y=iy)
 
 
-def init_state(cfg: TracerConfig, device, user_obs_xy=None,
-               user_obs_valid=None) -> TraceState:
+@_device_at(1)
+def init_state(cfg: TracerConfig, user_obs_xy=None, user_obs_valid=None,
+               device=None) -> TraceState:
     """Initial loop state; ``user_obs_xy`` is the (U, 2) xy warm-start
     observation array (gpet.py:57-61,820). ``user_obs_valid`` optionally
     masks padded warm-start slots (driver.py:294-322 of the reference), and
     ``n_fobs`` then counts the valid ones. Tensors stay on the device: a
     sequence hands one frame's observations to the next without a host
-    copy."""
+    copy. ``device`` defaults to that of a tensor input, else the card;
+    the port's earlier form ``init_state(cfg, device, ...)`` still works."""
+    device = resolve_device(device, user_obs_xy, user_obs_valid)
     B = cfg.bins.n_bins
     U = cfg.n_user_obs
     if user_obs_xy is None:
@@ -339,10 +378,65 @@ def _train_set(cfg: TracerConfig, data: TracerData, state: TraceState):
     return x, y, mask, noise_w
 
 
-# The default draw layout: a generator seed packs (tracer seed, ensemble
-# member, stream slot) into 32 bits, the bits the CPU generator keeps.
+# The default draw layout. A stream is (tracer seed s, ensemble member m,
+# slot t): t = it + 1 for the normals of iteration it (the reference's
+# ``fold_in(key, it+1)``, gpet.py:839), 0 for the final fit's restarts, and
+# the last slot of a packing for :class:`SeedDraws`. Streams with
+# 0 <= s < 2¹⁶, 0 <= m < 64 and t < 1024 take the 32-bit generator seed
+# s·2¹⁶ + m·2¹⁰ + t, within the bits the CPU generator keeps of a seed
+# (seeds 2³² apart give it the same normals). Any other stream takes the
+# 64-bit seed (s + 1)·2³² + m·2¹⁶ + t, for s < 2³¹, m < 2¹⁶ and t < 2¹⁶,
+# which only a generator that keeps all 64 bits tells apart: the card's
+# Philox. Each packing is injective, and the second lies at 2³² and above,
+# so no two streams share a generator seed.
 _MEMBER_BITS = 6
 _SLOT_BITS = 10
+_WIDE_BITS = 16
+
+# SeedDraws' slot in each packing: iterations take slots 1..max_iters below
+# it and the restarts slot 0, so it is never a trace's.
+SEED_SLOT = 2 ** _SLOT_BITS - 1
+WIDE_SEED_SLOT = 2 ** _WIDE_BITS - 1
+
+
+def _stream_seed(s: int, m: int, t: int, seed_slot: bool = False) -> int:
+    """The generator seed of stream (s, m, t): the 32-bit packing where the
+    stream fits it, else the 64-bit one. Trace streams take slots below
+    ``SEED_SLOT`` in the first; ``seed_slot`` asks for SeedDraws' slot."""
+    narrow = (s < 2 ** (32 - _MEMBER_BITS - _SLOT_BITS)
+              and m < 2 ** _MEMBER_BITS and t < SEED_SLOT)
+    if seed_slot:
+        t = SEED_SLOT if narrow else WIDE_SEED_SLOT
+    if narrow:
+        return (s << (_MEMBER_BITS + _SLOT_BITS)) + (m << _SLOT_BITS) + t
+    return ((s + 1) << 32) + (m << _WIDE_BITS) + t
+
+
+def _check_streams(device, s: int, m: int, last_slot: int):
+    """Raise unless the streams (s, m, 0..last_slot) each have a generator
+    seed of their own on ``device``: within the 64-bit packing's limits, and
+    within the 32-bit one's where the generator keeps only 32 bits of a
+    seed (every generator but the card's)."""
+    if not 0 <= s < 2 ** 31:
+        raise ValueError(f"tracer seed {s} outside [0, 2**31)")
+    if not 0 <= m < 2 ** _WIDE_BITS:
+        raise ValueError(f"member {m} outside [0, 2**{_WIDE_BITS})")
+    if last_slot >= WIDE_SEED_SLOT:
+        raise ValueError(f"max_iters {last_slot} above "
+                         f"{WIDE_SEED_SLOT - 1}, the layout's slot limit")
+    if torch.device(device).type == "cuda":
+        return
+    over = [msg for bad, msg in (
+        (s >= 2 ** 16, f"tracer seed {s} outside [0, 2**16)"),
+        (m >= 2 ** _MEMBER_BITS, f"member {m} outside [0, 64)"),
+        (last_slot >= SEED_SLOT, f"max_iters {last_slot} above "
+                                 f"{SEED_SLOT - 1}")) if bad]
+    if over:
+        raise ValueError(
+            f"{'; '.join(over)}: the generator on "
+            f"{torch.device(device)} keeps 32 bits of a seed, and these "
+            f"streams would share their normals with others (the card's "
+            f"generator takes them)")
 
 
 class TorchDraws:
@@ -352,13 +446,16 @@ class TorchDraws:
     Tracer seed ``s``, ensemble member ``m`` and slot ``t`` (``it + 1`` for
     the normals of iteration ``it``, the reference's ``fold_in(key,
     it+1)``, gpet.py:839; 0 for the final fit's restarts) pack into the
-    generator seed ``(s·2¹⁶ + m·2¹⁰ + t) mod 2³²``. The packing is injective
-    for s < 2¹⁶, m < 64 and t < 1024, all within the 32 bits the CPU
-    generator keeps of a seed: no two (seed, member, iteration-or-restart)
-    streams share a generator seed, so seed s + 1 does not replay seed
-    s's normals, no two members of an ensemble share a stream, and member
-    0 is the single trace's source. Seeds 2¹⁶ apart share their streams.
-    Raises for a member outside [0, 64) or ``max_iters`` above 1022.
+    32-bit generator seed ``s·2¹⁶ + m·2¹⁰ + t`` for s < 2¹⁶, m < 64 and
+    t <= 1022, and into the 64-bit ``(s + 1)·2³² + m·2¹⁶ + t`` otherwise,
+    for s < 2³¹, m < 2¹⁶ and ``max_iters`` <= 2¹⁶ - 2. No two (seed,
+    member, iteration-or-restart) streams share a generator seed, so seed
+    s + 1 does not replay seed s's normals, no two members of an ensemble
+    share a stream, and member 0 is the single trace's source. A stream's
+    seed does not depend on ``max_iters``. The CPU generator keeps 32 bits
+    of a seed, so there the source raises for a tracer seed of 2¹⁶ or
+    more, a member of 64 or more or ``max_iters`` above 1022, rather than
+    give two streams one seed; the card's generator takes both packings.
 
     ``normals(it, cols)`` hands out columns ``cols`` of the iteration's
     full (r, S) and (n_train, S) draws: a rank that holds samples
@@ -367,16 +464,10 @@ class TorchDraws:
     reference's stream-slicing contract, gpr.py:189-200)."""
 
     def __init__(self, cfg: TracerConfig, rank: int, device, member=0):
-        if not 0 <= member < 2 ** _MEMBER_BITS:
-            raise ValueError(f"member {member} outside [0, "
-                             f"{2 ** _MEMBER_BITS})")
-        if cfg.max_iters + 1 >= 2 ** _SLOT_BITS:
-            raise ValueError(f"max_iters {cfg.max_iters} leaves no slot of "
-                             f"{_SLOT_BITS} bits for every iteration")
         self.cfg, self.rank = cfg, rank
         self.device = torch.device(device)
-        self.base = (cfg.seed << (_MEMBER_BITS + _SLOT_BITS)) + (
-            int(member) << _SLOT_BITS)
+        self.seed, self.member = int(cfg.seed), int(member)
+        _check_streams(self.device, self.seed, self.member, cfg.max_iters)
 
     def _gen(self, seed):
         g = torch.Generator(device=self.device)
@@ -384,10 +475,10 @@ class TorchDraws:
         return g
 
     def iteration_seed(self, it: int) -> int:
-        return (self.base + it + 1) % 2 ** 32
+        return _stream_seed(self.seed, self.member, it + 1)
 
     def restart_seed(self) -> int:
-        return self.base % 2 ** 32
+        return _stream_seed(self.seed, self.member, 0)
 
     def normals(self, it: int, cols=slice(None)):
         """(z (r, S), w (n_train, S)) standard normals of iteration ``it``,
@@ -423,28 +514,25 @@ class FrameDraws:
         return torch.stack([src.restarts() for src in self.sources])
 
 
-# The slot of a seed's own stream: iterations take slots 1..max_iters <=
-# 1022 and the final fit's restarts slot 0, so this one is never a trace's.
-SEED_SLOT = 2 ** _SLOT_BITS - 1
-
-
 class SeedDraws:
     """The draws of one unfolded seed: the reference's ``PRNGKey(seed)``
     taken without a fold, as ``fit_predict_GP(seed=k)`` and
     ``preview_samples`` take it (models/tracer.py:159, driver.py:719).
 
-    One generator seed, ``(seed·2¹⁶ + SEED_SLOT) mod 2³²``: member 0's slot
-    1023 of tracer seed ``seed`` in :class:`TorchDraws`' layout, which no
-    trace stream uses. ``sample_normals(n)`` gives the sampling round's
-    (z (r, S), w (n, S)) for a training buffer of ``n`` slots, and
-    ``restarts()`` the final fit's (lml_restarts, 3) uniforms, both from
-    that generator seed, as the reference draws both from one key."""
+    One generator seed, member 0's ``SEED_SLOT`` (1023) of tracer seed
+    ``seed`` in :class:`TorchDraws`' 32-bit packing for seed < 2¹⁶, its
+    ``WIDE_SEED_SLOT`` in the 64-bit one above (the card only, for
+    seed < 2³¹): slots that no trace stream uses. ``sample_normals(n)``
+    gives the sampling round's (z (r, S), w (n, S)) for a training buffer
+    of ``n`` slots, and ``restarts()`` the final fit's (lml_restarts, 3)
+    uniforms, both from that generator seed, as the reference draws both
+    from one key."""
 
     def __init__(self, cfg: TracerConfig, rank: int, device, seed=0):
         self.cfg, self.rank = cfg, rank
         self.device = torch.device(device)
-        self.seed = ((int(seed) << (_MEMBER_BITS + _SLOT_BITS))
-                     + SEED_SLOT) % 2 ** 32
+        _check_streams(self.device, int(seed), 0, 0)
+        self.seed = _stream_seed(int(seed), 0, 0, seed_slot=True)
 
     def _gen(self):
         g = torch.Generator(device=self.device)

@@ -161,3 +161,66 @@ def test_missing_matplotlib_is_refused_by_name(tmp_path, monkeypatch):
               "--plot", str(tmp_path / "fig.png"), "--out",
               str(tmp_path / "r.npz")])
     assert not (tmp_path / "r.npz").exists()
+
+
+def _stand_in_nvcc(tmp_path):
+    """A stand-in for ``nvcc`` (this machine has none): it writes an empty
+    file wherever ``-o`` points, so ``cuda_build.build`` runs its steps and
+    places its objects, log and library as with the real compiler."""
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do\n'
+                    '  if [ "$1" = -o ]; then : > "$2"; fi; shift\ndone\n')
+    fake.chmod(0o755)
+    return str(fake)
+
+
+def test_compilation_cache_places_the_build(tmp_path, monkeypatch, capsys):
+    """``--compilation-cache DIR``, before the subcommand as in the JAX
+    CLI, sets ``$GPET_TORCH_BUILD_DIR`` to DIR, and the kernels then build
+    into DIR and load from there; the trace itself is the flagless call's.
+    Without the flag or the variable they build into the default
+    directory beside the package. The variable the flag sets is put back
+    as it was when the test ends, so no later build in this process loads
+    from DIR."""
+    from gaussian_process_edge_trace_torch.ops import cuda_build
+    before = os.environ.get(cuda_build.BUILD_DIR_ENV)
+    with monkeypatch.context() as mp:
+        # setenv first, so that the undo restores an unset variable too.
+        mp.setenv(cuda_build.BUILD_DIR_ENV, "unset")
+        mp.delenv(cuda_build.BUILD_DIR_ENV)
+        assert cuda_build.build_dir() == cuda_build.BUILD_DIR
+        assert cuda_build.BUILD_DIR == ROOT / "build" / "gpet_torch_kernels"
+        mp.setattr(cuda_build, "_nvcc", lambda: _stand_in_nvcc(tmp_path))
+        img, edge = _image(1)
+        np.save(tmp_path / "img.npy", img)
+        args = ["trace", str(tmp_path / "img.npy"), *_init_flags(_init(edge)),
+                *FLAGS]
+        cache = tmp_path / "kernels"
+        main(["--compilation-cache", str(cache), *args, "--out",
+              str(tmp_path / "a.npz")])
+        main([*args, "--out", str(tmp_path / "b.npz")])
+        np.testing.assert_array_equal(
+            np.load(tmp_path / "a.npz")["edge_trace"],
+            np.load(tmp_path / "b.npz")["edge_trace"])
+        assert os.environ[cuda_build.BUILD_DIR_ENV] == str(cache)
+        lib = cuda_build.build()
+        assert lib.parent == cache and lib.exists()
+        assert (cache / "build.log").exists()
+        assert sorted(p.name for p in cache.iterdir()) == sorted(
+            [lib.name, "build.log"])
+    assert os.environ.get(cuda_build.BUILD_DIR_ENV) == before
+    assert cuda_build.build_dir() != cache
+    capsys.readouterr()
+
+
+def test_build_directory_override_is_read_at_first_use(tmp_path,
+                                                       monkeypatch):
+    """``$GPET_TORCH_BUILD_DIR`` set after the import still decides where
+    the next build goes."""
+    from gaussian_process_edge_trace_torch.ops import cuda_build
+    monkeypatch.setattr(cuda_build, "_nvcc",
+                        lambda: _stand_in_nvcc(tmp_path))
+    monkeypatch.setenv(cuda_build.BUILD_DIR_ENV, str(tmp_path / "elsewhere"))
+    lib = cuda_build.build()
+    assert lib.parent == tmp_path / "elsewhere" and lib.exists()
+    assert cuda_build.build() == lib        # built: loaded, not rebuilt

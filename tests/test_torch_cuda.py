@@ -522,12 +522,15 @@ def test_small_batch_trace_on_the_card(dev):
     assert np.median(dice) > 0.967, dice
 
 
-@pytest.mark.parametrize("n", [104, 208])
+@pytest.mark.parametrize("n", [104, 208, 408])
 def test_final_fit_does_not_depend_on_frames(dev, n):
     """The final fit of four frames at once on the card, at n = 104 (the
-    direct screen) and n = 208 (coarse to fine): each frame's mean, std,
-    scale, θ and LML equal, bit for bit, its fit alone (factors and solves
-    through K5 and K6, sums through a fixed tree)."""
+    direct screen), n = 208 (coarse to fine) and n = 408 (the 2000²
+    config's: coarse to fine, the fine fit through the blocked
+    orchestration): each frame's mean, std, scale, θ and LML equal, bit for
+    bit, its fit alone (factors and solves through K5 and K6, the blocked
+    path's trailing products one frame at a time, sums through a fixed
+    tree)."""
     import types
 
     from gaussian_process_edge_trace_torch.trace import driver as pd
@@ -548,9 +551,10 @@ def test_final_fit_does_not_depend_on_frames(dev, n):
                    generator=torch.Generator(device=dev).manual_seed(1))
     args = [torch.as_tensor(a, device=dev) for a in (x, y, mask)]
     nw = torch.as_tensor(noise_w, device=dev)
-    n0 = dict(cc.LAUNCHES)
+    n0, b0 = dict(cc.LAUNCHES), dict(cc.BLOCKED)
     batch = pd._final_fit_buffers(cfg, data, u, *args, nw)
     assert all(cc.LAUNCHES[k] > n0[k] for k in n0)
+    assert all((cc.BLOCKED[k] > b0[k]) == (n > cc._DIRECT_N) for k in b0)
     assert batch[0].shape == (F, N) and torch.isfinite(batch[0]).all()
     for f in range(F):
         one = pd._final_fit_buffers(cfg, data, u,
@@ -765,3 +769,54 @@ def test_denoisers_on_the_card_match_the_cpu(dev, technique, kwargs, rtol):
     else:
         err = (got.cpu() - cpu).abs().max().item() / cpu.abs().max().item()
         assert err <= rtol
+
+
+def test_card_generator_keeps_64_bits_of_a_seed(dev):
+    """The card's generator tells seeds 2³² apart, which the default draws'
+    64-bit packing needs (the CPU's gives them one stream)."""
+    def normals(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return torch.randn(64, generator=g, device=dev)
+    for s in (5, 2 ** 16 + 1, 2 ** 32 + 7):
+        assert not torch.equal(normals(s), normals(s + 2 ** 32))
+    assert torch.equal(normals(5), normals(5))
+
+
+def test_wide_draws_on_the_card(dev):
+    """The default draws beyond the 32-bit packing, on the card: tracer
+    seeds 1 and 65537 = 1 + 2¹⁶ trace differently; a 65-member ensemble
+    runs, its members' first-iteration normals all distinct; ``max_iters``
+    = 1100 builds its streams, those past slot 1022 in the 64-bit
+    packing."""
+    from gaussian_process_edge_trace_torch.parallel import trace_ensemble
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    img, edge = gpt.construct_test_img((64, 96), 40, 2, 0.03, "sinusoidal",
+                                       0.3)
+    grad = gpt.comp_grad_img(img, gpt.kernel_builder((9, 5)), device=dev)
+    init = np.array([[0, edge[0, 0]], [95, edge[95, 0]]])
+
+    def traced(seed):
+        tracer = gpt.GP_Edge_Tracing(
+            init, grad, {"kernel": "RBF", "sigma_f": 20, "length_scale": 8},
+            1, np.array([]), 256, 1, 6, 0.1, 4, seed, False, True,
+            device=dev)
+        tracer()
+        return tracer
+    one, far = traced(1), traced(1 + 2 ** 16)
+    assert not torch.equal(one.last_result.y_mean, far.last_result.y_mean)
+    cfg, data = one.cfg, one.data
+    rank = data.L_prior_unit.shape[1]
+    z0 = [pd.TorchDraws(cfg, rank, dev, member=k).normals(0)[0]
+          for k in range(65)]
+    assert all(not torch.equal(z0[a], z0[b])
+               for a in range(65) for b in range(a))
+    best, every = trace_ensemble(cfg, data, pd.init_state(cfg, device=dev),
+                                 n_seeds=65, return_all=True)
+    assert every.edge_trace.shape[0] == 65
+    assert torch.isfinite(every.y_mean).all()
+    long = pd.TorchDraws(cfg._replace(max_iters=1100), rank, dev)
+    seeds = [long.iteration_seed(it) for it in range(1100)]
+    assert len(set(seeds)) == 1100 and seeds[1021] < 2 ** 32 <= seeds[1022]
+    z = [long.normals(it)[0] for it in (1021, 1022, 1099)]
+    assert not torch.equal(z[0], z[1]) and not torch.equal(z[1], z[2])

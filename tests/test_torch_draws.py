@@ -1,7 +1,8 @@
 """PyTorch port, the default draw layout (``trace/driver.py::TorchDraws``):
 one generator seed per (tracer seed, ensemble member, iteration or restart)
-stream, packed so that no two streams share one for seed < 2¹⁶, member < 64
-and it <= max_iters, within the 32 bits the CPU generator keeps."""
+stream, packed so that no two streams share one: for seed < 2¹⁶, member <
+64 and it < 1022 within the 32 bits the CPU generator keeps, and beyond
+that, on the card only, in 64 bits."""
 
 import numpy as np
 import pytest
@@ -88,8 +89,9 @@ def test_columns_are_the_full_draws_columns():
 
 
 def test_layout_bounds_raise():
-    """A member outside [0, 64), or more iterations than the 10 slot bits
-    hold, would reach another seed's streams: refused."""
+    """On the CPU, whose generator keeps 32 bits of a seed, a member outside
+    [0, 64), or more iterations than the 10 slot bits hold, would reach
+    another seed's streams: refused."""
     cfg = _cfg()
     for m in (-1, 64):
         with pytest.raises(ValueError, match="member"):
@@ -142,3 +144,76 @@ def test_seed_draws_of_one_seed_repeat_and_differ_from_another():
     b = pd.SeedDraws(cfg, 8, "cpu", 2)
     assert not torch.equal(b.sample_normals(24)[0], z)
     assert not torch.equal(b.restarts(), a.restarts())
+
+
+# Generator seeds of the 32-bit packing, s·2¹⁶ + m·2¹⁰ + t, written out:
+# (tracer seed, member, iteration or None for the restarts, seed).
+IN_RANGE = [(1, 0, 0, 65537), (1, 0, None, 65536), (3, 0, 10, 196619),
+            (41, 4, 7, 2691080), (2 ** 16 - 1, 63, 1021, 4294967294),
+            (0, 0, 0, 1)]
+
+
+@pytest.mark.parametrize("s,m,it,want", IN_RANGE)
+def test_in_range_streams_keep_their_seeds(s, m, it, want):
+    """Every stream of the 32-bit packing keeps the generator seed it had,
+    whatever ``max_iters`` is and on either device, and its normals are
+    that seed's: the gates and bitwise checks that rest on them hold."""
+    for max_iters in (48, 1022):
+        cfg = _cfg(seed=s, max_iters=max_iters)
+        d = pd.TorchDraws(cfg, 8, "cpu", member=m)
+        got = d.restart_seed() if it is None else d.iteration_seed(it)
+        assert got == want
+        card = pd.TorchDraws(cfg._replace(max_iters=1100), 8, "cuda",
+                             member=m)
+        assert (card.restart_seed() if it is None
+                else card.iteration_seed(it)) == want
+    if it is not None:
+        g = torch.Generator().manual_seed(want)
+        assert torch.equal(d.normals(it)[0],
+                           torch.randn((8, cfg.N_samples), generator=g))
+    assert pd.SeedDraws(_cfg(), 8, "cpu", s).seed == s * 2 ** 16 + 1023
+
+
+@pytest.mark.parametrize("kw,member,match", [
+    ({"seed": 2 ** 16 + 1}, 0, "tracer seed"), ({}, 64, "member"),
+    ({"max_iters": 1023}, 0, "max_iters"), ({"seed": -1}, 0, "tracer seed")])
+def test_cpu_refuses_streams_beyond_32_bits(kw, member, match):
+    """On the CPU, seed 2¹⁶ + 1, member 64 and ``max_iters`` = 1023 raise
+    an error that names the limit, instead of giving seed 1's streams, a
+    stream of member 0 of the next seed, or SeedDraws' stream; so does a
+    negative seed, on either device. The card takes the first three."""
+    cfg = _cfg(**kw)
+    with pytest.raises(ValueError, match=match):
+        pd.TorchDraws(cfg, 8, "cpu", member=member)
+    if kw.get("seed", 0) >= 0:
+        pd.TorchDraws(cfg, 8, "cuda", member=member)
+    if "seed" in kw:
+        with pytest.raises(ValueError, match="tracer seed"):
+            pd.SeedDraws(cfg, 8, "cpu", kw["seed"])
+
+
+def test_wide_layout_is_injective():
+    """Every stream of both packings, over seeds, members and slots at and
+    around each limit, with SeedDraws' seeds, takes a generator seed of its
+    own; those of the 64-bit packing lie at 2³² and above, within 64 bits.
+    (The layout is integer arithmetic: no draw is made here.)"""
+    seeds = [0, 1, 2, 2 ** 16 - 1, 2 ** 16, 2 ** 16 + 1, 2 ** 31 - 1]
+    members = [0, 1, 63, 64, 65, 2 ** 16 - 1]
+    its = [0, 1, 1020, 1021, 1022, 1023, 2 ** 16 - 3]
+    got, wide = [], []
+    for s in seeds:
+        cfg = _cfg(seed=s, max_iters=2 ** 16 - 2)
+        for m in members:
+            d = pd.TorchDraws(cfg, 8, "cuda", member=m)
+            row = [d.restart_seed()] + [d.iteration_seed(it) for it in its]
+            got += row
+            narrow = s < 2 ** 16 and m < 64
+            wide += [k for k, it in zip(row, [-1] + its)
+                     if not (narrow and it < 1022)]
+        got.append(pd.SeedDraws(cfg, 8, "cuda", s).seed)
+    assert len(set(got)) == len(got)
+    assert all(2 ** 32 <= k < 2 ** 64 for k in wide)
+    with pytest.raises(ValueError, match="max_iters"):
+        pd.TorchDraws(_cfg(max_iters=2 ** 16 - 1), 8, "cuda")
+    with pytest.raises(ValueError, match="member"):
+        pd.TorchDraws(_cfg(), 8, "cuda", member=2 ** 16)
