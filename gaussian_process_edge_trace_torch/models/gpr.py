@@ -9,10 +9,10 @@ solves through the K5 and K6 kernels (:mod:`..ops.cuda_chol`).
 
 Scalars such as the variance stay 0-d tensors on the device, so a sampling
 round never waits for the host. On the card a sampling round's library calls
-run one frame at a time (:func:`frame_by_frame`), so a frame's curves do not
-depend on the batch. Every function takes an optional leading
-frame axis: (B, n) training buffers give B fits at once, with the scalars
-then (B,) tensors, one per frame.
+run one frame at a time (:func:`frame_by_frame`), and so do its sums
+(:func:`frame_sum`), so a frame's curves do not depend on the batch. Every
+function takes an optional leading frame axis: (B, n) training buffers give
+B fits at once, with the scalars then (B,) tensors, one per frame.
 
 The final fit (:func:`gp_fit`, :func:`gp_predict`, :func:`batched_lml`)
 gives a frame the same bits whatever the number of frames fitted with it,
@@ -74,16 +74,29 @@ def fixed_sum(x, dim=-1):
     return tree_sum(x, dim) if _on_card(x) else x.sum(dim)
 
 
-def frame_by_frame(fn, *xs):
+def frame_by_frame(fn, *xs, min_dim=3):
     """``fn(*xs)`` over the leading frame axis of (B, ...) tensors: on the
     card one call per frame, each a batch of one as a single trace makes
     it, since cuBLAS and cuSOLVER choose their kernels, and so their order
     of operations, by the batch size; one call on the CPU, where the
-    library keeps one order per matrix."""
-    if not _on_card(xs[0]) or xs[0].dim() < 3 or xs[0].shape[0] == 1:
+    library keeps one order per matrix. ``xs[0]`` has a frame axis from
+    ``min_dim`` dimensions up: 3 for batches of matrices, 2 for the rows
+    that :func:`frame_sum` reduces."""
+    if not _on_card(xs[0]) or xs[0].dim() < min_dim or xs[0].shape[0] == 1:
         return fn(*xs)
     return torch.cat([fn(*(x[f:f + 1] for x in xs))
                       for f in range(xs[0].shape[0])])
+
+
+def frame_sum(x):
+    """Sum over the last axis of (B, n) rows, each row as a batch of one
+    sums it (:func:`frame_by_frame`): ``torch.sum`` picks its thread
+    layout, and so its order, from the number of rows, which at 128 demo
+    frames moves a sampling round's sums off a single trace's. The loop's
+    sums (the sampling round's masked mean and std, the kept curves'
+    weights) take it, so a batch frame draws and weighs its curves as its
+    single trace does."""
+    return frame_by_frame(_last_sum, x, min_dim=2)
 
 
 def safe_cholesky(K, jitter_scales=(0.0, 1e-5, 1e-3), per_matrix=False):
@@ -244,7 +257,7 @@ def fit_and_sample(spec: KernelSpec, x, y, length_scale, variance, diag_noise,
       (E, S) posterior curves, mean included.
     """
     zero = torch.zeros((), dtype=y.dtype, device=y.device)
-    y_mean = masked_mean(y, mask) if centre else zero
+    y_mean = masked_mean(y, mask, frame_sum) if centre else zero
     yc = torch.where(mask, y - y_mean[..., None], zero)
 
     K = train_gram(spec, x, length_scale, variance, diag_noise, mask=mask)

@@ -46,8 +46,8 @@ import numpy as np
 import torch
 
 from gaussian_process_edge_trace_torch.models.gpr import (
-    batched_lml, fit_and_sample, fixed_sum, gp_fit, gp_predict, library_lml,
-    masked_mean, masked_std)
+    batched_lml, fit_and_sample, fixed_sum, frame_sum, gp_fit, gp_predict,
+    library_lml, masked_mean, masked_std)
 from gaussian_process_edge_trace_torch.models.kernels import (
     KernelSpec, k_unit_np, per_frame, resolve_kernel_options)
 from gaussian_process_edge_trace_torch.models.newton import (
@@ -581,7 +581,7 @@ def _sample_round(cfg: TracerConfig, data: TracerData, x, y, mask, noise_w,
     """One sampling-mode GP round (gpet.py:227-230,255-261): scale y by
     std+1, set the variance to σf²/y_s², draw Matheron curves, rescale."""
     yf = y.to(torch.float32)
-    std_raw = masked_std(yf, mask)
+    std_raw = masked_std(yf, mask, frame_sum)
     y_s = std_raw + 1.0
     variance = (cfg.sigma_f ** 2) / (y_s ** 2)
     diag_noise = cfg.noise_y * noise_w + cfg.gp_jitter
@@ -650,7 +650,7 @@ def _iteration(cfg: TracerConfig, data: TracerData, state: TraceState, z, w,
                             plan_samples=cfg.N_samples)
         bc, bcosts = sharded_best_curves(samples, costs, cfg.N_keep, shard)
     inv = 1.0 / bcosts
-    weights = inv / inv.sum(-1, keepdim=True)               # gpet.py:492-493
+    weights = inv / frame_sum(inv)[..., None]               # gpet.py:492-493
     kde_arr = curve_kde(bc, weights, cfg.M, cfg.N, cfg.x_st, blur=blur)
 
     sel = select_pixels(

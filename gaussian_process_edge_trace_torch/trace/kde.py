@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from gaussian_process_edge_trace_torch.models.gpr import frame_by_frame
 from gaussian_process_edge_trace_torch.trace.cuda_kde import column_binning
 
 # Gaussian truncation radius in pixels (bw = 1): exp(-0.5·8²) ≈ 1.3e-14.
@@ -75,8 +76,14 @@ def _separable_blur(grid, taps, mats=None):
         mats = (_toeplitz(m, taps) if m <= _BLUR_MATMUL_MAX else None,
                 _toeplitz(n, taps) if n <= _BLUR_MATMUL_MAX else None)
     Ty, Tx = mats
-    out = Ty @ grid if Ty is not None else _blur_axis_fma(grid, taps, -2)
-    return out @ Tx if Tx is not None else _blur_axis_fma(out, taps, -1)
+    # On the card a (B, m, n) grid's products run frame by frame, as a
+    # single trace's (1, m, n) grid runs them: cuBLAS picks its kernel,
+    # and so its order of sums, by the shape (at 128 demo frames every
+    # frame's KDE moved off its single trace's).
+    out = (frame_by_frame(lambda g: Ty @ g, grid) if Ty is not None
+           else _blur_axis_fma(grid, taps, -2))
+    return (frame_by_frame(lambda g: g @ Tx, out) if Tx is not None
+            else _blur_axis_fma(out, taps, -1))
 
 
 def blur_matrices(M: int, N: int, dtype=torch.float32, device=None,

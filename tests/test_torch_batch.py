@@ -222,6 +222,39 @@ def test_card_sampling_round_runs_frame_by_frame(small_batch, monkeypatch):
     assert torch.equal(card, cpu)
 
 
+def test_card_loop_sums_and_blur_run_frame_by_frame(monkeypatch):
+    """The loop's other steps whose order depends on the batch size on the
+    card, forced on the CPU: ``frame_sum`` (the sampling round's masked
+    mean and std, the kept curves' weights) sums each frame's row as a
+    batch of one, and the KDE's two blur products run once per frame on a
+    (1, M+2, N+2) grid, as a single trace's; both give the CPU path's
+    values."""
+    from gaussian_process_edge_trace_torch.trace import kde
+    rng = np.random.default_rng(4)
+    rows = torch.tensor(rng.normal(size=(3, 104)), dtype=torch.float32)
+    y = torch.tensor(rng.uniform(-2, 66, size=(3, 96, 100)),
+                     dtype=torch.float32)
+    w = torch.softmax(torch.tensor(rng.normal(size=(3, 100)),
+                                   dtype=torch.float32), -1)
+    cpu_sum, cpu_kde = gpr.frame_sum(rows), kde.curve_kde(y, w, 64, 96, 0)
+    shapes = []
+
+    def recorded(fn, *xs, **kw):
+        def run(*a):
+            shapes.append(tuple(a[0].shape))
+            return fn(*a)
+        return gpr.frame_by_frame(run, *xs, **kw)
+    monkeypatch.setattr(kde, "frame_by_frame", recorded)
+    monkeypatch.setattr(gpr, "_on_card", lambda t: True)
+    card_sum = gpr.frame_sum(rows)
+    card_kde = kde.curve_kde(y, w, 64, 96, 0)
+    assert shapes == [(1, 66, 98)] * 6
+    for f in range(3):
+        assert torch.equal(card_sum[f], rows[f:f + 1].sum(-1)[0])
+    assert torch.equal(card_sum, cpu_sum)
+    torch.testing.assert_close(card_kde, cpu_kde, rtol=1e-6, atol=1e-7)
+
+
 def test_card_factor_ladder_skips_a_failed_factor(monkeypatch):
     """``safe_cholesky(per_matrix=True)`` on the card: K5 (here its plain
     version) marks a failed factor by a diagonal that is not finite, and

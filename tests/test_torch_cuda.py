@@ -228,13 +228,15 @@ def test_k1_k3_plans_match_launchers(dev):
     """The plans' shared-memory bytes are the launchers' own."""
     from gaussian_process_edge_trace_torch.ops import cuda_build
     lib = cuda_build.library()
-    for E, M, S in ((1000, 1000, 10000), (500, 500, 1000), (38, 61, 130)):
+    for E, M, S in ((1000, 1000, 10000), (1000, 1000, 100000),
+                    (1000, 1000, 1000), (500, 500, 1000), (38, 61, 130)):
         for transpose in (False, True):
             plan = ci.k1_launch_plan(E, M, S, transpose)
             assert lib.gpet_fused_cost_smem(
                 M, plan["pairs_per_chunk"], plan["threads"], transpose) == \
                 plan["smem_bytes"]
-    for E, S, M in ((1000, 1000, 1000), (500, 100, 500), (37, 33, 129),
+    for E, S, M in ((1000, 1000, 1000), (1000, 10000, 1000),
+                    (1000, 100, 1000), (500, 100, 500), (37, 33, 129),
                     (100, 1000, 20000), (1, 1, 1)):
         plan = ck.k3_launch_plan(E, S, M)
         assert lib.gpet_binning_2l_smem(M, plan["cols"],

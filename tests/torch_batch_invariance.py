@@ -3,10 +3,12 @@ frame traced alone, on a CUDA card.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
-    python3 tests/torch_batch_invariance.py [--iters 3]
+    python3 tests/torch_batch_invariance.py [--iters 3] [--demo-frames 16]
+        [--big-frames 4]
 
-For ``chip_smoke.py``'s demo batch (image seeds 1-16) and 1000² batch
-(image seeds 1-4), tracer seed 1, it steps the batch's loop with
+For ``chip_smoke.py``'s demo batch (image seeds 1-16, or 1-N with
+``--demo-frames N``) and 1000² batch (image seeds 1-4; ``--big-frames 0``
+leaves it out), tracer seed 1, it steps the batch's loop with
 ``trace_batch``'s default draws, and at each iteration feeds every stage
 of ``trace/driver.py::_iteration`` the batch's own inputs to that stage,
 once for all frames and once for each frame alone (a batch of one, as a
@@ -16,8 +18,10 @@ whose output depends on the batch size moves a batch frame off its single
 trace. The sampling round's solve and cross product are shown as one
 batched library call each ("... batched call"), beside the port's own
 sampling round (``_sample_round``, which runs them frame by frame on the
-card); the stages after it take the port's curves. The last line is one
-JSON object of all rows.
+card); the stages after it take the port's curves. The masked std and the
+kept curves' weights are shown also as one ``torch.sum`` over every frame
+("... one torch.sum call"), beside the port's ``frame_sum``. The last line
+is one JSON object of all rows.
 """
 
 from __future__ import annotations
@@ -48,7 +52,8 @@ def stages(cfg, data, state, z, w, blur, consts):
     out = {}
     x, y, mask, noise_w = pd._train_set(cfg, data, state)
     yf = y.to(torch.float32)
-    out["std_raw"] = std_raw = gpr.masked_std(yf, mask)
+    out["std_raw one torch.sum call"] = gpr.masked_std(yf, mask)
+    out["std_raw"] = std_raw = gpr.masked_std(yf, mask, gpr.frame_sum)
     y_s = std_raw + 1.0
     variance = cfg.sigma_f ** 2 / y_s ** 2
     diag_noise = cfg.noise_y * noise_w + cfg.gp_jitter
@@ -56,7 +61,7 @@ def stages(cfg, data, state, z, w, blur, consts):
     post_scale = torch.where(s2 == 0.0, torch.ones_like(s2), s2)
     xs, ys = x.to(torch.float32), yf / y_s[..., None]
     zero = torch.zeros((), dtype=ys.dtype, device=ys.device)
-    out["y_mean"] = y_mean = gpr.masked_mean(ys, mask)
+    out["y_mean"] = y_mean = gpr.masked_mean(ys, mask, gpr.frame_sum)
     yc = torch.where(mask, ys - y_mean[..., None], zero)
     out["gram"] = K = train_gram(cfg.kernel, xs, cfg.sigma_l, variance,
                                  diag_noise, mask=mask)
@@ -84,7 +89,8 @@ def stages(cfg, data, state, z, w, blur, consts):
     bc, bcosts = best_curves(samples, costs, cfg.N_keep, samples_t=samples_t)
     out["kept curves"] = bc
     inv = 1.0 / bcosts
-    out["weights"] = weights = inv / inv.sum(-1, keepdim=True)
+    out["weights one torch.sum call"] = inv / inv.sum(-1, keepdim=True)
+    out["weights"] = weights = inv / gpr.frame_sum(inv)[..., None]
     out["kde"] = kde = curve_kde(bc, weights, cfg.M, cfg.N, cfg.x_st,
                                  blur=blur)
     sel = select_pixels(
@@ -147,6 +153,8 @@ def main(argv=None):
     import torch
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--iters", type=int, default=3)
+    p.add_argument("--demo-frames", type=int, default=16)
+    p.add_argument("--big-frames", type=int, default=4)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -155,12 +163,13 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     print(f"[card] {cs.card_line()}")
     rows = []
-    for tag, make, images in (("demo_B16", cs.demo_config,
-                               cs.BATCH_DEMO_IMAGES),
-                              ("1000_B4", cs.big_config,
-                               cs.BATCH_BIG_IMAGES)):
-        rows += run(tag, [make(dev, image_seed=i) for i in images],
-                    args.iters)
+    for tag, make, n in ((f"demo_B{args.demo_frames}", cs.demo_config,
+                          args.demo_frames),
+                         (f"1000_B{args.big_frames}", cs.big_config,
+                          args.big_frames)):
+        if n:
+            rows += run(tag, [make(dev, image_seed=i)
+                              for i in range(1, n + 1)], args.iters)
     print(json.dumps(rows))
     return 0
 

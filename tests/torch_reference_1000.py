@@ -1,5 +1,6 @@
-"""The 1000² S=10⁴ config (``benchmarks/suite.py`` config 4) traced by the
-JAX package and by the PyTorch port's CPU path from the same random draws.
+"""The 1000² config (``benchmarks/suite.py`` config 4, S=10⁴ by default)
+traced by the JAX package and by the PyTorch port's CPU path from the same
+random draws.
 
 Run from the repository root on a CPU (about 75 s per replayed seed and
 20 s per reference-only seed on 8 cores, 2.4 GB of memory at most):
@@ -9,6 +10,10 @@ Run from the repository root on a CPU (about 75 s per replayed seed and
 
 ``--image-seed K`` traces the config's image drawn from seed K (the
 suite's is 1; ``chip_smoke.py``'s 1000² batches take 1-4).
+``--samples S`` traces the config at S posterior samples per iteration
+(the suite's other rows: 1000 and 100000; at S=10⁵ the JAX package's CPU
+KDE scans 76 blocks of 532 MB per iteration, several minutes per seed,
+and the replay holds the port's dense CPU binning beside it).
 ``--right-end 998`` puts the right endpoint at column 998 instead of the
 last one, so the edge length E = 999 is odd and both packages score the
 curves on their unfused path (column interpolation, then the Simpson sums
@@ -151,9 +156,10 @@ def lockstep(cfg, data, state0):
     return ref, res, info
 
 
-def run_seed(seed, edge, grad, init, replay):
+def run_seed(seed, edge, grad, init, replay, samples):
     edge = edge[:init[1, 0] + 1]
-    cfg = rd.make_config(init, grad.shape, **dict(BIG_KW, seed=seed))
+    cfg = rd.make_config(init, grad.shape, **dict(BIG_KW, seed=seed,
+                                                  N_samples=samples))
     data = rd.make_data(cfg, jnp.asarray(grad), jnp.asarray(init))
     state0 = rd.init_state(cfg)
     row = {"seed": seed}
@@ -191,6 +197,9 @@ def main(argv=None):
                    help="column of the right endpoint (999: the last)")
     p.add_argument("--image-seed", type=int, default=1,
                    help="seed of the synthetic image (1: the suite's)")
+    p.add_argument("--samples", type=int, default=BIG_KW["N_samples"],
+                   help="posterior samples per iteration (the suite's rows: "
+                        "1000, 10000, 100000)")
     args = p.parse_args(argv)
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(min(8, os.cpu_count() or 1))
@@ -200,8 +209,9 @@ def main(argv=None):
     rows = []
     for seed, replay in ([(s, True) for s in args.seeds]
                          + [(s, False) for s in args.reference_only]):
-        row = run_seed(seed, edge, grad, init, replay)
+        row = run_seed(seed, edge, grad, init, replay, args.samples)
         row["edge_length"] = int(init[1, 0]) + 1
+        row["samples"] = args.samples
         row["image_seed"] = args.image_seed
         print(json.dumps(row), flush=True)
         rows.append(row)
