@@ -85,12 +85,14 @@ Phases, one line or more each; any failure exits non-zero:
    frames in one launch: every frame bitwise equal to its own single-frame
    launch, the launch timed against 16 single launches beside the bound;
 8. the serving modes through ``parallel.sharded``, each frame against its
-   single trace on the card in the same phase (where a frame differs, the
-   batch and the single trace are stepped in lockstep to the first
+   single trace on the card in the same phase, on every ``TraceResult``
+   field bit for bit (a float field that differs is logged with its
+   largest absolute and relative gap; where a frame's loop fields differ,
+   the batch and the single trace are stepped in lockstep to the first
    iteration that differs and the score gap of the two pixels is logged;
    the phase fails unless it is a near-tie, relative 1e-5, and the DICE
-   gates hold; loops that agree must give equal results, as the final fit
-   does not depend on the batch),
+   gates hold; loops that agree must give equal results on every field,
+   as the final fit and the final cost do not depend on the batch),
    launches per batch (K1 and K3 once per loop iteration, K2
    once where K1 scores, K5/K6 as often as one trace's final fit), DICE
    gates, a determinism rerun, peak memory and the warm wall time per
@@ -108,16 +110,29 @@ Phases, one line or more each; any failure exits non-zero:
      beside B16's; median DICE gates below the JAX package's own CPU
      readings of the same frames (``BATCH_THROUGHPUT_GATES``,
      ``tests/torch_reference_demo_batch.py``); the widest batch profiled;
+   - ``batch_demo_oddE_B16``, ``_B64`` and ``_B256``: the demo config
+     with the right endpoint one column in (E = 499) on image seeds 1-B,
+     so every loop iteration scores through K2 and ``line_and_arc``'s
+     Simpson sums over E (K1 never runs, K2 launches n_max + 1 times);
+     the three share one set of single traces; median DICE gates below
+     the JAX package's own CPU readings of the same frames
+     (``ODD_BATCH_GATES``); the widest profiled, with the device time of
+     ``line_and_arc`` and its Simpson tail per trace;
    - ``batch_1000_B4`` and ``batch_1000_oddE_B4``: the 1000² config on
      image seeds 1-4 at E = 1000 and E = 999; gates median > 0.92, every
      frame > 0.84 (``BIG_BATCH_GATES``, set from the JAX package's own
-     readings on these images);
-   - ``ensemble_demo_K5``: best-of-5 on the demo image through
+     readings on these images); ``batch_1000_oddE_B16``: image seeds 1-16
+     at E = 999, gates below the JAX package's readings of those images
+     (``ODD_BIG_BATCH_GATES``);
+   - ``ensemble_demo_K5`` and ``ensemble_demo_oddE_K5``: best-of-5 on the
+     demo image at E = 500 and 499 through
      ``GP_Edge_Tracing(...)(ensemble=5)``; member 0 is the single seed-1
-     trace, the chosen member the argmin of the final costs, DICE > 0.97;
+     trace on every field, the chosen member the argmin of the final
+     costs, DICE > 0.97;
    - ``multi_edge``: two boundaries of one 500² multi-sinusoidal image
-     through ``trace_multi_edge``, each edge equal to the tiled image's
-     ``trace_batch`` and DICE > 0.97;
+     through ``trace_multi_edge``, each edge equal on every field to the
+     tiled image's ``trace_batch`` and to its own single ``run_trace``,
+     and DICE > 0.97;
    - ``sequence_demo_3``: the JAX package's sequence row
      (``benchmarks/suite.py:307-335``), three noisy frames of one 500²
      image through ``trace_sequence``, cold then warm: each frame bitwise
@@ -185,6 +200,8 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import gc
 import json
 import os
@@ -255,6 +272,24 @@ MSE_GATES = {"1000_S1e5": 11546.0}
 # seed 2: 0.8619 there).
 THROUGHPUT_WIDTHS = (64, 128, 256)
 BATCH_THROUGHPUT_GATES = {64: 0.972, 128: 0.975, 256: 0.975}
+# The odd-E batches: the right endpoint one column in, so every loop
+# iteration scores through K2 and the Simpson sums over E (half of all
+# endpoint pairs). The demo config at E = 499 on image seeds 1-B, and the
+# 1000² config at E = 999 on image seeds 1-16, tracer seed 1. The median
+# demo gates lie 0.0052 below the JAX package's own median over the same
+# frames traced alone on a CPU (tests/torch_reference_demo_batch.py
+# --right-end 498: 0.9811 over image seeds 1-16, 0.9781 over 1-64, 0.9811
+# over 1-256; lowest 0.7969, image seed 11). The 1000² gates (median,
+# every frame) lie 0.0052 below the package's median and 0.0134 below its
+# lowest over tracer seeds 1-3 of each image
+# (tests/torch_reference_1000.py --right-end 998 --seeds --reference-only
+# 1 2 3 --image-seed 1 ... 16: median 0.9698 over the 48 readings, lowest
+# 0.8906, image seed 11; image seeds 4, 9 and 11 read 0.906-0.911,
+# 0.935-0.936 and 0.891-0.892 on every tracer seed).
+ODD_DEMO_WIDTHS = (16, 64, 256)
+ODD_BATCH_GATES = {16: 0.9759, 64: 0.9729, 256: 0.9759}
+BATCH_BIG_ODD_IMAGES = tuple(range(1, 17))
+ODD_BIG_BATCH_GATES = (0.9646, 0.8772)
 # The share of the true edge's columns inside the pixel-unit credible
 # interval, each demo seed (tests/test_e2e_parity.py:156's gate).
 COVERAGE_GATE = 0.85
@@ -1035,10 +1070,12 @@ def traced(checks, tag, cfg, seeds, need, absent, gates, mse_gate=None):
     return launches
 
 
-def demo_config(dev, image_seed=1):
+def demo_config(dev, image_seed=1, right=-1):
+    """The README demo config; ``right=-2`` puts the right endpoint one
+    column in (E = 499)."""
     return Config(dev, (500, 500), 200,
                   {"kernel": "RBF", "sigma_f": 75, "length_scale": 20}, 1000,
-                  image_seed=image_seed)
+                  right, image_seed=image_seed)
 
 
 def big_config(dev, right=-1, image_seed=1, n_samples=10000):
@@ -1194,16 +1231,57 @@ def pallas_binning_kde(checks, dev):
 
 # --- the serving modes ---------------------------------------------------
 
-EXACT_FIELDS = ("edge_trace", "n_iters", "obs_x", "obs_y", "obs_valid")
+# The fields a loop's accepted pixels fix. Where these agree, the two loops
+# did not part, and every other field must agree too: the final fit and the
+# final cost give a frame the same bits whatever the batch.
+LOOP_FIELDS = ("n_iters", "obs_x", "obs_y", "obs_valid", "iter_nobs")
+
+
+def same_bits(x, y):
+    """Two values equal bit for bit: tensors of one shape and dtype whose
+    elements have the same bits (NaN equals a NaN of the same bits, and
+    -0.0 differs from 0.0), else ``==``."""
+    import torch
+    if not isinstance(x, torch.Tensor):
+        return x == y
+    if x.shape != y.shape or x.dtype != y.dtype:
+        return False
+    if x.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        width = ints[x.element_size()]
+        return torch.equal(x.contiguous().view(width),
+                           y.contiguous().view(width))
+    return torch.equal(x, y)
 
 
 def differing_fields(a, b):
-    """The fields of EXACT_FIELDS in which two traces' results differ."""
+    """The fields (all of the ``TraceResult``'s) in which two traces'
+    results differ in any bit."""
+    return [f for f in a._fields if not same_bits(getattr(a, f),
+                                                  getattr(b, f))]
+
+
+def field_gaps(a, b, fields):
+    """For each floating-point field of ``fields``: the largest absolute
+    difference of ``a``'s and ``b``'s values and that over the largest
+    magnitude of ``b``'s (``rel_err``)."""
     import torch
-    return [f for f in EXACT_FIELDS
-            if not (torch.equal(getattr(a, f), getattr(b, f))
-                    if isinstance(getattr(a, f), torch.Tensor)
-                    else getattr(a, f) == getattr(b, f))]
+    out = {}
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            m, r = rel_err(x.double(), y.double())
+            out[f] = {"max_abs": m, "max_rel": r}
+    return out
+
+
+def describe(diff, got, want):
+    """The differing fields and each float field's gaps, for a log line."""
+    if not diff:
+        return ""
+    gaps = {f: f"{g['max_abs']:.3e} abs, {g['max_rel']:.3e} rel"
+            for f, g in field_gaps(got, want, diff).items()}
+    return f" (differs in {diff}; float fields {gaps})"
 
 
 def first_divergence(cfg, a, b):
@@ -1256,13 +1334,16 @@ def first_divergence(cfg, a, b):
 
 
 def explain_difference(checks, tag, label, got, want, a, b, cfg):
-    """``got`` and ``want`` (two traces of one frame) differ: log where
-    and why. The phase fails unless their loops first differ at a near-tie
-    (relative gap <= NEAR_TIE). Loops that agree (the same pixels in the
-    same iterations) leave the final fit the same training set, from which
-    it must give the same result in a batch as alone."""
+    """``got`` and ``want`` (two traces of one frame) differ in some field:
+    log where and why. Where the loops' fields (``LOOP_FIELDS``) agree, the
+    loops did not part and the phase fails: no field may then differ, float
+    or not. Otherwise the two are stepped in lockstep to the first
+    iteration at which they accept different pixels, and the phase fails
+    unless that is a near-tie (relative gap <= NEAR_TIE)."""
     import torch
-    div = first_divergence(cfg, a, b)
+    diff = differing_fields(got, want)
+    loops = [f for f in LOOP_FIELDS if f in diff]
+    div = first_divergence(cfg, a, b) if loops else None
     ok = div is not None and div["gap"] <= NEAR_TIE
     if div is not None:
         log(f"[{tag}] {label}: the loops first differ at {div} "
@@ -1270,15 +1351,17 @@ def explain_difference(checks, tag, label, got, want, a, b, cfg):
             f"{NEAR_TIE})")
     else:
         cols = torch.nonzero(got.edge_trace[:, 0] != want.edge_trace[:, 0])
-        log(f"[{tag}] {label}: the loops agree but the final fits differ "
-            f"(NOT explained): LMLs {got.lml.item():.6f} vs "
-            f"{want.lml.item():.6f}, theta {got.theta.tolist()} vs "
-            f"{want.theta.tolist()}, mean curves up to "
-            f"{(got.y_mean - want.y_mean).abs().max().item():.4g} px apart, "
-            f"integer traces in {cols.shape[0]} columns "
-            f"{cols[:, 0].tolist()[:12]}")
+        why = ("the lockstep finds no iteration at which the loops part"
+               if loops else f"the loops agree in {LOOP_FIELDS}")
+        log(f"[{tag}] {label}: {why}, "
+            f"but {diff} differ (NOT explained): LMLs {got.lml.item():.9g} "
+            f"vs {want.lml.item():.9g}, final costs "
+            f"{got.final_cost.item():.9g} vs {want.final_cost.item():.9g}, "
+            f"theta {got.theta.tolist()} vs {want.theta.tolist()}, integer "
+            f"traces in {cols.shape[0]} columns {cols[:, 0].tolist()[:12]}")
     if not ok:
-        checks.failed.append(f"{tag} {label}: unexplained difference")
+        checks.failed.append(f"{tag} {label}: unexplained difference in "
+                             f"{diff}")
 
 
 def lift_single(tracer, dev):
@@ -1317,7 +1400,8 @@ def device_busy(fn):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     busy = sum(_device_us(e) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("gpet::")) / 1e3
     return busy, wall, prof
 
 
@@ -1403,16 +1487,17 @@ def traced_batch(checks, tag, configs, gates, odd=False, profiled=False,
         if verbose:
             solo = gpt.trace_dicecoef(single.edge_trace.cpu().numpy(),
                                       c.true_edge[:c.E])
-            log(f"[{tag}] frame {f}: equal to its single trace: "
-                f"{not diff}{'' if not diff else f' (differs in {diff})'}; "
-                f"the single trace's DICE {solo}")
+            log(f"[{tag}] frame {f}: equal to its single trace on every "
+                f"field: {not diff}{describe(diff, frame, single)}; the "
+                f"single trace's DICE {solo}")
         if diff:
             explain_difference(
                 checks, tag, f"frame {f}", frame, single,
                 (data, make_batch_state(cfg, B, dev),
                  pd.TorchDraws(cfg, data.L_prior_unit.shape[1], dev), f),
                 lift_single(tracers[f], dev), cfg)
-    log(f"[{tag}] {equal} of {B} frames equal to their single traces")
+    log(f"[{tag}] {equal} of {B} frames equal to their single traces on "
+        f"every field")
     median = float(np.median(dices))
     ok = median > gates[0] and (gates[1] is None or min(dices) > gates[1])
     log(f"[{tag}] DICE median={median} min={min(dices)} (gates: median > "
@@ -1438,7 +1523,8 @@ def traced_batch(checks, tag, configs, gates, odd=False, profiled=False,
             f"batches' {json.dumps({k: round(v, 2) for k, v in walls.items()})}")
         walls[tag] = batch_ms / B
     if profiled:
-        busy, wall, prof = device_busy(run)
+        with ranged_passes():
+            busy, wall, prof = device_busy(run)
         log(f"[{tag}] profiled batch: device busy {busy:.3f} ms of "
             f"{wall:.2f} ms ({busy / B:.3f} ms per trace): idle "
             f"{100 * (1 - busy / batch_ms):.1f}% of the unprofiled "
@@ -1448,9 +1534,16 @@ def traced_batch(checks, tag, configs, gates, odd=False, profiled=False,
         events = prof.key_averages()
         rows = sorted(((e.key, _device_us(e) / 1e3, e.count) for e in events
                        if e.device_type == torch.autograd.DeviceType.CUDA
-                       and _device_us(e) > 0), key=lambda r: -r[1])
+                       and _device_us(e) > 0
+                       and not e.key.startswith("gpet::")),
+                      key=lambda r: -r[1])
         for key, ms, count in rows[:8]:
             log(f"[{tag}]   {ms:8.3f} ms  {count:6d}x  {key[:90]}")
+        # The unfused path's passes (the curve cost's Simpson sums, their
+        # even-count tail) and the ranking: device time per batch and trace.
+        for a, (calls, ms, _) in ranged_device_ms(prof).items():
+            log(f"[{tag}] {a}: {calls} calls, device {ms:.3f} ms per batch, "
+                f"{ms / B:.3f} ms per trace")
         # The library calls and sums that run once per frame on the card
         # (models/gpr.py::frame_by_frame): their count and host time.
         for e in events:
@@ -1461,17 +1554,19 @@ def traced_batch(checks, tag, configs, gates, odd=False, profiled=False,
     return got
 
 
-def ensemble_phase(checks, dev):
+def ensemble_phase(checks, dev, odd=False):
     """Best-of-ENSEMBLE_K on the demo image through
     ``GP_Edge_Tracing(...)(ensemble=K)``: launches, member 0 against the
-    single seed-1 trace, the chosen member the argmin of the final costs
-    (NaN as +inf), its DICE > 0.97. Returns the launches."""
+    single seed-1 trace on every field, the chosen member the argmin of the
+    final costs (NaN as +inf), its DICE > 0.97. With ``odd`` the right
+    endpoint is one column in (E = 499): K1 never runs and K2 scores every
+    iteration. Returns the launches."""
     import torch
     import gaussian_process_edge_trace_torch as gpt
     from gaussian_process_edge_trace_torch.parallel import trace_ensemble
     from gaussian_process_edge_trace_torch.trace import driver as pd
-    tag = f"ensemble_demo_K{ENSEMBLE_K}"
-    c = demo_config(dev)
+    tag = f"ensemble_demo{'_oddE' if odd else ''}_K{ENSEMBLE_K}"
+    c = demo_config(dev, right=-2 if odd else -1)
     tracer = c.tracer(1)
     single = c.trace(1)[2]
     reset_counts()
@@ -1488,7 +1583,8 @@ def ensemble_phase(checks, dev):
     c.trace(1)
     one = read_counts()
     check_launches(checks, tag, got, {
-        "K1": n_max, "K1_transpose": 0, "K2": 1, "K3": n_max, "K4": 0,
+        "K1": 0 if odd else n_max, "K1_transpose": 0,
+        "K2": n_max + 1 if odd else 1, "K3": n_max, "K4": 0,
         "K5": one["K5"], "K6": one["K6"]})
     costs = every.final_cost
     pick = int(torch.argmin(torch.where(torch.isnan(costs),
@@ -1503,8 +1599,8 @@ def ensemble_phase(checks, dev):
         checks.failed.append(f"{tag}: the chosen member is not the argmin")
     member0 = pd.frame_of(every, 0)
     diff = differing_fields(member0, single)
-    log(f"[{tag}] member 0 equal to the single seed-1 trace: {not diff}"
-        f"{'' if not diff else f' (differs in {diff})'}")
+    log(f"[{tag}] member 0 equal to the single seed-1 trace on every "
+        f"field: {not diff}{describe(diff, member0, single)}")
     if diff:
         draws = pd.FrameDraws([pd.TorchDraws(
             cfg, data.L_prior_unit.shape[1], dev, member=k)
@@ -1546,8 +1642,9 @@ def multi_edge_image():
 
 def multi_edge_phase(checks, dev):
     """Two boundaries of one image through ``trace_multi_edge`` (the demo
-    config): launches, each edge equal to the tiled image's
-    ``trace_batch``, each edge's DICE > 0.97. Returns the launches."""
+    config): launches, each edge equal on every field to the tiled image's
+    ``trace_batch`` and to its own single ``run_trace``, each edge's DICE
+    > 0.97. Returns the launches."""
     import torch
     import gaussian_process_edge_trace_torch as gpt
     from gaussian_process_edge_trace_torch.parallel import (
@@ -1580,16 +1677,25 @@ def multi_edge_phase(checks, dev):
     draws = pd.TorchDraws(cfg, shared.L_prior_unit.shape[1], dev)
     for f in range(2):
         a, b = pd.frame_of(res, f), pd.frame_of(tiled, f)
-        diff = differing_fields(a, b)
+        data_f = pd.make_data(cfg, grad, inits[f], dev)
+        alone = pd.run_trace(cfg, data_f, pd.init_state(cfg, dev))
+        diff, diff_alone = differing_fields(a, b), differing_fields(a, alone)
         dice = gpt.trace_dicecoef(a.edge_trace.cpu().numpy(), edges[f])
         log(f"[{tag}] edge {f}: n_iters {a.n_iters}, DICE {dice} (gate > "
-            f"0.97); equal to the tiled image's batch: {not diff}"
-            f"{'' if not diff else f' (differs in {diff})'}")
+            f"0.97); equal to the tiled image's batch on every field: "
+            f"{not diff}{describe(diff, a, b)}; equal to its single trace "
+            f"on every field: {not diff_alone}"
+            f"{describe(diff_alone, a, alone)}")
+        side = (shared, make_batch_state(cfg, 2, dev), draws, f)
         if diff:
             explain_difference(
-                checks, tag, f"edge {f}", a, b,
-                (shared, make_batch_state(cfg, 2, dev), draws, f),
+                checks, tag, f"edge {f}", a, b, side,
                 (tiled_data, make_batch_state(cfg, 2, dev), draws, f), cfg)
+        if diff_alone:
+            explain_difference(
+                checks, tag, f"edge {f} against its single trace", a, alone,
+                side, (data_f, pd._lift(pd.init_state(cfg, dev)), draws, 0),
+                cfg)
         if not dice > 0.97:
             checks.failed.append(f"{tag} edge {f} DICE gate")
     return got
@@ -1631,9 +1737,7 @@ def sequence_frames(dev):
 
 def same_result(a, b):
     """Two traces' results equal field by field, bit for bit."""
-    import torch
-    return all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
-               for x, y in zip(a, b))
+    return all(same_bits(x, y) for x, y in zip(a, b))
 
 
 def sequence_phase(checks, dev):
@@ -2120,6 +2224,50 @@ PROFILED_RANGES = (
     ("gaussian_process_edge_trace_torch.trace.driver", "best_curves"))
 
 
+@contextlib.contextmanager
+def ranged_passes():
+    """Within the block, each pass of ``PROFILED_RANGES`` runs inside a
+    ``record_function`` range named ``gpet::<name>``."""
+    import importlib
+
+    from torch.profiler import record_function
+
+    def ranged(fn, name):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return wrapper
+
+    saved = [(importlib.import_module(m), a) for m, a in PROFILED_RANGES]
+    saved = [(mod, a, getattr(mod, a)) for mod, a in saved]
+    for mod, a, fn in saved:
+        setattr(mod, a, ranged(fn, f"gpet::{a}"))
+    try:
+        yield
+    finally:
+        for mod, a, fn in saved:
+            setattr(mod, a, fn)
+
+
+def ranged_device_ms(prof):
+    """For each pass of ``PROFILED_RANGES`` in ``prof``: (calls, device ms
+    of the kernels they launched, device ms of their ``take_along_dim``s),
+    from one walk of the profile's events."""
+    import torch
+    out = {a: [0, 0.0, 0.0] for _, a in PROFILED_RANGES}
+    for e in prof.events():
+        name = e.name[len("gpet::"):]
+        if (name in out and e.name.startswith("gpet::")
+                and e.device_type == torch.autograd.DeviceType.CPU):
+            row = out[name]
+            row[0] += 1
+            row[1] += _subtree_us(e) / 1e3
+            row[2] += sum(_subtree_us(c) for c in e.cpu_children
+                          if c.name == "aten::take_along_dim") / 1e3
+    return out
+
+
 def profile(checks, tag, cfg, seed):
     """The loop and the final fit (``finish_trace``) on the host clock and
     peak memory; then one profiled trace: device busy time, the idle share
@@ -2127,11 +2275,8 @@ def profile(checks, tag, cfg, seed):
     K3, K5 and K6 (its m > 1 and m = 1 kernels) per launch, and the device
     time of the passes in ``PROFILED_RANGES`` (for ``best_curves``, also its
     ``index_select``)."""
-    import functools
-    import importlib
-
     import torch
-    from torch.profiler import ProfilerActivity, record_function
+    from torch.profiler import ProfilerActivity
     from gaussian_process_edge_trace_torch.trace import driver as pd
 
     tracer = cfg.tracer(seed)
@@ -2155,27 +2300,12 @@ def profile(checks, tag, cfg, seed):
         f"fit {fm:.2f} ms ({100 * fm / (lm + fm):.1f}% of the trace); peak "
         f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
-    def ranged(fn, name):
-        @functools.wraps(fn)
-        def wrapper(*args, **kwargs):
-            with record_function(name):
-                return fn(*args, **kwargs)
-        return wrapper
-
-    saved = [(importlib.import_module(m), a) for m, a in PROFILED_RANGES]
-    saved = [(mod, a, getattr(mod, a)) for mod, a in saved]
-    for mod, a, fn in saved:
-        setattr(mod, a, ranged(fn, f"gpet::{a}"))
-    try:
-        with torch.profiler.profile(activities=[
-                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            tracer()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-    finally:
-        for mod, a, fn in saved:
-            setattr(mod, a, fn)
+    with ranged_passes(), torch.profiler.profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tracer()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
     # Device-side events only: a CPU op's own row repeats its kernels' time,
     # and so does a range's device-side span.
     rows = [(e.key, _device_us(e) / 1e3, e.count)
@@ -2204,16 +2334,11 @@ def profile(checks, tag, cfg, seed):
                 if name.startswith(("fused_cost", "binning_2l")):
                     k1_k3 += ms
     log(f"[profile {tag}] K1 + K3 device time per trace: {k1_k3:.3f} ms")
-    for _, a, _ in saved:
-        evts = [e for e in prof.events() if e.name == f"gpet::{a}"
-                and e.device_type == torch.autograd.DeviceType.CPU]
-        us = sum(_subtree_us(e) for e in evts)
-        line = (f"[profile {tag}] {a}: {len(evts)} calls, device "
-                f"{us / 1e3:.3f} ms per trace")
+    for a, (calls, ms, take) in ranged_device_ms(prof).items():
+        line = (f"[profile {tag}] {a}: {calls} calls, device {ms:.3f} ms "
+                f"per trace")
         if a == "best_curves":
-            take = sum(_subtree_us(c) for e in evts for c in e.cpu_children
-                       if c.name == "aten::take_along_dim")
-            line += f" (its take_along_dim {take / 1e3:.3f} ms)"
+            line += f" (its take_along_dim {take:.3f} ms)"
         log(line)
 
 
@@ -2769,29 +2894,41 @@ def main() -> int:
     # (median, every frame; the demo batches' every-frame gate is their
     # log). The demo batches share their single traces and compare their
     # walls per trace; the widest is profiled too.
-    demo_singles, demo_walls = {}, {}
-    widest = f"batch_demo_B{THROUGHPUT_WIDTHS[-1]}"
-    for path, make, images, gates, odd in (
+    # Each batch's single traces are shared with the other batches of its
+    # config and parity (by image seed), and the demo batches log their
+    # walls per trace beside each other's.
+    singles = {"demo": {}, "demo_odd": {}, "1000": {}, "1000_odd": {}}
+    demo_walls = {}
+    profiled = ("batch_demo_B16", f"batch_demo_B{THROUGHPUT_WIDTHS[-1]}",
+                f"batch_demo_oddE_B{ODD_DEMO_WIDTHS[-1]}")
+    odd_demo = functools.partial(demo_config, right=-2)
+    odd_big = functools.partial(big_config, right=-2)
+    for path, make, images, gates, shared in (
             ("batch_demo_B16", demo_config, BATCH_DEMO_IMAGES, (0.97, None),
-             False),
+             "demo"),
             *((f"batch_demo_B{B}", demo_config, tuple(range(1, B + 1)),
-               (BATCH_THROUGHPUT_GATES[B], None), False)
+               (BATCH_THROUGHPUT_GATES[B], None), "demo")
               for B in THROUGHPUT_WIDTHS),
+            *((f"batch_demo_oddE_B{B}", odd_demo, tuple(range(1, B + 1)),
+               (ODD_BATCH_GATES[B], None), "demo_odd")
+              for B in ODD_DEMO_WIDTHS),
             ("batch_1000_B4", big_config, BATCH_BIG_IMAGES, BIG_BATCH_GATES,
-             False),
-            ("batch_1000_oddE_B4", lambda d, image_seed: big_config(
-                d, right=-2, image_seed=image_seed), BATCH_BIG_IMAGES,
-             BIG_BATCH_GATES, True)):
+             "1000"),
+            ("batch_1000_oddE_B4", odd_big, BATCH_BIG_IMAGES,
+             BIG_BATCH_GATES, "1000_odd"),
+            ("batch_1000_oddE_B16", odd_big, BATCH_BIG_ODD_IMAGES,
+             ODD_BIG_BATCH_GATES, "1000_odd")):
         demo = path.startswith("batch_demo")
         frames = [make(dev, image_seed=i) for i in images]
         paths[path] = traced_batch(
-            checks, path, frames, gates, odd=odd,
-            profiled=path in ("batch_demo_B16", widest),
-            singles=demo_singles if demo else None,
+            checks, path, frames, gates, odd=shared.endswith("odd"),
+            profiled=path in profiled, singles=singles[shared],
             walls=demo_walls if demo else None)
         del frames
-    del demo_singles
+    del singles
     paths[f"ensemble_demo_K{ENSEMBLE_K}"] = ensemble_phase(checks, dev)
+    paths[f"ensemble_demo_oddE_K{ENSEMBLE_K}"] = ensemble_phase(checks, dev,
+                                                                odd=True)
     paths["multi_edge"] = multi_edge_phase(checks, dev)
     paths["sequence_demo_3"] = sequence_phase(checks, dev)
     paths.update(sharded_phase(checks, dev))

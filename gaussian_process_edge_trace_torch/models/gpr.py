@@ -19,8 +19,8 @@ gives a frame the same bits whatever the number of frames fitted with it,
 so a batch frame ends where its single trace does. On the card the
 library's batched calls and ``torch.sum`` choose their order of operations
 from the batch size, so there its factors and solves go through K5 and K6,
-one block per matrix, and its sums through a fixed tree
-(:func:`fixed_sum`). On the CPU the library's calls and ``torch.sum``
+one block per matrix, and its sums through a fixed tree (:func:`fixed_sum`,
+from ``ops/sums.py``). On the CPU the library's calls and ``torch.sum``
 already keep one order per matrix and per sum, and hold the JAX package's
 parity that the tests check; there they stay.
 """
@@ -36,6 +36,9 @@ from gaussian_process_edge_trace_torch.models.kernels import (
     KernelSpec, cross_gram, dk_unit_dlog_ls, k_unit, per_frame, train_gram)
 from gaussian_process_edge_trace_torch.ops.cuda_chol import (
     backward_solve_auto, cholesky_auto, forward_solve_auto)
+# Re-exported: the final fit's sums (ops/sums.py).
+from gaussian_process_edge_trace_torch.ops.sums import (  # noqa: F401
+    _on_card, fixed_sum, tree_sum)
 
 
 class GPState(NamedTuple):
@@ -46,32 +49,6 @@ class GPState(NamedTuple):
     x: torch.Tensor       # (n,) training inputs
     y_mean: torch.Tensor  # scalar removed mean (0 if centre=False)
     mask: torch.Tensor    # (n,) bool validity
-
-
-def _on_card(x):
-    return x.device.type == "cuda"
-
-
-def tree_sum(x, dim=-1):
-    """Sum over ``dim`` by a fixed pairwise tree of elementwise adds, the
-    axis padded with zeros to a power of two: the order of the adds depends
-    on the length of ``dim`` alone, not on the other axes."""
-    x = x.movedim(dim, -1)
-    n = x.shape[-1]
-    width = 1 << max(n - 1, 0).bit_length()
-    if width != n:
-        x = torch.nn.functional.pad(x, (0, width - n))
-    while x.shape[-1] > 1:
-        half = x.shape[-1] // 2
-        x = x[..., :half] + x[..., half:]
-    return x[..., 0]
-
-
-def fixed_sum(x, dim=-1):
-    """Sum over ``dim`` in an order that does not depend on the other axes:
-    :func:`tree_sum` on the card, where ``torch.sum`` picks its thread
-    layout from the number of sums it takes; ``torch.sum`` on the CPU."""
-    return tree_sum(x, dim) if _on_card(x) else x.sum(dim)
 
 
 def frame_by_frame(fn, *xs, min_dim=3):

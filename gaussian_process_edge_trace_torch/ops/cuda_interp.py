@@ -34,6 +34,7 @@ import torch
 from gaussian_process_edge_trace_torch.ops import cuda_build
 from gaussian_process_edge_trace_torch.ops.integrate import (
     simpson_nonuniform, simpson_weights)
+from gaussian_process_edge_trace_torch.ops.sums import fixed_sum
 
 # "fused_cost_transpose" counts the K1 launches that also wrote samples_t.
 LAUNCHES = {"fused_cost": 0, "fused_cost_transpose": 0, "column_interp": 0}
@@ -173,14 +174,16 @@ def line_and_arc(grad_score, ys, even="simpson"):
     from ``simpson_weights``, with ``step = sqrt(1 + dy²)``. The curvilinear
     coordinate cumsum(step) enters Simpson only through its widths, which
     are step[1:]. ``ys`` is (E, S) or (B, E, S); returns ``(line, arc)``,
-    each (S,) or (B, S)."""
+    each (S,) or (B, S). Both sums over E are :func:`fixed_sum`s, whose
+    order on the card depends on E alone, so a frame's costs are bitwise
+    those of a batch of one."""
     dy = torch.diff(ys, dim=-2)
     step = torch.sqrt(1.0 + dy * dy)
     line = simpson_nonuniform(grad_score[..., :-1, :], h=step[..., 1:, :],
                               even=even, axis=-2)
     arc_w = simpson_weights(torch.arange(ys.shape[-2] - 1, dtype=ys.dtype,
                                          device=ys.device), even=even)
-    return line, (arc_w[:, None] * step).sum(-2)
+    return line, fixed_sum(arc_w[:, None] * step, -2)
 
 
 def fused_cost_plain(cols, ys, kde_thresh=0.0, with_transpose=False):

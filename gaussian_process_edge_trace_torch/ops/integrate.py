@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from gaussian_process_edge_trace_torch.ops.sums import fixed_sum
+
 
 def _pair_contributions(y0, y1, y2, h0, h1):
     """Non-uniform Simpson contribution of one interval pair (scipy's
@@ -27,13 +29,15 @@ def _pair_contributions(y0, y1, y2, h0, h1):
 def _odd_block(y, h):
     """Pair rule over an odd number of points along axis 0. Every window is
     evaluated from unit-stride slices and the odd starts are masked out, as
-    the reference's ``_simpson_axis0`` does."""
+    the reference's ``_simpson_axis0`` does. The windows are summed by
+    :func:`fixed_sum`: on the card in an order set by the point count
+    alone, so a frame's sum does not depend on the frames beside it."""
     m = y.shape[0]
     contrib = _pair_contributions(y[:-2], y[1:-1], y[2:], h[:-1], h[1:])
     keep = (torch.arange(m - 2, device=y.device) % 2 == 0).reshape(
         (m - 2,) + (1,) * (contrib.dim() - 1))
-    return torch.where(keep, contrib, torch.zeros((), dtype=y.dtype,
-                                                  device=y.device)).sum(0)
+    return fixed_sum(torch.where(keep, contrib, torch.zeros(
+        (), dtype=y.dtype, device=y.device)), 0)
 
 
 def _cartwright_tail(y, h):

@@ -22,6 +22,7 @@ from gaussian_process_edge_trace_torch import interop
 from gaussian_process_edge_trace_torch.models import gpr
 from gaussian_process_edge_trace_torch.ops import cuda_build
 from gaussian_process_edge_trace_torch.ops import cuda_interp as ci
+from gaussian_process_edge_trace_torch.ops import sums
 from gaussian_process_edge_trace_torch.parallel import sharded as ps
 from gaussian_process_edge_trace_torch.trace import cuda_kde as ck
 from gaussian_process_edge_trace_torch.trace import driver as pd
@@ -182,6 +183,7 @@ def test_card_final_fit_does_not_depend_on_frames(small_batch, monkeypatch):
     u = draws.restarts()
     cpu = pd._final_fit_buffers(pcfg, pdata, u, x, y, mask, noise_w)
     monkeypatch.setattr(gpr, "_on_card", lambda t: True)
+    monkeypatch.setattr(sums, "_on_card", lambda t: True)
     batch = pd._final_fit_buffers(pcfg, pdata, u, x, y, mask, noise_w)
     for f in range(3):
         one = pd._final_fit_buffers(pcfg, _frame_data(pdata, f), u,

@@ -4,11 +4,17 @@ frame traced alone, on a CUDA card.
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
     python3 tests/torch_batch_invariance.py [--iters 3] [--demo-frames 16]
-        [--big-frames 4]
+        [--big-frames 4] [--odd]
+
+For example ``--iters 16 --odd --demo-frames 256 --big-frames 0`` and
+``--iters 16 --odd --demo-frames 0 --big-frames 16`` hold
+``chip_smoke.py``'s widest odd-E batches (about 1-2 min each on an H100).
 
 For ``chip_smoke.py``'s demo batch (image seeds 1-16, or 1-N with
-``--demo-frames N``) and 1000² batch (image seeds 1-4; ``--big-frames 0``
-leaves it out), tracer seed 1, it steps the batch's loop with
+``--demo-frames N``; 0 leaves it out) and 1000² batch (image seeds 1-4,
+or 1-N with ``--big-frames N``), tracer seed 1, with ``--odd`` the right
+endpoint one column in (E = 499 and 999: the loop scores through K2 and
+``line_and_arc``'s Simpson sums over E), it steps the batch's loop with
 ``trace_batch``'s default draws, and at each iteration feeds every stage
 of ``trace/driver.py::_iteration`` the batch's own inputs to that stage,
 once for all frames and once for each frame alone (a batch of one, as a
@@ -20,13 +26,20 @@ batched library call each ("... batched call"), beside the port's own
 sampling round (``_sample_round``, which runs them frame by frame on the
 card); the stages after it take the port's curves. The masked std and the
 kept curves' weights are shown also as one ``torch.sum`` over every frame
-("... one torch.sum call"), beside the port's ``frame_sum``. The last line
-is one JSON object of all rows.
+("... one torch.sum call"), beside the port's ``frame_sum``, and so are
+the costs, whose sums over E the port takes by ``ops/sums.py::fixed_sum``.
+After the last iteration the final fit runs on the state the loop reached
+(its mean curve, std, θ and LML, batch against each frame alone), and the
+final cost (``curve_costs`` at S = 1 on the batch's final mean curves),
+also as one ``torch.sum`` call. The last line is one JSON object of all
+rows; the script exits 1 if a stage of the port (a row that is not a
+contrast) moved a frame.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import sys
@@ -34,6 +47,22 @@ import sys
 import numpy as np
 
 sys.path.append(str(pathlib.Path(__file__).resolve().parents[1]))
+
+
+# The rows that show a library call or torch.sum in the port's place.
+CONTRASTS = ("batched call", "batched samples", "one torch.sum call")
+
+
+@contextlib.contextmanager
+def torch_sums():
+    """Within the block, ``fixed_sum`` is ``torch.sum`` on the card too."""
+    from gaussian_process_edge_trace_torch.ops import sums
+    on_card = sums._on_card
+    sums._on_card = lambda t: False
+    try:
+        yield
+    finally:
+        sums._on_card = on_card
 
 
 def stages(cfg, data, state, z, w, blur, consts):
@@ -86,6 +115,9 @@ def stages(cfg, data, state, z, w, blur, consts):
                                    kde_thresh=cfg.kde_thresh,
                                    return_samples_t=True)
     out["costs"] = costs
+    with torch_sums():
+        out["costs one torch.sum call"] = curve_costs(
+            data.grad_cols, samples, kde_thresh=cfg.kde_thresh)
     bc, bcosts = best_curves(samples, costs, cfg.N_keep, samples_t=samples_t)
     out["kept curves"] = bc
     inv = 1.0 / bcosts
@@ -102,6 +134,25 @@ def stages(cfg, data, state, z, w, blur, consts):
         pixel_thresh=cfg.pixel_thresh, algo_thresh=cfg.algo_thresh,
         max_decays=cfg.max_decays, consts=consts)
     out["selected x"] = sel.obs_x
+    return out
+
+
+def final_stages(cfg, data, state, draws, y_mean=None):
+    """The final fit's results on ``state`` and the final cost of
+    ``y_mean`` (default: the fit's own mean curves), as ``finish_trace``
+    computes it, and with ``torch.sum`` in ``fixed_sum``'s place."""
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    from gaussian_process_edge_trace_torch.trace.scoring import curve_costs
+    res = pd.finish_trace(cfg, data, state, draws)
+    out = {f"final fit {k}": getattr(res, k)
+           for k in ("y_mean", "y_std", "theta", "lml")}
+    ys = (res.y_mean if y_mean is None else y_mean)[..., None]
+    even = "avg" if cfg.legacy_simpson else "simpson"
+    out["final cost"] = curve_costs(data.grad_cols, ys, cfg.kde_thresh,
+                                    even)[..., 0]
+    with torch_sums():
+        out["final cost one torch.sum call"] = curve_costs(
+            data.grad_cols, ys, cfg.kde_thresh, even)[..., 0]
     return out
 
 
@@ -128,24 +179,32 @@ def run(tag, configs, iters):
     consts = select_consts(cfg.bins, cfg.N, cfg.max_decays, dev)
     own_d = ("grad_img", "grad_kde", "grad_cols", "init_x", "init_y")
     rows = []
-    for k in range(iters):
-        z, w = draws.normals(k)
-        whole = stages(cfg, data, state, z, w, blur, consts)
-        alone = [stages(cfg, frame(data, f, own_d), frame(
-            state, f, pd.TraceState._fields), z, w, blur, consts)
-            for f in range(B)]
+
+    def compare(k, whole, alone):
         for name, v in whole.items():
             diff = [f for f in range(B)
                     if not torch.equal(v[f], alone[f][name][0])]
             gap = max([(v[f].double() - alone[f][name][0].double()).abs()
                        .max().item() for f in diff] or [0.0])
             rows.append({"batch": tag, "iteration": k, "stage": name,
+                         "contrast": name.endswith(CONTRASTS),
                          "frames_differing": len(diff), "max_abs": gap})
-            print(f"[{tag}] iteration {k} {name:27s} frames differing from "
-                  f"their single run: {len(diff):2d} of {B}, max |diff| "
+            print(f"[{tag}] iteration {k} {name:30s} frames differing from "
+                  f"their single run: {len(diff):3d} of {B}, max |diff| "
                   f"{gap:.3e}", flush=True)
+
+    fields = pd.TraceState._fields
+    for k in range(iters):
+        z, w = draws.normals(k)
+        compare(k, stages(cfg, data, state, z, w, blur, consts),
+                [stages(cfg, frame(data, f, own_d), frame(state, f, fields),
+                        z, w, blur, consts) for f in range(B)])
         state, _ = pd._iteration(cfg, data, state, z, w, blur=blur,
                                  consts=consts, k=k)
+    whole = final_stages(cfg, data, state, draws)
+    compare("final", whole, [final_stages(
+        cfg, frame(data, f, own_d), frame(state, f, fields), draws,
+        y_mean=whole["final fit y_mean"][f:f + 1]) for f in range(B)])
     return rows
 
 
@@ -155,6 +214,8 @@ def main(argv=None):
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--demo-frames", type=int, default=16)
     p.add_argument("--big-frames", type=int, default=4)
+    p.add_argument("--odd", action="store_true",
+                   help="the right endpoint one column in: odd E")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -163,15 +224,21 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     print(f"[card] {cs.card_line()}")
     rows = []
-    for tag, make, n in ((f"demo_B{args.demo_frames}", cs.demo_config,
+    odd = "_oddE" if args.odd else ""
+    for tag, make, n in ((f"demo{odd}_B{args.demo_frames}", cs.demo_config,
                           args.demo_frames),
-                         (f"1000_B{args.big_frames}", cs.big_config,
+                         (f"1000{odd}_B{args.big_frames}", cs.big_config,
                           args.big_frames)):
         if n:
-            rows += run(tag, [make(dev, image_seed=i)
+            rows += run(tag, [make(dev, image_seed=i,
+                                   right=-2 if args.odd else -1)
                               for i in range(1, n + 1)], args.iters)
+    moved = sorted({(r["batch"], r["stage"]) for r in rows
+                    if r["frames_differing"] and not r["contrast"]})
+    print(f"[summary] every stage of the port bitwise each frame alone: "
+          f"{not moved}{'' if not moved else f' (moved: {moved})'}")
     print(json.dumps(rows))
-    return 0
+    return 1 if moved else 0
 
 
 if __name__ == "__main__":

@@ -8,8 +8,9 @@ Run from the repository root on a CPU (about 75 s per replayed seed and
     JAX_PLATFORMS=cpu python tests/torch_reference_1000.py --seeds 1 2 3 \
         --reference-only 4 5 6 7 8 9 10
 
-``--image-seed K`` traces the config's image drawn from seed K (the
-suite's is 1; ``chip_smoke.py``'s 1000² batches take 1-4).
+``--image-seed K [K ...]`` traces the config's images drawn from seeds K
+(the suite's is 1; ``chip_smoke.py``'s 1000² batches take 1-4, and 1-16 at
+E = 999), each with every tracer seed of the run.
 ``--samples S`` traces the config at S posterior samples per iteration
 (the suite's other rows: 1000 and 100000; at S=10⁵ the JAX package's CPU
 KDE scans 76 blocks of 532 MB per iteration, several minutes per seed,
@@ -195,8 +196,9 @@ def main(argv=None):
     p.add_argument("--reference-only", type=int, nargs="*", default=[])
     p.add_argument("--right-end", type=int, default=999,
                    help="column of the right endpoint (999: the last)")
-    p.add_argument("--image-seed", type=int, default=1,
-                   help="seed of the synthetic image (1: the suite's)")
+    p.add_argument("--image-seed", type=int, nargs="+", default=[1],
+                   help="seeds of the synthetic images (1: the suite's); "
+                        "every seed is traced on each image in turn")
     p.add_argument("--samples", type=int, default=BIG_KW["N_samples"],
                    help="posterior samples per iteration (the suite's rows: "
                         "1000, 10000, 100000)")
@@ -204,17 +206,18 @@ def main(argv=None):
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     batched_reference_fit()
-    _, edge, grad, init = big_problem(args.image_seed)
-    init = edge[[0, args.right_end]][:, [1, 0]]
     rows = []
-    for seed, replay in ([(s, True) for s in args.seeds]
-                         + [(s, False) for s in args.reference_only]):
-        row = run_seed(seed, edge, grad, init, replay, args.samples)
-        row["edge_length"] = int(init[1, 0]) + 1
-        row["samples"] = args.samples
-        row["image_seed"] = args.image_seed
-        print(json.dumps(row), flush=True)
-        rows.append(row)
+    for image_seed in args.image_seed:
+        _, edge, grad, init = big_problem(image_seed)
+        init = edge[[0, args.right_end]][:, [1, 0]]
+        for seed, replay in ([(s, True) for s in args.seeds]
+                             + [(s, False) for s in args.reference_only]):
+            row = run_seed(seed, edge, grad, init, replay, args.samples)
+            row["edge_length"] = int(init[1, 0]) + 1
+            row["samples"] = args.samples
+            row["image_seed"] = image_seed
+            print(json.dumps(row), flush=True)
+            rows.append(row)
     peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**10
     print(json.dumps({"rows": rows, "peak_rss_mib": round(peak, 1)}))
     return 0 if all(r.get("same_pixels", True)

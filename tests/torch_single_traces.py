@@ -7,6 +7,8 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
     python3 tests/torch_single_traces.py walls [--runs 7] [--label NAME]
     python3 tests/torch_single_traces.py dice [--images 1 2 3 4] \\
         [--seeds 1 2 ... 10] [--right-end 999 998]
+    python3 tests/torch_single_traces.py results --save FILE
+    python3 tests/torch_single_traces.py results --compare FILE_A FILE_B
 
 ``walls`` times one trace of each of the demo config, the 1000² S=10⁴
 config at E = 1000 and at E = 999 (image seed 1, tracer seed 1): the host
@@ -29,6 +31,14 @@ the JAX package's on a CPU from ``tests/torch_reference_1000.py
 --image-seed K --reference-only ...``. The port's default draws give no
 two tracer seeds below 2¹⁶ a stream in common (``trace/driver.py::
 TorchDraws``), so consecutive seeds are independent samples.
+
+``results --save`` keeps every ``TraceResult`` field of the demo config's
+traces at E = 500 and 499 (tracer seeds 1-3) and of the 1000² config's at
+E = 1000 (seed 1) and 999 (seeds 1-3), image seed 1, in ``FILE``;
+``results --compare`` (no card needed) names, for each trace of two such
+files (two trees, each run with ``PYTHONPATH`` set to it), the fields that
+differ in any bit, with the largest absolute difference of each float
+field and that over its largest magnitude.
 
 Each mode prints one line per trace and, last, one JSON object.
 """
@@ -150,6 +160,59 @@ def dice(args, gpt, torch, dev):
     return {"mode": "dice", "rows": rows, "summary": summary}
 
 
+# results: (name, config, right endpoint column, tracer seeds).
+RESULT_CASES = (("demo", DEMO, 499, (1, 2, 3)),
+                ("demo_oddE", DEMO, 498, (1, 2, 3)),
+                ("1000", BIG, 999, (1,)),
+                ("1000_oddE", BIG, 998, (1, 2, 3)))
+
+
+def results(args, gpt, torch, dev):
+    """Every field of each ``RESULT_CASES`` trace, saved to ``args.save``."""
+    out = {}
+    for tag, config, right, seeds in RESULT_CASES:
+        for seed in seeds:
+            tracer, _ = make_tracer(gpt, config, right, 1, seed, dev)
+            tracer()
+            out[f"{tag} seed {seed}"] = {
+                k: v.cpu() if isinstance(v, torch.Tensor) else v
+                for k, v in tracer.last_result._asdict().items()}
+            print(f"[results] {tag} seed {seed}: n_iters "
+                  f"{out[f'{tag} seed {seed}']['n_iters']}", flush=True)
+    torch.save(out, args.save)
+    return {"mode": "results", "saved": args.save, "traces": list(out)}
+
+
+def compare(path_a, path_b):
+    """Per trace of two ``results`` files: the fields that differ in any
+    bit, and each float field's largest absolute and relative gap."""
+    import torch
+    a, b = torch.load(path_a), torch.load(path_b)
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    rows = {}
+    for name in a:
+        gaps = {}
+        for f, x in a[name].items():
+            y = b[name][f]
+            if not isinstance(x, torch.Tensor):
+                if x != y:
+                    gaps[f] = None
+                continue
+            if x.is_floating_point():
+                if x.shape != y.shape or not torch.equal(
+                        x.view(ints[x.element_size()]),
+                        y.view(ints[y.element_size()])):
+                    d = (x.double() - y.double()).abs().max().item()
+                    gaps[f] = {"max_abs": d, "max_rel": d / max(
+                        y.double().abs().max().item(), 1e-30)}
+            elif not torch.equal(x, y):
+                gaps[f] = None
+        rows[name] = gaps
+        print(f"[compare] {name}: differs in {list(gaps)} {gaps}",
+              flush=True)
+    return {"mode": "compare", "files": [path_a, path_b], "rows": rows}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = p.add_subparsers(dest="mode", required=True)
@@ -161,7 +224,14 @@ def main(argv=None):
     d.add_argument("--seeds", type=int, nargs="+",
                    default=list(range(1, 11)))
     d.add_argument("--right-end", type=int, nargs="+", default=[999, 998])
+    r = sub.add_parser("results")
+    one = r.add_mutually_exclusive_group(required=True)
+    one.add_argument("--save", metavar="FILE")
+    one.add_argument("--compare", nargs=2, metavar="FILE")
     args = p.parse_args(argv)
+    if args.mode == "results" and args.compare:
+        print(json.dumps(compare(*args.compare)), flush=True)
+        return 0
 
     import torch
     if not torch.cuda.is_available():
@@ -169,7 +239,8 @@ def main(argv=None):
         return 1
     import gaussian_process_edge_trace_torch as gpt
     dev = torch.device("cuda", 0)
-    out = (walls if args.mode == "walls" else dice)(args, gpt, torch, dev)
+    out = {"walls": walls, "dice": dice, "results": results}[args.mode](
+        args, gpt, torch, dev)
     out["package"] = gpt.__file__
     out["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(out), flush=True)
