@@ -27,9 +27,9 @@ It computes in float64, as its reference does (x64 on), on ``device``
 :func:`..models.gpr.safe_cholesky` without its per-matrix kernel route): the
 JAX package computes them with XLA outside any Pallas kernel, and the K5/K6
 kernels take float32 only. Gradients come from ``torch.autograd``. Random
-draws (restarts, ``sample_y``) come from a CPU generator seeded with
-``random_state`` and are moved to the device, so the card and the CPU start
-from the same numbers.
+draws (restarts, ``sample_y``) are the JAX package's float64 draws of
+``PRNGKey(random_state)`` (``ops/prng.py``), made on the CPU and moved to
+the device, so the card and the CPU start from the same numbers.
 
 Inputs are (n, 1) or (n,) arrays of scalar locations, the only input shape
 the reference supports in practice (pixel columns).
@@ -48,6 +48,7 @@ from gaussian_process_edge_trace_torch.models.gpr import (
 from gaussian_process_edge_trace_torch.models.kernels import (
     KernelSpec, cross_gram, k_unit_np, train_gram)
 from gaussian_process_edge_trace_torch.models.lbfgs import minimize_lbfgs_b
+from gaussian_process_edge_trace_torch.ops import prng
 
 _F64 = torch.float64
 
@@ -193,6 +194,48 @@ def _normalise_kernel(kernel):
     raise TypeError(f"unsupported kernel expression: {kernel!r}")
 
 
+def _newton_polish(fun, x, fx, lb, ub, steps=3, h=1e-6):
+    """Newton steps on the gradient from L-BFGS's optimum ``x`` (value
+    ``fx``) over the dimensions that lie inside their bounds. The Armijo
+    search accepts steps by their values, which near a flat optimum differ
+    by less than their float64 rounding, so L-BFGS resolves the optimum
+    only to about the square root of it (1e-8 relative): a change of the
+    data at the rounding's level, or the card's rounding in place of the
+    CPU's, moves its result that far. The gradient keeps resolving it. The
+    Hessian is the central difference of the gradient; a step is kept when
+    it shrinks the gradient without raising the value beyond rounding.
+
+    A stage of the port's own: the JAX package returns L-BFGS's best start
+    as it stands (sklearn_api.py:331). The polished θ lies within that
+    search's resolution of the JAX package's (tests/test_torch_sklearn.py::
+    test_optimum_resolved_past_the_rounding)."""
+    d = x.shape[-1]
+    free = (x > lb + h) & (x < ub - h)
+    n = int(free.sum())
+    if n == 0:
+        return x, fx
+    idx = torch.nonzero(free)[:, 0]
+    eye = torch.eye(d, dtype=x.dtype, device=x.device)[idx]   # (n, d)
+    _, g = fun(x[None])
+    g = g[0]
+    for _ in range(steps):
+        _, gs = fun(torch.cat([x[None] + h * eye, x[None] - h * eye]))
+        H = ((gs[:n] - gs[n:]) / (2 * h))[:, idx]
+        H = 0.5 * (H + H.T)
+        step = torch.linalg.solve_ex(H, -g[idx]).result
+        if not bool(torch.isfinite(step).all()):
+            break
+        xn = torch.minimum(torch.maximum(x.index_add(0, idx, step), lb), ub)
+        fn, gn = fun(xn[None])
+        fn, gn = fn[0], gn[0]
+        if not (bool(torch.isfinite(fn)) and float(gn[idx].abs().max())
+                < float(g[idx].abs().max())
+                and float(fn) <= float(fx) + 1e-12 * abs(float(fx))):
+            break
+        x, fx, g = xn, fn, gn
+    return x, fx
+
+
 class GaussianProcessRegressor:
     """GPR with the reference fork's semantics, in float64 on ``device``.
 
@@ -322,19 +365,23 @@ class GaussianProcessRegressor:
             with torch.no_grad():
                 return -lml(th)
 
-        gen = torch.Generator().manual_seed(self.random_state)
-        restarts = torch.rand((self.n_restarts_optimizer, 3), generator=gen,
-                              dtype=_F64).numpy() * (ub - lb) + lb
+        # The JAX package's float64 uniforms of PRNGKey(random_state)
+        # (sklearn_api.py:319-321).
+        restarts = prng.uniform64_plain(
+            prng.prng_key(self.random_state),
+            (self.n_restarts_optimizer, 3)).numpy() * (ub - lb) + lb
         starts = self._t(np.concatenate([theta0[None], restarts]))
         res = minimize_lbfgs_b(fun, starts, self._t(lb), self._t(ub),
                                max_iters=64, values=values)
         f = res.f.cpu().numpy()
         best = int(np.argmin(np.where(np.isfinite(f), f, np.inf)))
-        theta = res.x[best].cpu().numpy()
+        x, fx = _newton_polish(fun, res.x[best], res.f[best],
+                               self._t(lb), self._t(ub))
+        theta = x.cpu().numpy()
         k.signal.k1.constant_value = float(np.exp(theta[0]))
         k.signal.k2.length_scale = float(np.exp(theta[1]))
         k.noise.noise_level = float(np.exp(theta[2]))
-        self.log_marginal_likelihood_value_ = float(-f[best])
+        self.log_marginal_likelihood_value_ = float(-fx)
 
     def _unscale(self, a, power=1):
         """Per-target rescale of (nq, [nq,] m) values by ``sd**power`` (and
@@ -425,23 +472,28 @@ class GaussianProcessRegressor:
     def sample_y(self, X, n_samples=1, random_state=0):
         """``n_samples`` posterior draws at ``X`` (sklearn_gpr.py:440-473),
         (nq, S) or (nq, n_targets, S); before ``fit``, draws of the prior
-        through its eigendecomposition. The normals come from a CPU
-        generator seeded with ``random_state``, one (z, w) pair per target
-        in turn."""
-        gen = torch.Generator().manual_seed(int(random_state))
+        through its eigendecomposition. The float64 normals are the JAX
+        package's (sklearn_api.py:428-475): ``split(PRNGKey(random_state))``
+        into the prior and noise keys, per target of a multi-output fit
+        ``split(fold_in(key, t))``, and the prior's normals of the unfolded
+        key itself; drawn on the CPU (:func:`~..ops.prng.normal64_plain`)."""
+        key = prng.prng_key(int(random_state))
         S = int(n_samples)
         X = np.asarray(X, dtype=np.float64).reshape(-1)
         if hasattr(self, "_L"):
             n = self.X_train_.shape[0]
-            normals = [(torch.randn((X.shape[0] + n, S), generator=gen,
-                                    dtype=_F64),
-                        torch.randn((n, S), generator=gen, dtype=_F64))
-                       for _ in range(self._n_targets or 1)]
+            keys = ([key] if self._n_targets is None else
+                    [prng.fold_in(key, t) for t in range(self._n_targets)])
+            normals = []
+            for k in keys:
+                kp, kn = prng.split(k)
+                normals.append((prng.normal64_plain(kp, (X.shape[0] + n, S)),
+                                prng.normal64_plain(kn, (n, S))))
             return self._sample_from(X, normals)
         mean, cov = self.predict(X, return_cov=True)
         w, V = torch.linalg.eigh(self._t(cov))
         Fq = V * torch.sqrt(torch.clamp(w, min=0.0))[None, :]
-        z = torch.randn((cov.shape[0], S), generator=gen, dtype=_F64)
+        z = prng.normal64_plain(key, (cov.shape[0], S))
         return mean[:, None] + (Fq @ self._t(z)).cpu().numpy()
 
     def score(self, X, y):

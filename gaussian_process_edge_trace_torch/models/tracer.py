@@ -58,7 +58,7 @@ class GP_Edge_Tracing:
     keep_ratio, pixel_thresh, seed, return_std, fix_endpoints)``. Keyword-only
     extras: ``max_iters``, ``reference_quirks``, ``legacy_simpson``,
     ``device`` (where the trace runs; ``"cuda"`` by default) and ``draws``
-    (a draw source for the trace, :class:`TorchDraws` by default).
+    (a draw source for the trace, :class:`StreamDraws` by default).
     """
 
     def __init__(self, init, grad_img, kernel_options=(1, 3, 3), noise_y=1,
@@ -167,7 +167,7 @@ class GP_Edge_Tracing:
         N_samples) (gpet.py:259-261). ``converged=True``: the LML-optimised
         fit, ``(y_mean, y_std)`` with the std in standardised units
         (gpet.py:263-266). The draws are the reference's ``PRNGKey(seed)``
-        stream, :class:`~..trace.driver.SeedDraws` of ``seed``, unless
+        stream, :class:`~..trace.driver.KeyDraws` of ``seed``, unless
         ``draws`` (a source with ``sample_normals(n)`` and ``restarts()``)
         is given."""
         bufs = self._buffers_for_obs(obs)

@@ -33,7 +33,7 @@ import torch.distributed as dist
 from gaussian_process_edge_trace_torch.ops.collectives import (
     SampleShard, all_gather_stack)
 from gaussian_process_edge_trace_torch.trace.driver import (
-    FrameDraws, TorchDraws, TraceResult, TracerConfig, TracerData,
+    FrameDraws, StreamDraws, TraceResult, TracerConfig, TracerData,
     TraceState, _device_at, _round_up, frame_arrays, frame_of, init_state,
     prior_factor, resolve_device, run_trace)
 
@@ -100,13 +100,10 @@ def trace_ensemble(cfg: TracerConfig, data: TracerData, state0: TraceState,
     shares (``state0`` is broadcast, not copied), and the member with the
     lowest ``final_cost`` is kept; a NaN cost counts as +inf.
 
-    ``draws``: one draw source per member. By default member k is
-    :class:`TorchDraws` with ``member=k``: member 0 draws what the single
-    trace draws, and no two members' streams, nor those of another tracer
-    seed's members, share a generator seed (the JAX package's member key
-    ``seed + k`` would make member k of one seed member 0 of seed + k).
-    On the card any number of members below 2¹⁶; on the CPU, whose
-    generator keeps 32 bits of a seed, at most 64 (more raise).
+    ``draws``: one draw source per member. By default member k draws the
+    JAX package's stream of ``PRNGKey(cfg.seed + k)`` (sharded.py:127,
+    :class:`StreamDraws` of seed ``cfg.seed + k``), so member k is the
+    single trace of seed ``cfg.seed + k`` and member 0 the config's own.
     Returns the chosen member as one trace's :class:`TraceResult`, or with
     ``return_all`` the pair ``(chosen, all)``, ``all`` with a leading
     member axis."""
@@ -114,7 +111,8 @@ def trace_ensemble(cfg: TracerConfig, data: TracerData, state0: TraceState,
         raise ValueError(f"n_seeds must be >= 1, got {n_seeds}")
     if draws is None:
         rank, dev = data.L_prior_unit.shape[1], data.grad_img.device
-        draws = [TorchDraws(cfg, rank, dev, member=k) for k in range(n_seeds)]
+        draws = [StreamDraws(cfg, rank, dev, seed=cfg.seed + k)
+                 for k in range(n_seeds)]
     if len(draws) != n_seeds:
         raise ValueError(f"{len(draws)} draw sources for {n_seeds} members")
     states = TraceState(*(
@@ -218,7 +216,7 @@ def trace_sequence(cfg: TracerConfig, grad_imgs, inits, device=None,
       device: where the frames run; that of a tensor input by default, else
         the card.
       draws: optional ``config -> draw source``, called with each frame's
-        config (the warm config's ``n_train`` differs); :class:`TorchDraws`
+        config (the warm config's ``n_train`` differs); :class:`StreamDraws`
         by default.
 
     Returns a list of one :class:`TraceResult` per frame.
@@ -246,7 +244,7 @@ def trace_sequence(cfg: TracerConfig, grad_imgs, inits, device=None,
             state = init_state(c, *_compact_warm_obs(
                 prev.obs_x, prev.obs_y, prev.obs_valid, c.n_user_obs),
                 device=device)
-        src = (TorchDraws(c, L_unit.shape[1], device) if draws is None
+        src = (StreamDraws(c, L_unit.shape[1], device) if draws is None
                else draws(c))
         results.append(run_trace(c, data, state, src))
     return results
@@ -310,8 +308,9 @@ def sharded_trace_batch(cfg: TracerConfig, data: TracerData,
     the end one ``all_gather`` over the data group gives every rank all
     ``n_frames`` results in order, shaped as :func:`trace_batch`'s.
 
-    ``draws``: one source for every frame (:class:`TorchDraws` by
-    default); each rank takes its columns of its normals. Raises
+    ``draws``: one source for every frame (:class:`StreamDraws` by
+    default, ``PRNGKey(cfg.seed)`` as in sharded.py:190); each rank draws
+    only its columns of the normals. Raises
     ``ValueError`` unless ``n_data`` divides ``n_frames``, ``n_sample``
     divides ``cfg.N_samples``, the batch holds ``n_frames`` frames and the
     mesh's device type is the data's.

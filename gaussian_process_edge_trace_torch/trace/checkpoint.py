@@ -10,7 +10,11 @@ resume mid-trace and a frame sequence's hand-off are one mechanism:
   match what the caller resumes with;
 - :func:`save_state` / :func:`load_state` — the state alone;
 - :func:`resume_trace` — a saved state run to the end
-  (:func:`~.driver.run_trace` takes the loop carry as its input);
+  (:func:`~.driver.run_trace` takes the loop carry as its input). The
+  default draws are keyed by the config's seed and the state's iteration
+  alone (:class:`~.driver.StreamDraws`, the JAX package's stream), so a
+  resumed trace draws what the uninterrupted one draws, with no generator
+  state saved, also from a checkpoint that the JAX package wrote;
 - :func:`obs_from_result` — a finished trace's accepted observations as
   (n, 2) xy, the warm start of the next frame (gpet.py:57-61).
 

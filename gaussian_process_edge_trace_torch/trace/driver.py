@@ -26,11 +26,11 @@ and a frame that has finished keeps its state unchanged. A single trace is
 the case B = 1. In a batched :class:`TraceState` ``it`` is a (B,) int64
 tensor; every frame that is still active stands at the same iteration.
 
-Random numbers come from a draw source (:class:`TorchDraws` by default): the
-normals of iteration ``it`` and the uniforms of the final fit's restarts. A
-caller may pass another source with the same two methods, for instance one
-that replays the JAX package's draws. A batch's frames share one source,
-as the JAX package's frames share one key; sources whose draws carry a
+Random numbers come from a draw source (:class:`StreamDraws` by default, the
+JAX package's own random stream of the config's seed): the normals of
+iteration ``it`` and the uniforms of the final fit's restarts. A caller may
+pass another source with the same two methods. A batch's frames share one
+source, as the JAX package's frames share one key; sources whose draws carry a
 leading frame axis give each frame its own (an ensemble's members). Under a
 sample axis (``parallel/sharded.py::sharded_trace_batch``) a rank asks its
 source for its columns of the normals, ``normals(it, cols)``.
@@ -52,6 +52,7 @@ from gaussian_process_edge_trace_torch.models.kernels import (
     KernelSpec, k_unit_np, per_frame, resolve_kernel_options)
 from gaussian_process_edge_trace_torch.models.newton import (
     lml_screen_grid, screen_and_polish, screen_and_polish_batched)
+from gaussian_process_edge_trace_torch.ops import prng
 from gaussian_process_edge_trace_torch.trace.kde import (
     blur_matrices, curve_kde, gradient_kde)
 from gaussian_process_edge_trace_torch.trace.scoring import (
@@ -378,123 +379,41 @@ def _train_set(cfg: TracerConfig, data: TracerData, state: TraceState):
     return x, y, mask, noise_w
 
 
-# The default draw layout. A stream is (tracer seed s, ensemble member m,
-# slot t): t = it + 1 for the normals of iteration it (the reference's
-# ``fold_in(key, it+1)``, gpet.py:839), 0 for the final fit's restarts, and
-# the last slot of a packing for :class:`SeedDraws`. Streams with
-# 0 <= s < 2¹⁶, 0 <= m < 64 and t < 1024 take the 32-bit generator seed
-# s·2¹⁶ + m·2¹⁰ + t, within the bits the CPU generator keeps of a seed
-# (seeds 2³² apart give it the same normals). Any other stream takes the
-# 64-bit seed (s + 1)·2³² + m·2¹⁶ + t, for s < 2³¹, m < 2¹⁶ and t < 2¹⁶,
-# which only a generator that keeps all 64 bits tells apart: the card's
-# Philox. Each packing is injective, and the second lies at 2³² and above,
-# so no two streams share a generator seed.
-_MEMBER_BITS = 6
-_SLOT_BITS = 10
-_WIDE_BITS = 16
+class StreamDraws:
+    """The default draw source: the JAX package's random stream of one
+    tracer seed (``cfg.seed`` unless ``seed`` is given), derived as the JAX
+    package derives it (``ops/prng.py``).
 
-# SeedDraws' slot in each packing: iterations take slots 1..max_iters below
-# it and the restarts slot 0, so it is never a trace's.
-SEED_SLOT = 2 ** _SLOT_BITS - 1
-WIDE_SEED_SLOT = 2 ** _WIDE_BITS - 1
+    ``normals(it, cols)`` are iteration ``it``'s draws: ``split(fold_in(
+    PRNGKey(seed), it + 1))`` into a prior and a noise key (driver.py:394,
+    gpr.py:208), then the (r, S) and (n_train, S) standard normals of those
+    keys (gpr.py:233,238), or their columns ``cols``: a rank that holds
+    samples [off, off + S/k) of a sample group takes ``slice(off, off +
+    S/k)``, and its columns are the full draw's bit for bit.
+    ``restarts()`` are the final fit's (lml_restarts, 3) uniforms in [0, 1)
+    of ``fold_in(PRNGKey(seed), 0)`` (driver.py:590,639-640). On the card
+    both come from ``csrc/threefry_normal_kernel.cu``, on the CPU from its
+    plain version, and both equal ``jax.random``'s draws."""
 
-
-def _stream_seed(s: int, m: int, t: int, seed_slot: bool = False) -> int:
-    """The generator seed of stream (s, m, t): the 32-bit packing where the
-    stream fits it, else the 64-bit one. Trace streams take slots below
-    ``SEED_SLOT`` in the first; ``seed_slot`` asks for SeedDraws' slot."""
-    narrow = (s < 2 ** (32 - _MEMBER_BITS - _SLOT_BITS)
-              and m < 2 ** _MEMBER_BITS and t < SEED_SLOT)
-    if seed_slot:
-        t = SEED_SLOT if narrow else WIDE_SEED_SLOT
-    if narrow:
-        return (s << (_MEMBER_BITS + _SLOT_BITS)) + (m << _SLOT_BITS) + t
-    return ((s + 1) << 32) + (m << _WIDE_BITS) + t
-
-
-def _check_streams(device, s: int, m: int, last_slot: int):
-    """Raise unless the streams (s, m, 0..last_slot) each have a generator
-    seed of their own on ``device``: within the 64-bit packing's limits, and
-    within the 32-bit one's where the generator keeps only 32 bits of a
-    seed (every generator but the card's)."""
-    if not 0 <= s < 2 ** 31:
-        raise ValueError(f"tracer seed {s} outside [0, 2**31)")
-    if not 0 <= m < 2 ** _WIDE_BITS:
-        raise ValueError(f"member {m} outside [0, 2**{_WIDE_BITS})")
-    if last_slot >= WIDE_SEED_SLOT:
-        raise ValueError(f"max_iters {last_slot} above "
-                         f"{WIDE_SEED_SLOT - 1}, the layout's slot limit")
-    if torch.device(device).type == "cuda":
-        return
-    over = [msg for bad, msg in (
-        (s >= 2 ** 16, f"tracer seed {s} outside [0, 2**16)"),
-        (m >= 2 ** _MEMBER_BITS, f"member {m} outside [0, 64)"),
-        (last_slot >= SEED_SLOT, f"max_iters {last_slot} above "
-                                 f"{SEED_SLOT - 1}")) if bad]
-    if over:
-        raise ValueError(
-            f"{'; '.join(over)}: the generator on "
-            f"{torch.device(device)} keeps 32 bits of a seed, and these "
-            f"streams would share their normals with others (the card's "
-            f"generator takes them)")
-
-
-class TorchDraws:
-    """The default draw source: ``torch.Generator``s on ``device``, one
-    generator seed per stream.
-
-    Tracer seed ``s``, ensemble member ``m`` and slot ``t`` (``it + 1`` for
-    the normals of iteration ``it``, the reference's ``fold_in(key,
-    it+1)``, gpet.py:839; 0 for the final fit's restarts) pack into the
-    32-bit generator seed ``s·2¹⁶ + m·2¹⁰ + t`` for s < 2¹⁶, m < 64 and
-    t <= 1022, and into the 64-bit ``(s + 1)·2³² + m·2¹⁶ + t`` otherwise,
-    for s < 2³¹, m < 2¹⁶ and ``max_iters`` <= 2¹⁶ - 2. No two (seed,
-    member, iteration-or-restart) streams share a generator seed, so seed
-    s + 1 does not replay seed s's normals, no two members of an ensemble
-    share a stream, and member 0 is the single trace's source. A stream's
-    seed does not depend on ``max_iters``. The CPU generator keeps 32 bits
-    of a seed, so there the source raises for a tracer seed of 2¹⁶ or
-    more, a member of 64 or more or ``max_iters`` above 1022, rather than
-    give two streams one seed; the card's generator takes both packings.
-
-    ``normals(it, cols)`` hands out columns ``cols`` of the iteration's
-    full (r, S) and (n_train, S) draws: a rank that holds samples
-    [off, off + S/k) of a sample group takes ``slice(off, off + S/k)``,
-    so every sample draws the numbers it draws on one device (the
-    reference's stream-slicing contract, gpr.py:189-200)."""
-
-    def __init__(self, cfg: TracerConfig, rank: int, device, member=0):
+    def __init__(self, cfg: TracerConfig, rank: int, device, seed=None):
         self.cfg, self.rank = cfg, rank
         self.device = torch.device(device)
-        self.seed, self.member = int(cfg.seed), int(member)
-        _check_streams(self.device, self.seed, self.member, cfg.max_iters)
-
-    def _gen(self, seed):
-        g = torch.Generator(device=self.device)
-        g.manual_seed(seed)
-        return g
-
-    def iteration_seed(self, it: int) -> int:
-        return _stream_seed(self.seed, self.member, it + 1)
-
-    def restart_seed(self) -> int:
-        return _stream_seed(self.seed, self.member, 0)
+        self.seed = int(cfg.seed if seed is None else seed)
+        self.key = prng.prng_key(self.seed)
 
     def normals(self, it: int, cols=slice(None)):
         """(z (r, S), w (n_train, S)) standard normals of iteration ``it``,
         or their columns ``cols``."""
-        g = self._gen(self.iteration_seed(it))
+        k_prior, k_noise = prng.split(prng.fold_in(self.key, it + 1))
         S = self.cfg.N_samples
-        z = torch.randn((self.rank, S), generator=g, device=self.device)
-        w = torch.randn((self.cfg.n_train, S), generator=g,
-                        device=self.device)
-        return z[:, cols], w[:, cols]
+        return (prng.normal(k_prior, (self.rank, S), cols, self.device),
+                prng.normal(k_noise, (self.cfg.n_train, S), cols,
+                            self.device))
 
     def restarts(self):
         """(lml_restarts, 3) uniforms in [0, 1) for the final fit."""
-        return torch.rand((self.cfg.lml_restarts, 3),
-                          generator=self._gen(self.restart_seed()),
-                          device=self.device)
+        return prng.uniform(prng.fold_in(self.key, 0),
+                            (self.cfg.lml_restarts, 3), device=self.device)
 
 
 class FrameDraws:
@@ -514,50 +433,38 @@ class FrameDraws:
         return torch.stack([src.restarts() for src in self.sources])
 
 
-class SeedDraws:
-    """The draws of one unfolded seed: the reference's ``PRNGKey(seed)``
-    taken without a fold, as ``fit_predict_GP(seed=k)`` and
-    ``preview_samples`` take it (models/tracer.py:159, driver.py:719).
-
-    One generator seed, member 0's ``SEED_SLOT`` (1023) of tracer seed
-    ``seed`` in :class:`TorchDraws`' 32-bit packing for seed < 2¹⁶, its
-    ``WIDE_SEED_SLOT`` in the 64-bit one above (the card only, for
-    seed < 2³¹): slots that no trace stream uses. ``sample_normals(n)``
-    gives the sampling round's (z (r, S), w (n, S)) for a training buffer
-    of ``n`` slots, and ``restarts()`` the final fit's (lml_restarts, 3)
-    uniforms, both from that generator seed, as the reference draws both
-    from one key."""
+class KeyDraws:
+    """The draws of one unfolded key, ``PRNGKey(seed)``, as
+    ``fit_predict_GP(seed=k)`` and ``preview_samples`` take it
+    (models/tracer.py:158, driver.py:720): ``sample_normals(n)`` gives the
+    sampling round's (z (r, S), w (n, S)) for a training buffer of ``n``
+    slots from ``split(PRNGKey(seed))``, and ``restarts()`` the final fit's
+    (lml_restarts, 3) uniforms of ``PRNGKey(seed)`` itself (driver.py:590,
+    625)."""
 
     def __init__(self, cfg: TracerConfig, rank: int, device, seed=0):
         self.cfg, self.rank = cfg, rank
         self.device = torch.device(device)
-        _check_streams(self.device, int(seed), 0, 0)
-        self.seed = _stream_seed(int(seed), 0, 0, seed_slot=True)
-
-    def _gen(self):
-        g = torch.Generator(device=self.device)
-        g.manual_seed(self.seed)
-        return g
+        self.key = prng.prng_key(seed)
 
     def sample_normals(self, n: int):
-        g = self._gen()
+        k_prior, k_noise = prng.split(self.key)
         S = self.cfg.N_samples
-        z = torch.randn((self.rank, S), generator=g, device=self.device)
-        w = torch.randn((n, S), generator=g, device=self.device)
-        return z, w
+        return (prng.normal(k_prior, (self.rank, S), device=self.device),
+                prng.normal(k_noise, (n, S), device=self.device))
 
     def restarts(self):
-        return torch.rand((self.cfg.lml_restarts, 3), generator=self._gen(),
-                          device=self.device)
+        return prng.uniform(self.key, (self.cfg.lml_restarts, 3),
+                            device=self.device)
 
 
-def _default_draws(cfg: TracerConfig, data: TracerData) -> TorchDraws:
-    return TorchDraws(cfg, data.L_prior_unit.shape[1], data.grad_img.device)
+def _default_draws(cfg: TracerConfig, data: TracerData) -> StreamDraws:
+    return StreamDraws(cfg, data.L_prior_unit.shape[1], data.grad_img.device)
 
 
-def _seed_draws(cfg: TracerConfig, data: TracerData, seed) -> SeedDraws:
-    return SeedDraws(cfg, data.L_prior_unit.shape[1], data.grad_img.device,
-                     seed)
+def _key_draws(cfg: TracerConfig, data: TracerData, seed) -> KeyDraws:
+    return KeyDraws(cfg, data.L_prior_unit.shape[1], data.grad_img.device,
+                    seed)
 
 
 def to_host(tree, kind: str):
@@ -619,7 +526,7 @@ def _iteration(cfg: TracerConfig, data: TracerData, state: TraceState, z, w,
     """One outer-loop iteration (gpet.py:829-861): sample, score, rank,
     KDE, select. Returns the new state and the (E, S) samples, and with
     ``with_score`` also the (M, N) pixel scores the selection ranked
-    (gpet.py:582).
+    (gpet.py:582) and the (M, N) KDE map they were made from.
 
     With ``shard`` (a :class:`~..ops.collectives.SampleShard`; the
     reference's sample-axis arm, driver.py:372-429) ``z`` and ``w`` are the
@@ -679,10 +586,11 @@ def _iteration(cfg: TracerConfig, data: TracerData, state: TraceState, z, w,
         iter_thresh=put(state.iter_thresh, sel.score_thresh))
     if one:
         new_state, samples = frame_of(new_state, 0), samples[0]
-        score = sel.score[0]
+        score, kde_arr = sel.score[0], kde_arr[0]
     else:
         score = sel.score
-    return (new_state, samples, score) if with_score else (new_state, samples)
+    return ((new_state, samples, score, kde_arr) if with_score
+            else (new_state, samples))
 
 
 def optimize_lml(kernel: KernelSpec, xs, ys, mask, noise_w, starts, lb, ub,
@@ -801,9 +709,9 @@ def sample_round_buffers(cfg: TracerConfig, data: TracerData, x, y, mask,
     """The sampling-mode GP round on explicit padded buffers (driver.py:
     609-616), behind ``GP_Edge_Tracing.fit_predict_GP(converged=False)``
     (gpet.py:182-261): (E, S) posterior curves. ``draws`` (a source with
-    ``sample_normals(n)``) defaults to :class:`SeedDraws` of ``seed``."""
+    ``sample_normals(n)``) defaults to :class:`KeyDraws` of ``seed``."""
     if draws is None:
-        draws = _seed_draws(cfg, data, seed)
+        draws = _key_draws(cfg, data, seed)
     z, w = draws.sample_normals(x.shape[-1])
     return _sample_round(cfg, data, x, y, mask, noise_w, z, w)
 
@@ -814,9 +722,9 @@ def final_fit_buffers(cfg: TracerConfig, data: TracerData, x, y, mask,
     behind ``GP_Edge_Tracing.fit_predict_GP(converged=True)``
     (gpet.py:233-266): ``(y_mean, y_std)``, the std in standardised units
     (the reference's quirk). ``draws`` (a source with ``restarts()``)
-    defaults to :class:`SeedDraws` of ``seed``."""
+    defaults to :class:`KeyDraws` of ``seed``."""
     if draws is None:
-        draws = _seed_draws(cfg, data, seed)
+        draws = _key_draws(cfg, data, seed)
     y_mean, y_std, _, _, _ = _final_fit_buffers(cfg, data, draws.restarts(),
                                                 x, y, mask, noise_w)
     return y_mean, y_std
@@ -827,7 +735,7 @@ def preview_samples(cfg: TracerConfig, data: TracerData, state: TraceState,
     """Curves of the initial posterior (gpet.py:806:
     ``fit_predict_GP(self.obs, converged=False, seed=0)``): the sampling
     round on ``state``'s training set, from the literal seed 0 whatever the
-    config's seed (:class:`SeedDraws` of seed 0 by default)."""
+    config's seed (:class:`KeyDraws` of seed 0 by default)."""
     x, y, mask, noise_w = _train_set(cfg, data, state)
     return sample_round_buffers(cfg, data, x, y, mask, noise_w,
                                 draws=draws, seed=0)
@@ -846,7 +754,7 @@ def trace_step(cfg: TracerConfig, data: TracerData, state: TraceState,
                draws=None, invariants=None):
     """One outer iteration of one trace (driver.py:699-706): ``(state,
     samples)``, the (E, S) curves it drew. It draws ``draws.normals(it)``
-    (:class:`TorchDraws` by default), so stepping a state to the end of
+    (:class:`StreamDraws` by default), so stepping a state to the end of
     the loop and calling :func:`finish_trace` gives :func:`run_trace`'s
     result bit for bit. A caller that steps a whole trace builds
     :func:`loop_invariants` once and passes them."""
@@ -953,7 +861,7 @@ def run_trace(cfg: TracerConfig, data: TracerData, state0: TraceState,
               draws=None, shard=None) -> TraceResult:
     """The full trace (gpet.py:768-908): the outer loop, then
     :func:`finish_trace`; for one trace or, with a batched state, for every
-    frame. ``draws`` defaults to :class:`TorchDraws`; ``shard``: see
+    frame. ``draws`` defaults to :class:`StreamDraws`; ``shard``: see
     :func:`run_loop` (the final fit runs whole on every rank)."""
     if draws is None:
         draws = _default_draws(cfg, data)

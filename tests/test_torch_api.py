@@ -265,7 +265,7 @@ def test_stages_from_the_first_iterations_draws_equal_trace_step():
     """The port's stages on the first iteration's draws accept the pixels
     that the first ``trace_step`` accepts, and leave its threshold."""
     _, got, _ = _tracers()
-    draws = pd.TorchDraws(got.cfg, _rank(got), "cpu")
+    draws = pd.StreamDraws(got.cfg, _rank(got), "cpu")
     state, samples = pd.trace_step(got.cfg, got.data,
                                    pd.init_state(got.cfg, "cpu"), draws)
     mine = got.fit_predict_GP(np.zeros((0, 2), int),
@@ -379,8 +379,8 @@ def test_sample_round_and_final_fit_buffers_match_reference(small):
     assert torch.equal(
         pd.sample_round_buffers(pcfg, small["pdata"], *targs),
         pd.sample_round_buffers(pcfg, small["pdata"], *targs,
-                                draws=pd.SeedDraws(pcfg, small["rank"],
-                                                   "cpu", 0)))
+                                draws=pd.KeyDraws(pcfg, small["rank"],
+                                                  "cpu", 0)))
 
 
 def test_trace_step_matches_reference_and_run_trace(small):

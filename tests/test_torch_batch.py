@@ -328,23 +328,22 @@ def test_ensemble_never_chooses_a_nan_cost(ensembles, monkeypatch):
 
 
 def test_default_member_streams_are_disjoint():
-    """The default member sources: member 0 is ``TorchDraws(cfg)`` itself,
-    and over ``max_iters`` iterations and the restarts no two streams of
-    any members share a seed, in the 32 bits the CPU generator keeps (a
-    plain ``seed + k`` would replay member 0's normals k iterations later),
-    so the members draw different normals."""
+    """The default member sources: member k is the JAX package's stream of
+    ``PRNGKey(seed + k)`` (sharded.py:127), so member 0 is
+    ``StreamDraws(cfg)`` itself and member k the single trace of seed
+    ``seed + k``; the members' normals differ from one another's at every
+    iteration checked."""
     _, _, grad, init = small_problem()
     cfg = pd.make_config(init, grad.shape, **SMALL_KW)
-    members = [pd.TorchDraws(cfg, 8, "cpu", member=k) for k in range(5)]
-    seeds = [d.iteration_seed(it) % 2 ** 32 for d in members
-             for it in range(cfg.max_iters)] + [d.restart_seed() % 2 ** 32
-                                                for d in members]
-    assert len(set(seeds)) == len(seeds)
-    plain = pd.TorchDraws(cfg, 8, "cpu")
+    members = [pd.StreamDraws(cfg, 8, "cpu", seed=cfg.seed + k)
+               for k in range(5)]
+    plain = pd.StreamDraws(cfg, 8, "cpu")
     for a, b in zip(members[0].normals(3), plain.normals(3)):
         assert torch.equal(a, b)
     assert torch.equal(members[0].restarts(), plain.restarts())
-    firsts = [d.normals(0)[0] for d in members] + [plain.normals(1)[0]]
+    later = pd.StreamDraws(cfg._replace(seed=cfg.seed + 3), 8, "cpu")
+    assert torch.equal(members[3].normals(2)[1], later.normals(2)[1])
+    firsts = [d.normals(it)[0] for d in members for it in (0, 1)]
     assert all(not torch.equal(firsts[i], firsts[j])
                for i in range(len(firsts)) for j in range(i))
 

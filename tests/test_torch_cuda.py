@@ -774,23 +774,51 @@ def test_denoisers_on_the_card_match_the_cpu(dev, technique, kwargs, rtol):
 
 
 def test_card_generator_keeps_64_bits_of_a_seed(dev):
-    """The card's generator tells seeds 2³² apart, which the default draws'
-    64-bit packing needs (the CPU's gives them one stream)."""
+    """The card's draws key on all 64 bits of a seed: seeds 2³² apart draw
+    different normals, and a seed's normals repeat."""
+    from gaussian_process_edge_trace_torch.ops import prng
+
     def normals(seed):
-        g = torch.Generator(device=dev)
-        g.manual_seed(seed)
-        return torch.randn(64, generator=g, device=dev)
+        return prng.normal(prng.prng_key(seed), (4, 64), device=dev)
     for s in (5, 2 ** 16 + 1, 2 ** 32 + 7):
         assert not torch.equal(normals(s), normals(s + 2 ** 32))
     assert torch.equal(normals(5), normals(5))
 
 
+@pytest.mark.parametrize("mode,shape,cols", [
+    ("normal", (104, 500), slice(None)), ("normal", (208, 10000), slice(None)),
+    ("normal", (208, 10000), slice(2500, 5000)),
+    ("normal", (13, 7), slice(3, 7)), ("uniform", (12, 3), slice(None)),
+    ("bits", (96, 1000), slice(500, 1000))])
+def test_threefry_kernel_matches_plain(dev, mode, shape, cols):
+    """The draw kernel against its plain version on the CPU, bit for
+    bit, one launch per draw."""
+    from gaussian_process_edge_trace_torch.ops import prng
+    key = prng.split(prng.fold_in(prng.prng_key(1), 4))[1]
+    n0 = prng.LAUNCHES["threefry"]
+    if mode == "normal":
+        got = prng.normal(key, shape, cols, device=dev)
+        plain = prng.normal_plain(key, shape, cols)
+    elif mode == "uniform":
+        got = prng.uniform(key, shape, cols=cols, device=dev)
+        plain = prng.uniform_plain(key, shape, cols=cols)
+    else:
+        got = prng.random_bits(key, shape, cols, device=dev).to(torch.int64)
+        got = got & prng.MASK32
+        plain = prng.random_bits_plain(key, shape, cols)
+    torch.cuda.synchronize()
+    assert prng.LAUNCHES["threefry"] == n0 + 1
+    if mode == "bits":
+        assert torch.equal(got.cpu(), plain)
+    else:
+        assert _bits_equal(got.cpu(), plain)
+
+
 def test_wide_draws_on_the_card(dev):
-    """The default draws beyond the 32-bit packing, on the card: tracer
-    seeds 1 and 65537 = 1 + 2¹⁶ trace differently; a 65-member ensemble
-    runs, its members' first-iteration normals all distinct; ``max_iters``
-    = 1100 builds its streams, those past slot 1022 in the 64-bit
-    packing."""
+    """The default draws have no packing limits on the card: tracer seeds
+    1 and 65537 = 1 + 2¹⁶ trace differently; a 65-member ensemble runs,
+    its members' first-iteration normals all distinct; ``max_iters`` =
+    1100 draws distinct normals at iterations 1021, 1022 and 1099."""
     from gaussian_process_edge_trace_torch.parallel import trace_ensemble
     from gaussian_process_edge_trace_torch.trace import driver as pd
     img, edge = gpt.construct_test_img((64, 96), 40, 2, 0.03, "sinusoidal",
@@ -809,7 +837,7 @@ def test_wide_draws_on_the_card(dev):
     assert not torch.equal(one.last_result.y_mean, far.last_result.y_mean)
     cfg, data = one.cfg, one.data
     rank = data.L_prior_unit.shape[1]
-    z0 = [pd.TorchDraws(cfg, rank, dev, member=k).normals(0)[0]
+    z0 = [pd.StreamDraws(cfg, rank, dev, seed=cfg.seed + k).normals(0)[0]
           for k in range(65)]
     assert all(not torch.equal(z0[a], z0[b])
                for a in range(65) for b in range(a))
@@ -817,8 +845,6 @@ def test_wide_draws_on_the_card(dev):
                                  n_seeds=65, return_all=True)
     assert every.edge_trace.shape[0] == 65
     assert torch.isfinite(every.y_mean).all()
-    long = pd.TorchDraws(cfg._replace(max_iters=1100), rank, dev)
-    seeds = [long.iteration_seed(it) for it in range(1100)]
-    assert len(set(seeds)) == 1100 and seeds[1021] < 2 ** 32 <= seeds[1022]
+    long = pd.StreamDraws(cfg._replace(max_iters=1100), rank, dev)
     z = [long.normals(it)[0] for it in (1021, 1022, 1099)]
     assert not torch.equal(z[0], z[1]) and not torch.equal(z[1], z[2])

@@ -350,3 +350,43 @@ def test_float64_on_the_device_through_the_library():
     assert gp._L.dtype == gp._alpha_multi.dtype == torch.float64
     assert gp._L.device.type == "cpu"
     assert P.GaussianProcessRegressor().device.type == "cuda"
+
+
+def test_optimum_resolved_past_the_rounding():
+    """The optimised fit does not move with the data's last bits: y scaled
+    by 1 + 1e-15 moves the predictions by less than 1e-11 relative (L-BFGS
+    alone, whose Armijo search compares values that differ by less than
+    their rounding near the optimum, moved them by ~1e-8, as the card's
+    rounding in place of the CPU's did); the Newton polish does not lower
+    the LML, and the polished fit is the JAX package's L-BFGS fit within
+    the resolution of its Armijo search: θ within 1e-7 (it reads 2.7e-8
+    apart), the predictions within 1e-6 relative (1.1e-7 and 1.5e-8)."""
+    X, y = _data(n=40, seed=5)
+
+    def fit(scale):
+        kernel = (P.ConstantKernel(1.0, (1e-2, 1e3)) * P.RBF(1.0, (1e-1, 1e3))
+                  + P.WeightedWhiteKernel(noise_weight=1.0, noise_level=0.1,
+                                          noise_level_bounds=(1e-6, 10.0)))
+        return _gpr(P, kernel, alpha=1e-6, n_restarts_optimizer=4,
+                    random_state=0).fit(X, y * scale)
+    a, b = fit(1.0), fit(1.0 + 1e-15)
+    Xq = np.linspace(0, 10, 31)
+    (ma, sa), (mb, sb) = (g.predict(Xq, return_std=True) for g in (a, b))
+    np.testing.assert_allclose(mb, ma, rtol=1e-11, atol=0)
+    np.testing.assert_allclose(sb, sa, rtol=1e-11, atol=0)
+    kernel = (R.ConstantKernel(1.0, (1e-2, 1e3)) * R.RBF(1.0, (1e-1, 1e3))
+              + R.WeightedWhiteKernel(noise_weight=1.0, noise_level=0.1,
+                                      noise_level_bounds=(1e-6, 10.0)))
+    ref = _gpr(R, kernel, alpha=1e-6, n_restarts_optimizer=4,
+               random_state=0).fit(X, y)
+    assert a.log_marginal_likelihood_value_ >= \
+        ref.log_marginal_likelihood_value_ - 1e-9
+
+    def theta(g):
+        k = g._kernel_
+        return np.log([k.signal.k1.constant_value, k.signal.k2.length_scale,
+                       k.noise.noise_level])
+    np.testing.assert_allclose(theta(a), theta(ref), rtol=0, atol=1e-7)
+    mr, sr = ref.predict(Xq, return_std=True)
+    np.testing.assert_allclose(ma, mr, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(sa, sr, rtol=1e-6, atol=0)

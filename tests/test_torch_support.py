@@ -512,7 +512,7 @@ def test_optimize_lml_coarse_to_fine_branch():
 def test_torch_draws_are_seeded_per_iteration():
     cfg = pd.make_config(np.array([[0, 10], [95, 10]]), (40, 96),
                          **dict(SMALL_KW, seed=7))
-    d = pd.TorchDraws(cfg, 32, "cpu")
+    d = pd.StreamDraws(cfg, 32, "cpu")
     z0, w0 = d.normals(0)
     assert z0.shape == (32, 256) and w0.shape == (cfg.n_train, 256)
     torch.testing.assert_close(d.normals(0)[0], z0, rtol=0, atol=0)

@@ -174,7 +174,7 @@ def run(tag, configs, iters):
     data = make_batch_data(cfg, torch.stack([c.grad for c in configs]),
                            np.stack([c.init for c in configs]))
     state = make_batch_state(cfg, B, dev)
-    draws = pd.TorchDraws(cfg, data.L_prior_unit.shape[1], dev)
+    draws = pd.StreamDraws(cfg, data.L_prior_unit.shape[1], dev)
     blur = blur_matrices(cfg.M, cfg.N, torch.float32, dev)
     consts = select_consts(cfg.bins, cfg.N, cfg.max_decays, dev)
     own_d = ("grad_img", "grad_kde", "grad_cols", "init_x", "init_y")

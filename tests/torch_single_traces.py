@@ -28,9 +28,9 @@ and right endpoint (999: E = 1000, K1 scores; 998: E = 999, K2 scores) and
 reports DICE and MSE against the true edge, with the least, median and
 largest DICE per image and endpoint: the port's spread on the card, beside
 the JAX package's on a CPU from ``tests/torch_reference_1000.py
---image-seed K --reference-only ...``. The port's default draws give no
-two tracer seeds below 2¹⁶ a stream in common (``trace/driver.py::
-TorchDraws``), so consecutive seeds are independent samples.
+--image-seed K --reference-only ...``. The port's default draws are the
+JAX package's stream (``trace/driver.py::StreamDraws``), so a tracer seed
+draws here what it draws there.
 
 ``results --save`` keeps every ``TraceResult`` field of the demo config's
 traces at E = 500 and 499 (tracer seeds 1-3) and of the 1000² config's at
@@ -106,7 +106,7 @@ def walls(args, gpt, torch, dev):
         edge, _ = tracer()                                  # warm-up
         runs = [clock(tracer)[0] for _ in range(args.runs)]
         cfg, data = tracer.cfg, tracer.data
-        draws = pd.TorchDraws(cfg, data.L_prior_unit.shape[1], dev)
+        draws = pd.StreamDraws(cfg, data.L_prior_unit.shape[1], dev)
         loop, fit = [], []
         for _ in range(args.runs):
             ms, state = clock(lambda: pd.run_loop(
