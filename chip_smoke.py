@@ -29,11 +29,14 @@ Phases, one line or more each; any failure exits non-zero:
    the count: ``cuda_ms``), and the least time the card could take (bytes
    over 3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is
    larger); then ``jax_stream``: K7, the draw kernel (the JAX package's
-   threefry2x32 stream, uniforms and normals), bitwise its plain version at
-   the demo's, the 1000² config's and its S = 10⁵ row's (r, S) and
-   (n_train, S) shapes, its column windows for 2 and 4 shards bitwise the
-   full launch's columns, ``torch.randn`` of each shape timed as context,
-   and every draw of the JAX package's stream fixture
+   threefry2x32 stream, uniforms and normals; one launch per table of
+   draws), bitwise its plain version at the demo's, the 1000² config's and
+   its S = 10⁵ row's (r, S) and (n_train, S) shapes, and for each path's
+   iteration table (both draws in one launch), the restarts, a single
+   trace's table and a 5-member ensemble's, each also in column windows of
+   2 and 4 shards bitwise the full launch's columns, timed beside
+   ``torch.randn`` of the same shapes (context), against a bound that
+   counts its instructions at the issue rate (``work_threefry``); and every draw of the JAX package's stream fixture
    (``tests/jax_stream_fixture.json``) equal in its key, first and last
    values and the checksum of its bits;
 4. six configurations traced through ``GP_Edge_Tracing(...)()`` for seeds
@@ -110,7 +113,8 @@ Phases, one line or more each; any failure exits non-zero:
    as the final fit and the final cost do not depend on the batch),
    launches per batch (K1 and K3 once per loop iteration, K2
    once where K1 scores, K5/K6 as often as one trace's final fit, K7
-   twice per iteration and once for the restarts), DICE
+   once per iteration and once for the restarts, for every frame or member
+   at once), DICE
    gates, a determinism rerun, peak memory and the warm wall time per
    trace beside a single trace's:
    - ``batch_demo_B16``: the demo config on the 16 images of
@@ -226,6 +230,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -320,6 +325,13 @@ NEAR_TIE = 1e-5
 # device memory bytes/s and float32 operations/s outside the tensor cores.
 MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# What the card issues per SM and clock (Hopper): 4 warp-instructions of 32
+# threads; 132 SMs, at the SM clock that nvidia-smi reports as the card's
+# largest (sm_clock_hz). 32-bit integer work runs on the 64 INT32 lanes and,
+# as integer multiply-adds, on the FMA pipe's 64 more, so integer
+# instructions alone can fill the issue rate: no pipe binds below it.
+SMS = 132
+INSTRUCTIONS_PER_SM = 4 * 32
 
 
 def log(msg):
@@ -368,11 +380,26 @@ def cuda_ms(fn, target_ms=10.0, rounds=5):
     return statistics.median(times)
 
 
-def bound(n_bytes, n_ops):
+@functools.lru_cache(maxsize=None)
+def sm_clock_hz():
+    """The card's largest SM clock (``nvidia-smi clocks.max.sm``), Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def bound(n_bytes, n_ops, instructions=0):
     """(ms, "bytes" or "operations"): the least time the card could take
-    for work that moves ``n_bytes`` and does ``n_ops`` float32 operations."""
+    for work that moves ``n_bytes``, does ``n_ops`` float32 operations (a
+    fused multiply-add counts 2) and, where given, ``instructions`` in all
+    (integer and float) against the issue rate."""
     by_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
     by_ops = n_ops / F32_OPS_PER_S * 1e3
+    if instructions:
+        by_ops = max(by_ops, instructions / (
+            INSTRUCTIONS_PER_SM * SMS * sm_clock_hz() / 1e3))
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -914,17 +941,67 @@ STREAM_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "tests", "jax_stream_fixture.json")
 TRAJECTORY_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                   "tests", "jax_trajectory_fixture.json")
-# Operations per element of the draw kernel, counted from
-# csrc/threefry_normal_kernel.cu (a fused multiply-add counts 2): the
-# counter and the 20-round threefry2x32 (~80 integer operations), the
-# uniform transform (6), and the normal's log1p and erf_inv (~75).
-THREEFRY_OPS = 86
-NORMAL_OPS = 75
+# Work per element of the draw kernel's function, counted from
+# csrc/threefry_normal_kernel.cu, as (float32 operations with a fused
+# multiply-add counted 2, instructions with a fused multiply-add counted 1,
+# the 32-bit integer ones among them). threefry2x32: two key adds, 20
+# rounds of add, rotate and xor, five injections of two key words, the
+# final xor.
+THREEFRY_WORK = (0, 73)
+# The uniform: shift and or; subtract 1, scale, shift, max.
+UNIFORM_WORK = (4, 6)
+# The normal, on every element: x·(−x), two compares, one erf_inv Horner
+# chain of eight fused steps, x·p and ·√2.
+NORMAL_WORK = (21, 13)
+# erf_inv's w: one subtract below w = 5, a square root and an add above.
+W_LT_WORK, W_GE_WORK = (1, 1), (2, 2)
+# log1p's rational arm (|t| < √2 − 1): t², twelve fused Horner steps,
+# t·t², the division and its product, one fused step and the add.
+LOG1P_SMALL_WORK = (31, 18)
+# log1p's log arm: t + 1, then XLA's log: max, the exponent and mantissa
+# (shift, subtract, and, or; one conversion), +1, a compare, the select's
+# subtract, z, z², z³, nine fused Horner steps, e·q1, two fused steps and
+# an add.
+LOG1P_LARGE_WORK = (34, 27)
 
 
-def work_threefry(n, normal=True):
-    """(bytes, operations) of ``n`` draws: the output written once."""
-    return 4 * n, n * (THREEFRY_OPS + (NORMAL_OPS if normal else 0))
+def work_threefry(n, normal=True, small=0.0, ge=0.0):
+    """(bytes, float32 operations, instructions) of ``n`` draws, the
+    output written once; for normals ``small`` is the share of elements on
+    log1p's rational arm and ``ge`` that with w >= 5, as this run's data
+    needs them (:func:`normal_shares`)."""
+    parts = [(THREEFRY_WORK, 1), (UNIFORM_WORK, 1)]
+    if normal:
+        parts += [(NORMAL_WORK, 1), (W_LT_WORK, 1 - ge), (W_GE_WORK, ge),
+                  (LOG1P_SMALL_WORK, small), (LOG1P_LARGE_WORK, 1 - small)]
+    per = [sum(w[i] * share for w, share in parts) for i in range(2)]
+    return (4 * n,) + tuple(n * p for p in per)
+
+
+def normal_shares(d, dev):
+    """(elements, True, share on log1p's rational arm, share with w >= 5)
+    of the normal draw ``d`` (:func:`work_threefry`'s arguments), from its
+    uniforms on the card."""
+    import torch
+    from gaussian_process_edge_trace_torch.ops import prng
+    u = prng.uniform(d.key, d.shape, prng.NORMAL_LO, 1.0, d.cols, device=dev)
+    t = u * -u
+    small = float((t.abs() < prng._LOG1P_SMALL).float().mean())
+    ge = float((torch.log1p(t.double()) <= -5.0).float().mean())
+    return u.numel(), True, small, ge
+
+
+def table_work(table, dev):
+    """:func:`work_threefry` summed over the draws of a table."""
+    from gaussian_process_edge_trace_torch.ops import prng
+    total = (0, 0, 0)
+    for d in table:
+        if d.mode == "normal":
+            w = work_threefry(*normal_shares(d, dev))
+        else:
+            w = work_threefry(prng.empty(d, dev).numel(), False)
+        total = tuple(a + b for a, b in zip(total, w))
+    return total
 
 
 def _bits64(t):
@@ -976,61 +1053,133 @@ def _derived_key(entry):
     return base
 
 
-def jax_stream_phase(checks, dev):
-    """``jax_stream``: the draw kernel (K7) against its plain version on
-    the card, bit for bit, at the demo's, the 1000² config's and its S =
-    10⁵ row's (r, S) and (n_train, S) shapes, timed beside the plain
-    version and ``torch.randn`` of the same shape (context only: another
-    function); its column windows for k = 2 and 4 shards bitwise the full
-    launch's columns; then every entry of the JAX package's stream fixture
-    (keys from seeds 0, 1, 2, 2³¹−1 and 2³²+5 through iteration keys,
-    restarts, unfolded keys and ensemble members): the key as the port
-    derives it, the first and last values and the checksum of the whole
-    draw's bits, all exact."""
+def check_draw_table(checks, case, draws, dev, main=False):
+    """One table of draws (``draws(cols)`` gives it for a column window)
+    through K7 in one launch, bitwise its plain version, each draw also in
+    windows of 2 and 4 shards bitwise the full launch's columns; timed
+    beside the plain version and ``torch.randn`` (``torch.rand`` for a
+    uniform) of the same shapes, which is context: another function.
+    Returns (kernel ms, randn ms)."""
     import torch
     from gaussian_process_edge_trace_torch.ops import prng
+    table = draws(slice(None))
+    n0 = prng.LAUNCHES["threefry"]
+    got = prng.draw(table, dev)
+    launches = prng.LAUNCHES["threefry"] - n0
+    plain = [prng.draw_plain(d, dev) for d in table]
+    torch.cuda.synchronize()
+    same = all(same_bits(g, p) for g, p in zip(got, plain))
+    S = table[0].shape[-1]
+    windows = []
+    for k in (2, 4):
+        if S % k:
+            continue
+        w = S // k
+        parts = [prng.draw(draws(slice(i * w, (i + 1) * w)), dev)
+                 for i in range(k)]
+        windows.append(all(
+            same_bits(torch.cat([p[j] for p in parts], -1), got[j])
+            for j in range(len(table))))
+    err = max(float((g - p).abs().max()) for g, p in zip(got, plain))
+    ms = cuda_ms(lambda: prng.draw(table, dev))
+    plain_ms = cuda_ms(lambda: [prng.draw_plain(d, dev) for d in table])
+    randn_ms = cuda_ms(lambda: [
+        (torch.randn if d.mode == "normal" else torch.rand)(
+            d.shape, device=dev) for d in table])
+    checks.record("K7", case, err, "bitwise", same and all(windows)
+                  and launches == 1, ms, plain_ms, table_work(table, dev),
+                  main=main, also_main=True)
+    log(f"[jax_stream] {case}: {len(table)} draws in {launches} launch(es), "
+        f"bitwise the plain version: {same}; windows of 2 and 4 shards "
+        f"bitwise the full launch's columns: {windows}; torch.randn of the "
+        f"same shapes {randn_ms:.4f} ms (context: another function)")
+    return ms, randn_ms
+
+
+def jax_stream_phase(checks, dev):
+    """``jax_stream``: the draw kernel (K7) against its plain version on
+    the card, bit for bit, one launch per table: the single normal draws
+    at the demo's, the 1000² config's and its S = 10⁵ row's (r, S) and
+    (n_train, S) shapes, each path's iteration table (both in one launch,
+    as ``StreamDraws.normals`` draws them), the restarts, and a 5-member
+    ensemble's iteration table at the demo shape (``FrameDraws``, ten
+    draws in one launch into the stacked tensors), each also in column
+    windows of 2 and 4 shards; timed beside the plain version and
+    ``torch.randn`` of the same shapes (context only); then every entry of
+    the JAX package's stream fixture (keys from seeds 0, 1, 2, 2³¹−1,
+    2³²+5 and −1, made with x64 off as the package runs, through iteration
+    keys, restarts, unfolded keys and ensemble members): the key as the
+    port derives it, the first and last values and the checksum of the
+    whole draw's bits, all exact."""
+    import torch
+    from gaussian_process_edge_trace_torch.ops import prng
+    from gaussian_process_edge_trace_torch.trace import driver as pd
     with open(STREAM_FIXTURE) as f:
         fx = json.load(f)
+    log(f"[jax_stream] the bound's issue rate at the SM clock "
+        f"{sm_clock_hz() / 1e6:.0f} MHz: {SMS} SMs x {INSTRUCTIONS_PER_SM} "
+        f"instructions per SM and clock")
     key = prng.split(prng.fold_in(prng.prng_key(1), 1))
     for name, shp in fx["shapes"].items():
-        for part, k, rows in (("prior", key[0], shp["r"]),
-                              ("noise", key[1], shp["n_train"])):
-            shape = (rows, shp["S"])
-            got = prng.normal(k, shape, device=dev)
-            plain = prng.normal_plain(k, shape, device=dev)
-            torch.cuda.synchronize()
-            same = same_bits(got, plain)
-            windows = []
-            for n in (2, 4):
-                w = shp["S"] // n
-                parts = [prng.normal(k, shape, slice(i * w, (i + 1) * w),
-                                     device=dev) for i in range(n)]
-                windows.append(same_bits(torch.cat(parts, 1), got))
-            ms = cuda_ms(lambda: prng.normal(k, shape, device=dev))
-            plain_ms = cuda_ms(lambda: prng.normal_plain(k, shape,
-                                                         device=dev))
-            randn_ms = cuda_ms(lambda: torch.randn(shape, device=dev))
-            err = float((got - plain).abs().max())
-            checks.record("K7", f"normal {name} {part} {shape}", err,
-                          "bitwise", same and all(windows), ms, plain_ms,
-                          work_threefry(rows * shp["S"]),
-                          main=name == "1000_S1e4" and part == "noise",
-                          also_main=True)
-            log(f"[jax_stream] {name} {part} {shape}: bitwise the plain "
-                f"version: {same}; windows of 2 and 4 shards bitwise the "
-                f"full launch's columns: {windows}; torch.randn of the same "
-                f"shape {randn_ms:.4f} ms (context: another function)")
-    restarts = (fx["shapes"]["demo"]["lml_restarts"], 3)
-    got = prng.uniform(key[0], restarts, device=dev)
-    plain = prng.uniform_plain(key[0], restarts, device=dev)
-    checks.record("K7", f"uniform restarts {restarts}",
-                  float((got - plain).abs().max()), "bitwise",
-                  same_bits(got, plain),
-                  cuda_ms(lambda: prng.uniform(key[0], restarts,
-                                               device=dev)),
-                  cuda_ms(lambda: prng.uniform_plain(key[0], restarts,
-                                                     device=dev)),
-                  work_threefry(restarts[0] * 3, normal=False))
+        S = shp["S"]
+        prior = functools.partial(prng.Draw, "normal", key[0], (shp["r"], S))
+        noise = functools.partial(prng.Draw, "normal", key[1],
+                                  (shp["n_train"], S))
+        for part, one in (("prior", prior), ("noise", noise)):
+            check_draw_table(checks, f"normal {name} {part} "
+                             f"{one().shape}", lambda c, one=one: [one(c)],
+                             dev)
+        ms, randn_ms = check_draw_table(
+            checks, f"iteration table {name} {prior().shape} + "
+            f"{noise().shape}", lambda c: [prior(c), noise(c)], dev,
+            main=name == "1000_S1e4")
+        log(f"[jax_stream] one {name} iteration's draws: {ms:.4f} ms in "
+            f"one launch; torch.randn of both shapes {randn_ms:.4f} ms")
+    demo = fx["shapes"]["demo"]
+    check_draw_table(
+        checks, f"uniform restarts ({demo['lml_restarts']}, 3)",
+        lambda c: [prng.Draw("uniform", key[0], (demo["lml_restarts"], 3),
+                             c)], dev)
+    # A 5-member ensemble at the demo shape: FrameDraws' one launch into
+    # the stacked (5, r, S) and (5, n_train, S) tensors.
+    cfg = types.SimpleNamespace(N_samples=demo["S"], n_train=demo["n_train"],
+                                lml_restarts=demo["lml_restarts"], seed=1)
+    members = [pd.StreamDraws(cfg, demo["r"], dev, seed=1 + k)
+               for k in range(ENSEMBLE_K)]
+    frames = pd.FrameDraws(members)
+    n0 = prng.LAUNCHES["threefry"]
+    z, w = frames.normals(3)
+    u = frames.restarts()
+    launches = prng.LAUNCHES["threefry"] - n0
+    table = [d for m in members for d in m.normal_table(3)]
+    plain = [prng.draw_plain(d, dev) for d in table]
+    torch.cuda.synchronize()
+    same = launches == 2 and all(
+        same_bits(z[k], plain[2 * k]) and same_bits(w[k], plain[2 * k + 1])
+        and same_bits(u[k], prng.draw_plain(m.restart_table()[0], dev))
+        for k, m in enumerate(members))
+    windows = []
+    for n in (2, 4):
+        width = demo["S"] // n
+        parts = [frames.normals(3, slice(i * width, (i + 1) * width))
+                 for i in range(n)]
+        windows.append(same_bits(torch.cat([p[0] for p in parts], -1), z)
+                       and same_bits(torch.cat([p[1] for p in parts], -1),
+                                     w))
+    ms = cuda_ms(lambda: frames.normals(3))
+    randn_ms = cuda_ms(lambda: (torch.randn(z.shape, device=dev),
+                                torch.randn(w.shape, device=dev)))
+    checks.record("K7", f"ensemble table K={ENSEMBLE_K} demo {tuple(z.shape)} "
+                  f"+ {tuple(w.shape)}",
+                  max(float((z[k] - plain[2 * k]).abs().max())
+                      for k in range(ENSEMBLE_K)), "bitwise",
+                  same and all(windows), ms,
+                  cuda_ms(lambda: [prng.draw_plain(d, dev) for d in table]),
+                  table_work(table, dev), also_main=True)
+    log(f"[jax_stream] ensemble of {ENSEMBLE_K}: normals and restarts in "
+        f"{launches} launches, each member bitwise its own plain draws: "
+        f"{same}; windows of 2 and 4 shards: {windows}; torch.randn of the "
+        f"stacked shapes {randn_ms:.4f} ms (context)")
     bad = []
     for e in fx["entries"]:
         draw = fixture_draw(e, dev)
@@ -1043,10 +1192,10 @@ def jax_stream_phase(checks, dev):
             bad.append((e["kind"], e["seed"], e.get("it"), e.get("part"),
                         e["shape"], derived))
     log(f"[jax_stream] {len(fx['entries'])} draws of the JAX package's "
-        f"stream fixture (jax {fx['jax']}, threefry_partitionable "
-        f"{fx['threefry_partitionable']}): keys, first and last "
-        f"{fx['edge']} values and the checksum of every draw's bits "
-        f"equal: {not bad}{'' if not bad else f' (differ: {bad})'}")
+        f"stream fixture (jax {fx['jax']}, x64 {fx['x64']}, "
+        f"threefry_partitionable {fx['threefry_partitionable']}): keys, "
+        f"first and last {fx['edge']} values and the checksum of every "
+        f"draw's bits equal: {not bad}{'' if not bad else f' (differ: {bad})'}")
     if bad:
         checks.failed.append(f"jax_stream: {len(bad)} fixture draws differ")
 
@@ -1201,6 +1350,10 @@ def traced(checks, tag, cfg, seeds, need, absent, gates, mse_gate=None):
         if got["K2"] != want:
             checks.failed.append(f"{tag} seed {seed}: K2 launches "
                                  f"{got['K2']}, {want} expected")
+        # K7 draws each iteration's table, then the restarts.
+        if got["K7"] != n_iters + 1:
+            checks.failed.append(f"{tag} seed {seed}: K7 launches "
+                                 f"{got['K7']}, {n_iters + 1} expected")
         launches = got if launches is None else {
             k: launches[k] + got[k] for k in got}
     peak = torch.cuda.max_memory_allocated()
@@ -1850,7 +2003,7 @@ def traced_batch(checks, tag, configs, gates, odd=False, profiled=False,
             "K1_transpose": n_max if cfg.N_samples >= 8192 and not odd
             else 0,
             "K2": n_max + 1 if odd else 1, "K3": n_max, "K4": 0,
-            "K5": one["K5"], "K6": one["K6"], "K7": 2 * n_max + 1}
+            "K5": one["K5"], "K6": one["K6"], "K7": n_max + 1}
     check_launches(checks, tag, got, want)
     log(f"[{tag}] n_iters {res.n_iters.tolist()} (median "
         f"{float(np.median(res.n_iters.cpu().numpy()))}, largest {n_max}: "
@@ -1975,7 +2128,7 @@ def ensemble_phase(checks, dev, odd=False):
         "K1": 0 if odd else n_max, "K1_transpose": 0,
         "K2": n_max + 1 if odd else 1, "K3": n_max, "K4": 0,
         "K5": one["K5"], "K6": one["K6"],
-        "K7": ENSEMBLE_K * (2 * n_max + 1)})
+        "K7": n_max + 1})
     costs = every.final_cost
     pick = int(torch.argmin(torch.where(torch.isnan(costs),
                                         torch.full_like(costs, torch.inf),

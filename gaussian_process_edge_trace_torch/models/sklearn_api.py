@@ -28,7 +28,8 @@ It computes in float64, as its reference does (x64 on), on ``device``
 JAX package computes them with XLA outside any Pallas kernel, and the K5/K6
 kernels take float32 only. Gradients come from ``torch.autograd``. Random
 draws (restarts, ``sample_y``) are the JAX package's float64 draws of
-``PRNGKey(random_state)`` (``ops/prng.py``), made on the CPU and moved to
+``PRNGKey(random_state)`` keyed as with x64 on (``ops/prng.py::
+prng_key_x64``), made on the CPU and moved to
 the device, so the card and the CPU start from the same numbers.
 
 Inputs are (n, 1) or (n,) arrays of scalar locations, the only input shape
@@ -366,9 +367,9 @@ class GaussianProcessRegressor:
                 return -lml(th)
 
         # The JAX package's float64 uniforms of PRNGKey(random_state)
-        # (sklearn_api.py:319-321).
+        # (sklearn_api.py:319-321), keyed as with x64 on.
         restarts = prng.uniform64_plain(
-            prng.prng_key(self.random_state),
+            prng.prng_key_x64(self.random_state),
             (self.n_restarts_optimizer, 3)).numpy() * (ub - lb) + lb
         starts = self._t(np.concatenate([theta0[None], restarts]))
         res = minimize_lbfgs_b(fun, starts, self._t(lb), self._t(ub),
@@ -477,7 +478,7 @@ class GaussianProcessRegressor:
         into the prior and noise keys, per target of a multi-output fit
         ``split(fold_in(key, t))``, and the prior's normals of the unfolded
         key itself; drawn on the CPU (:func:`~..ops.prng.normal64_plain`)."""
-        key = prng.prng_key(int(random_state))
+        key = prng.prng_key_x64(int(random_state))
         S = int(n_samples)
         X = np.asarray(X, dtype=np.float64).reshape(-1)
         if hasattr(self, "_L"):

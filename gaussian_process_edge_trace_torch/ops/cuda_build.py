@@ -45,8 +45,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_U = ctypes.c_uint
-_L = ctypes.c_longlong
 # C signature of every entry point; a launcher returns its cudaError_t as int.
 _SIGNATURES = {
     "gpet_fused_cost": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I,
@@ -57,7 +55,7 @@ _SIGNATURES = {
     "gpet_binning_dense": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gpet_batched_cholesky": [_P, _P, _I, _I, _P],
     "gpet_batched_trsm": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "gpet_threefry": [_P, _U, _U, _L, _L, _L, _L, _I, _F, _F, _I, _P],
+    "gpet_threefry_table": [_P, _I, _P],
     # Shared-memory bytes of one block (not kernels: ints, not cudaError_t).
     "gpet_batched_cholesky_smem": [_I],
     "gpet_batched_trsm_smem": [_I, _I],

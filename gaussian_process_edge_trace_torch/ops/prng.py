@@ -7,11 +7,14 @@ draws from, as defined under ``jax_threefry_partitionable=True`` (JAX
 one seed draws the same numbers in both packages:
 
 - a key is a pair of Python ints ``(k0, k1)``, each 32 bits:
-  :func:`prng_key` is ``jax.random.PRNGKey`` (a 64-bit seed split into its
-  high and low words, as ``jax._src.prng.threefry_seed`` builds it),
-  :func:`fold_in` and :func:`split` are the foldlike forms
-  (``_threefry_fold_in``, ``_threefry_split_foldlike``). Keys are derived on
-  the host, one threefry block each, so drawing never reads the device;
+  :func:`prng_key` is ``jax.random.PRNGKey`` as the JAX package runs it,
+  with ``jax_enable_x64`` off (a seed in [-2⁶³, 2⁶³) keys as (0, seed mod
+  2³²)), and :func:`prng_key_x64` the same with x64 on, for the float64 draws
+  of the sklearn-style GPR (the seed's 64-bit two's complement as (high,
+  low) words); the two agree on seeds in [0, 2³²). :func:`fold_in` and
+  :func:`split` are the foldlike forms (``_threefry_fold_in``,
+  ``_threefry_split_foldlike``). Keys are derived on the host, one threefry
+  block each, so drawing never reads the device;
 - :func:`random_bits` of a key and a (rows, S_tot) shape: element (i, j)
   hashes the 64-bit counter ``i·S_tot + j`` split into (high, low) words and
   is ``bits1 ^ bits2`` (``_threefry_random_bits_partitionable``). A column
@@ -27,15 +30,18 @@ one seed draws the same numbers in both packages:
   normals equal ``jax.random.normal``'s on the CPU bit for bit.
 
 Shapes of more than two axes draw as (prod(shape[:-1]), shape[-1]): the flat
-index is the same. On the CPU the functions take their plain versions,
-int64 tensors masked to 32 bits; on the card :func:`uniform` and
-:func:`normal` launch ``csrc/threefry_normal_kernel.cu``, one thread per
-element, and raise if it cannot run. ``LAUNCHES`` counts its launches.
+index is the same. :func:`draw` takes a table of :class:`Draw` s at once. On
+the CPU the functions take their plain versions, int64 tensors masked to 32
+bits; on the card they launch ``csrc/threefry_normal_kernel.cu``, one launch
+for a table of up to :data:`_MAX_DRAWS` draws, and raise if it cannot run.
+``LAUNCHES`` counts its launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,9 +54,10 @@ MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 
-# The kernel's modes (csrc/threefry_normal_kernel.cu).
+# The kernel's modes and the draws one launch takes
+# (csrc/threefry_normal_kernel.cu).
 _MODE = {"bits": 0, "uniform": 1, "normal": 2}
-_THREADS = 256
+_MAX_DRAWS = 64
 
 
 def _f32(bits: int) -> float:
@@ -103,15 +110,28 @@ def _threefry_host(k0: int, k1: int, x0: int, x1: int):
     return x0, x1
 
 
-def prng_key(seed) -> tuple:
-    """``jax.random.PRNGKey(seed)``: the (high, low) words of the 64-bit
-    seed. Negative seeds take their 64-bit two's complement, as JAX does
-    with ``jax_enable_x64``; a seed in [0, 2³¹) gives the same key in
-    either mode."""
+def _seed64(seed) -> int:
     seed = int(seed)
-    if not -2 ** 63 <= seed < 2 ** 64:
-        raise ValueError(f"seed {seed} does not fit 64 bits")
-    seed &= 2 ** 64 - 1
+    if not -2 ** 63 <= seed < 2 ** 63:
+        raise OverflowError(f"seed {seed} does not fit a signed 64-bit "
+                            f"integer")
+    return seed
+
+
+def prng_key(seed) -> tuple:
+    """``jax.random.PRNGKey(seed)`` as the JAX package runs it, with
+    ``jax_enable_x64`` off: ``(0, seed mod 2³²)`` for a seed in [-2⁶³, 2⁶³)
+    (so -1 keys as (0, 2³² - 1), 2³² + 5 as (0, 5)); ``OverflowError``
+    outside that range, as JAX raises."""
+    return 0, _seed64(seed) & MASK32
+
+
+def prng_key_x64(seed) -> tuple:
+    """``jax.random.PRNGKey(seed)`` with ``jax_enable_x64`` on: the (high,
+    low) words of the seed's 64-bit two's complement; ``OverflowError``
+    outside [-2⁶³, 2⁶³). Only the sklearn-style GPR keys so, as it follows
+    the JAX package's float64 path (models/sklearn_api.py)."""
+    seed = _seed64(seed) & (2 ** 64 - 1)
     return seed >> 32, seed & MASK32
 
 
@@ -326,24 +346,123 @@ def uniform64_plain(key, shape, minval=0.0, maxval=1.0):
     return torch.maximum(lo, f * span + lo).reshape(_out_shape(shape, n))
 
 
-# ------------------------------------------------------------- the card ---
+# ------------------------------------------------------------ the table ---
 
-def _draw_cuda(mode, key, shape, cols, minval, maxval, device):
-    rows, S_tot, c0, n = _rows_cols(shape, cols)
-    dtype = torch.int32 if mode == "bits" else torch.float32
-    out = torch.empty(_out_shape(shape, n), dtype=dtype, device=device)
-    if out.numel() == 0:
+class Draw(NamedTuple):
+    """One draw of a table: ``mode`` (``"bits"``, ``"uniform"`` or
+    ``"normal"``) of ``key`` at ``shape``, its columns ``cols``; a
+    uniform's ``[minval, maxval)`` (a normal's are its own)."""
+    mode: str
+    key: tuple
+    shape: tuple
+    cols: slice = slice(None)
+    minval: float = 0.0
+    maxval: float = 1.0
+
+
+def draw_plain(d: Draw, device="cpu"):
+    """Plain version of one draw of a table, on ``device``."""
+    if d.mode == "normal":
+        return normal_plain(d.key, d.shape, d.cols, device)
+    if d.mode == "uniform":
+        return uniform_plain(d.key, d.shape, d.minval, d.maxval, d.cols,
+                             device)
+    if d.mode == "bits":
+        return random_bits_plain(d.key, d.shape, d.cols, device)
+    raise ValueError(f"unknown draw mode {d.mode!r}")
+
+
+def empty(d: Draw, device, lead=()):
+    """An uninitialised tensor for the draw ``d`` on ``device`` (its shape,
+    with ``lead`` axes in front; int32 bits on the card, int64 on the
+    CPU)."""
+    _, _, _, n = _rows_cols(d.shape, d.cols)
+    dtype = (torch.float32 if d.mode != "bits" else
+             torch.int32 if _on_card(device) else torch.int64)
+    return torch.empty(tuple(lead) + _out_shape(d.shape, n), dtype=dtype,
+                       device=device)
+
+
+def draw(table, device="cpu", out=None):
+    """Every :class:`Draw` of ``table``, as a list of tensors on ``device``,
+    or written into ``out`` (one tensor per draw, of the draw's shape, dtype
+    and device, e.g. the frames of one stacked tensor) and returned.
+
+    On the card one kernel launch draws up to :data:`_MAX_DRAWS` of them
+    (the table is cut into as many launches as it needs), each into its own
+    output rows, which need a column stride of 1 and a row stride that
+    fits 32 bits; the bits come as int32. On the CPU each draw is its plain
+    version, the bits as int64."""
+    table = list(table)
+    if out is not None and len(out) != len(table):
+        raise ValueError(f"{len(out)} outputs for {len(table)} draws")
+    if not _on_card(device):
+        plain = [draw_plain(d, device) for d in table]
+        if out is None:
+            return plain
+        for o, p in zip(out, plain):
+            o.copy_(p)
         return out
-    lo, span = _bounds(minval, maxval)
+    if out is None:
+        out = [empty(d, device) for d in table]
+    for at in range(0, len(table), _MAX_DRAWS):
+        _launch(table[at:at + _MAX_DRAWS], out[at:at + _MAX_DRAWS])
+    return out
+
+
+# -------------------------------------------------------------- the card ---
+
+class _DrawArgs(ctypes.Structure):
+    """One draw as the kernel takes it (``GpetDrawArgs`` in
+    csrc/threefry_normal_kernel.cu)."""
+    _fields_ = [("out", ctypes.c_void_p), ("k0", ctypes.c_uint32),
+                ("k1", ctypes.c_uint32), ("rows", ctypes.c_int),
+                ("S_tot", ctypes.c_int), ("c0", ctypes.c_int),
+                ("ncols", ctypes.c_int), ("row_stride", ctypes.c_int),
+                ("mode", ctypes.c_int), ("lo", ctypes.c_float),
+                ("span", ctypes.c_float)]
+
+
+def _args(d: Draw, o) -> _DrawArgs:
+    rows, S_tot, c0, n = _rows_cols(d.shape, d.cols)
+    want = (torch.int32 if d.mode == "bits" else torch.float32)
+    if o.dtype != want:
+        raise TypeError(f"threefry: a {d.mode} draw writes {want} on the "
+                        f"card, not {o.dtype}")
+    if tuple(o.shape) != _out_shape(d.shape, n):
+        raise ValueError(f"threefry: output {tuple(o.shape)} for a "
+                         f"{_out_shape(d.shape, n)} draw")
+    view = o.reshape(rows, n) if o.numel() else o.reshape(rows, 0)
+    if view.data_ptr() != o.data_ptr() or (n > 1 and view.stride(1) != 1):
+        raise ValueError("threefry: output rows need a column stride of 1")
+    row_stride = view.stride(0) if rows > 1 else n
+    if max(S_tot, rows, row_stride) > 2 ** 31 - 1:
+        raise ValueError(f"threefry: a ({rows}, {S_tot}) draw with rows "
+                         f"{row_stride} apart does not fit 32-bit offsets")
+    if d.mode == "normal":
+        lo, span = _bounds(NORMAL_LO, 1.0)
+    else:
+        lo, span = _bounds(d.minval, d.maxval)
+    return _DrawArgs(o.data_ptr(), d.key[0], d.key[1], rows, S_tot, c0, n,
+                     row_stride, _MODE[d.mode], lo, span)
+
+
+def _launch(table, out):
+    if any(o.device != out[0].device or o.device.type != "cuda"
+           for o in out):
+        raise ValueError(f"threefry: outputs on "
+                         f"{sorted({str(o.device) for o in out})}, not on "
+                         f"one card")
+    args = (_DrawArgs * len(table))(*(_args(d, o) for d, o in zip(table,
+                                                                   out)))
+    if all(a.rows * a.ncols == 0 for a in args):
+        return
     lib = cuda_build.library()
-    with torch.cuda.device(out.device):
+    with torch.cuda.device(out[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.gpet_threefry(out.data_ptr(), key[0], key[1], rows, S_tot,
-                               c0, n, _MODE[mode], lo, span,
-                               _THREADS, stream)
+        rc = lib.gpet_threefry_table(args, len(table), stream)
     cuda_build.check(rc, "threefry")
     LAUNCHES["threefry"] += 1
-    return out
 
 
 def _on_card(device) -> bool:
@@ -354,24 +473,18 @@ def random_bits(key, shape, cols=slice(None), device="cpu"):
     """The uint32 random bits of columns ``cols`` of the ``shape`` draw of
     ``key``: int64 on the CPU (the plain version), the same bit patterns
     as int32 on the card (the kernel)."""
-    if _on_card(device):
-        return _draw_cuda("bits", key, shape, cols, 0.0, 1.0, device)
-    return random_bits_plain(key, shape, cols, device)
+    return draw([Draw("bits", key, shape, cols)], device)[0]
 
 
 def uniform(key, shape, minval=0.0, maxval=1.0, cols=slice(None),
             device="cpu"):
     """``jax.random.uniform(key, shape, float32, minval, maxval)``, or its
     columns ``cols``, on ``device``."""
-    if _on_card(device):
-        return _draw_cuda("uniform", key, shape, cols, minval, maxval,
-                          device)
-    return uniform_plain(key, shape, minval, maxval, cols, device)
+    return draw([Draw("uniform", key, shape, cols, minval, maxval)],
+                device)[0]
 
 
 def normal(key, shape, cols=slice(None), device="cpu"):
     """``jax.random.normal(key, shape, float32)``, or its columns ``cols``,
     on ``device``."""
-    if _on_card(device):
-        return _draw_cuda("normal", key, shape, cols, NORMAL_LO, 1.0, device)
-    return normal_plain(key, shape, cols, device)
+    return draw([Draw("normal", key, shape, cols)], device)[0]

@@ -391,9 +391,11 @@ class StreamDraws:
     samples [off, off + S/k) of a sample group takes ``slice(off, off +
     S/k)``, and its columns are the full draw's bit for bit.
     ``restarts()`` are the final fit's (lml_restarts, 3) uniforms in [0, 1)
-    of ``fold_in(PRNGKey(seed), 0)`` (driver.py:590,639-640). On the card
-    both come from ``csrc/threefry_normal_kernel.cu``, on the CPU from its
-    plain version, and both equal ``jax.random``'s draws."""
+    of ``fold_in(PRNGKey(seed), 0)`` (driver.py:590,639-640). Each is one
+    table of :class:`~..ops.prng.Draw` s (``normal_table``,
+    ``restart_table``): on the card one launch of
+    ``csrc/threefry_normal_kernel.cu``, on the CPU its plain version, and
+    both equal ``jax.random``'s draws."""
 
     def __init__(self, cfg: TracerConfig, rank: int, device, seed=None):
         self.cfg, self.rank = cfg, rank
@@ -401,35 +403,59 @@ class StreamDraws:
         self.seed = int(cfg.seed if seed is None else seed)
         self.key = prng.prng_key(self.seed)
 
+    def normal_table(self, it: int, cols=slice(None)):
+        k_prior, k_noise = prng.split(prng.fold_in(self.key, it + 1))
+        S = self.cfg.N_samples
+        return [prng.Draw("normal", k_prior, (self.rank, S), cols),
+                prng.Draw("normal", k_noise, (self.cfg.n_train, S), cols)]
+
+    def restart_table(self):
+        return [prng.Draw("uniform", prng.fold_in(self.key, 0),
+                          (self.cfg.lml_restarts, 3))]
+
     def normals(self, it: int, cols=slice(None)):
         """(z (r, S), w (n_train, S)) standard normals of iteration ``it``,
         or their columns ``cols``."""
-        k_prior, k_noise = prng.split(prng.fold_in(self.key, it + 1))
-        S = self.cfg.N_samples
-        return (prng.normal(k_prior, (self.rank, S), cols, self.device),
-                prng.normal(k_noise, (self.cfg.n_train, S), cols,
-                            self.device))
+        return tuple(prng.draw(self.normal_table(it, cols), self.device))
 
     def restarts(self):
         """(lml_restarts, 3) uniforms in [0, 1) for the final fit."""
-        return prng.uniform(prng.fold_in(self.key, 0),
-                            (self.cfg.lml_restarts, 3), device=self.device)
+        return prng.draw(self.restart_table(), self.device)[0]
 
 
 class FrameDraws:
     """Draw sources of their own for each frame, as one source: the normals
     and restart uniforms of every frame's source stacked on a leading axis
     ((B, r, S), (B, n_train, S), (B, lml_restarts, 3)); ``normals(it,
-    cols)`` passes the columns on."""
+    cols)`` passes the columns on. Sources with tables (:class:`StreamDraws`)
+    draw every frame's table in one launch, straight into the stacked
+    tensors; others are drawn one by one and stacked."""
 
     def __init__(self, sources):
         self.sources = list(sources)
+        self.tabled = all(hasattr(src, "normal_table")
+                          for src in self.sources)
+
+    def _stacked(self, tables):
+        """One tensor per entry of the sources' tables (equal in layout),
+        frame k of it drawn from source k's entry, all in one table."""
+        dev = self.sources[0].device
+        stacks = [prng.empty(d, dev, lead=(len(tables),)) for d in tables[0]]
+        prng.draw([d for t in tables for d in t], dev,
+                  out=[s[k] for k in range(len(tables)) for s in stacks])
+        return stacks
 
     def normals(self, it: int, *cols):
+        if self.tabled:
+            return tuple(self._stacked([src.normal_table(it, *cols)
+                                        for src in self.sources]))
         z, w = zip(*(src.normals(it, *cols) for src in self.sources))
         return torch.stack(z), torch.stack(w)
 
     def restarts(self):
+        if self.tabled:
+            return self._stacked([src.restart_table()
+                                  for src in self.sources])[0]
         return torch.stack([src.restarts() for src in self.sources])
 
 
@@ -438,9 +464,9 @@ class KeyDraws:
     ``fit_predict_GP(seed=k)`` and ``preview_samples`` take it
     (models/tracer.py:158, driver.py:720): ``sample_normals(n)`` gives the
     sampling round's (z (r, S), w (n, S)) for a training buffer of ``n``
-    slots from ``split(PRNGKey(seed))``, and ``restarts()`` the final fit's
-    (lml_restarts, 3) uniforms of ``PRNGKey(seed)`` itself (driver.py:590,
-    625)."""
+    slots from ``split(PRNGKey(seed))`` in one table, and ``restarts()``
+    the final fit's (lml_restarts, 3) uniforms of ``PRNGKey(seed)`` itself
+    (driver.py:590, 625)."""
 
     def __init__(self, cfg: TracerConfig, rank: int, device, seed=0):
         self.cfg, self.rank = cfg, rank
@@ -450,8 +476,9 @@ class KeyDraws:
     def sample_normals(self, n: int):
         k_prior, k_noise = prng.split(self.key)
         S = self.cfg.N_samples
-        return (prng.normal(k_prior, (self.rank, S), device=self.device),
-                prng.normal(k_noise, (n, S), device=self.device))
+        return tuple(prng.draw([prng.Draw("normal", k_prior, (self.rank, S)),
+                                prng.Draw("normal", k_noise, (n, S))],
+                               self.device))
 
     def restarts(self):
         return prng.uniform(self.key, (self.cfg.lml_restarts, 3),

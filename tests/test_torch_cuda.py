@@ -15,11 +15,14 @@ This file imports no JAX, so it also runs where JAX is not installed:
         tests/test_torch_cuda.py
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
 
 import gaussian_process_edge_trace_torch as gpt
+from gaussian_process_edge_trace_torch.ops import cuda_build
 from gaussian_process_edge_trace_torch.ops import cuda_chol as cc
 from gaussian_process_edge_trace_torch.ops import cuda_interp as ci
 from gaussian_process_edge_trace_torch.trace import cuda_kde as ck
@@ -773,16 +776,57 @@ def test_denoisers_on_the_card_match_the_cpu(dev, technique, kwargs, rtol):
         assert err <= rtol
 
 
-def test_card_generator_keeps_64_bits_of_a_seed(dev):
-    """The card's draws key on all 64 bits of a seed: seeds 2³² apart draw
-    different normals, and a seed's normals repeat."""
+def test_card_keys_a_seed_mod_two_to_the_32(dev):
+    """The card keys a 64-bit seed as the shipped JAX package does (x64
+    off, seed mod 2³²): seeds 2³² apart draw the same normals, seeds 1
+    apart different ones, and a seed's normals repeat."""
     from gaussian_process_edge_trace_torch.ops import prng
 
     def normals(seed):
         return prng.normal(prng.prng_key(seed), (4, 64), device=dev)
-    for s in (5, 2 ** 16 + 1, 2 ** 32 + 7):
-        assert not torch.equal(normals(s), normals(s + 2 ** 32))
+    for s in (5, 2 ** 16 + 1, 2 ** 32 + 7, -1):
+        assert torch.equal(normals(s), normals(s + 2 ** 32))
+        assert not torch.equal(normals(s), normals(s + 1))
     assert torch.equal(normals(5), normals(5))
+
+
+def test_threefry_table_is_one_launch(dev):
+    """A table of draws (normals in column windows, a uniform, bits) is
+    one launch, each draw bit for bit its plain version; 130 draws take
+    three launches; a 5-member ensemble's normals go into the stacked
+    tensors in one launch, each member its own source's draws."""
+    from gaussian_process_edge_trace_torch.ops import prng
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    table = [prng.Draw("normal", (1, 2), (48, 10000)),
+             prng.Draw("normal", (3, 4), (208, 10000), slice(2500, 5000)),
+             prng.Draw("normal", (5, 6), (7, 13), slice(3, 13)),
+             prng.Draw("uniform", (7, 8), (12, 3)),
+             prng.Draw("bits", (9, 10), (2, 3, 50), slice(7, 8))]
+    n0 = prng.LAUNCHES["threefry"]
+    got = prng.draw(table, dev)
+    torch.cuda.synchronize()
+    assert prng.LAUNCHES["threefry"] == n0 + 1
+    for d, g in zip(table, got):
+        plain = prng.draw_plain(d)
+        if d.mode == "bits":
+            assert torch.equal(g.cpu().to(torch.int64) & prng.MASK32, plain)
+        else:
+            assert _bits_equal(g.cpu(), plain)
+    many = [prng.Draw("normal", (k, 1), (3, 40)) for k in range(130)]
+    n0 = prng.LAUNCHES["threefry"]
+    got = prng.draw(many, dev)
+    assert prng.LAUNCHES["threefry"] == n0 + 3
+    assert all(_bits_equal(g.cpu(), prng.draw_plain(d))
+               for d, g in zip(many, got))
+    cfg = types.SimpleNamespace(N_samples=1000, n_train=104,
+                                lml_restarts=12, seed=1)
+    members = [pd.StreamDraws(cfg, 56, dev, seed=1 + k) for k in range(5)]
+    n0 = prng.LAUNCHES["threefry"]
+    z, w = pd.FrameDraws(members).normals(4, slice(250, 750))
+    assert prng.LAUNCHES["threefry"] == n0 + 1
+    for k, m in enumerate(members):
+        zk, wk = m.normals(4, slice(250, 750))
+        assert torch.equal(z[k], zk) and torch.equal(w[k], wk)
 
 
 @pytest.mark.parametrize("mode,shape,cols", [

@@ -49,10 +49,28 @@ def _u32(t):
     return np.asarray(t.numpy(), np.int64).astype(np.uint32)
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2 ** 31 - 1, 2 ** 32, 2 ** 32 + 5,
-                                  2 ** 63 - 1])
+SEEDS_64 = [0, 1, 2 ** 31 - 1, 2 ** 32, 2 ** 32 + 5, 2 ** 63 - 1, -1,
+            -2 ** 63]
+
+
+@pytest.mark.parametrize("seed", SEEDS_64)
 def test_prng_key_matches_jax(seed):
-    assert prng.prng_key(seed) == _key(jax.random.PRNGKey(seed))
+    """The tracer's keys are ``PRNGKey`` as the JAX package runs it, with
+    x64 off: (0, seed mod 2³²) (the tests' conftest turns x64 on)."""
+    with jax.enable_x64(False):
+        ref = _key(jax.random.PRNGKey(seed))
+    assert prng.prng_key(seed) == ref == (0, seed % 2 ** 32)
+
+
+@pytest.mark.parametrize("seed", SEEDS_64)
+def test_prng_key_x64_matches_jax_with_x64(seed):
+    """The sklearn-style GPR's keys are ``PRNGKey`` with x64 on, the
+    JAX package's float64 path; in [0, 2³²) both key functions agree."""
+    with jax.enable_x64(True):
+        ref = _key(jax.random.PRNGKey(seed))
+    assert prng.prng_key_x64(seed) == ref
+    assert (prng.prng_key_x64(seed) == prng.prng_key(seed)) == (
+        0 <= seed < 2 ** 32)
 
 
 @pytest.mark.parametrize("seed,chain", [(0, (0,)), (1, (1, 2, 3)),
@@ -74,10 +92,17 @@ def test_split_matches_jax(n):
 
 
 def test_fold_in_and_seed_bounds_raise():
+    """A seed outside [-2⁶³, 2⁶³) raises ``OverflowError`` in either mode,
+    as ``jax.random.PRNGKey`` does."""
     with pytest.raises(ValueError, match="fold_in"):
         prng.fold_in((0, 1), 2 ** 32)
-    with pytest.raises(ValueError, match="64 bits"):
-        prng.prng_key(2 ** 64)
+    for seed in (2 ** 63, -2 ** 63 - 1, 2 ** 64):
+        for x64 in (False, True):
+            with jax.enable_x64(x64), pytest.raises(OverflowError):
+                jax.random.PRNGKey(seed)
+        for key in (prng.prng_key, prng.prng_key_x64):
+            with pytest.raises(OverflowError, match="64-bit"):
+                key(seed)
 
 
 @pytest.mark.parametrize("shape", [(60, 1000), (13, 3), (7, 33), (1, 1)])
@@ -248,6 +273,62 @@ def test_ensemble_member_draws_are_the_jax_packages(small, k):
     _bits_equal(member.restarts(), ref.restarts())
 
 
+@pytest.mark.parametrize("seed", [2 ** 32 - 2, -3])
+def test_ensemble_members_past_two_to_the_32_are_the_shipped_packages(
+        small, seed):
+    """Members k = 0-4 of an ensemble at ``seed``, whose ``seed + k``
+    crosses 2³² (or 0), draw ``PRNGKey(seed + k)`` as the shipped JAX
+    package keys it (x64 off): :class:`FrameDraws` of the port's sources
+    (one table of all five members' draws) against :class:`FrameDraws` of
+    the JAX package's own draws (stacked one by one), columns too."""
+    pcfg, rank = small["pcfg"], small["rank"]
+    frames = pd.FrameDraws([pd.StreamDraws(pcfg, rank, "cpu", seed=seed + k)
+                            for k in range(5)])
+    with jax.enable_x64(False):
+        shipped = pd.FrameDraws([JaxDraws(pcfg._replace(seed=seed + k), rank)
+                                 for k in range(5)])
+    assert frames.tabled and not shipped.tabled
+    for cols in ((), (slice(64, 192),)):
+        for a, b in zip(frames.normals(3, *cols), shipped.normals(3, *cols)):
+            _bits_equal(a, b)
+    _bits_equal(frames.restarts(), shipped.restarts())
+
+
+def _ensemble_table():
+    keys = [prng.split(prng.fold_in(prng.prng_key(7 + k), 4))
+            for k in range(5)]
+    return [prng.Draw("normal", kk[part], (rows, 300), slice(40, 260))
+            for kk in keys for part, rows in ((0, 6), (1, 11))]
+
+
+@pytest.mark.parametrize("table", [
+    [prng.Draw("normal", (3, 4), (6, 300)),
+     prng.Draw("normal", (5, 6), (11, 300), slice(150, 300)),
+     prng.Draw("uniform", (7, 8), (12, 3)),
+     prng.Draw("uniform", (9, 10), (5, 40), slice(3, 29), -3.0, 5.0),
+     prng.Draw("bits", (11, 12), (2, 3, 50), slice(7, 8))],
+    _ensemble_table()], ids=["mixed", "ensemble_K5"])
+def test_draw_table_is_its_draws(table):
+    """The plain version of a table equals each draw's own plain version,
+    returned or written into a stacked tensor's frames (the layout
+    ``FrameDraws`` gives the kernel), column windows included."""
+    got = prng.draw(table)
+    for d, g in zip(table, got):
+        assert torch.equal(g, prng.draw_plain(d))
+        one = {"normal": prng.normal(d.key, d.shape, d.cols),
+               "uniform": prng.uniform(d.key, d.shape, d.minval, d.maxval,
+                                       d.cols),
+               "bits": prng.random_bits(d.key, d.shape, d.cols)}[d.mode]
+        assert torch.equal(g, one)
+    if all(d.shape == table[0].shape for d in table[::2]):
+        stacks = [prng.empty(d, "cpu", lead=(len(table) // 2,))
+                  for d in table[:2]]
+        prng.draw(table, out=[s[k] for k in range(len(table) // 2)
+                              for s in stacks])
+        for i, d in enumerate(table):
+            assert torch.equal(stacks[i % 2][i // 2], got[i])
+
+
 # ---------------- properties the draws keep (carried from the old layout) --
 
 def test_consecutive_seeds_share_no_normals(small):
@@ -286,12 +367,16 @@ def test_a_seeds_draws_repeat(small):
 
 
 def test_no_limits_on_seed_member_or_iterations(small):
-    """The JAX stream has no packing limits: a seed past 2³², a member
-    past 64 and an iteration past 1022 each draw their own normals."""
+    """The JAX stream has no packing limits: an iteration past 1022 draws
+    its own normals. A seed past 2³² keys as the shipped JAX package keys
+    it, seed mod 2³², so seed 2³² + 1 draws seed 1's normals."""
     pcfg, rank = small["pcfg"], small["rank"]
     far = pd.StreamDraws(pcfg, rank, "cpu", seed=2 ** 32 + 1)
     near = pd.StreamDraws(pcfg, rank, "cpu", seed=1)
-    assert not torch.equal(far.normals(0)[0], near.normals(0)[0])
+    assert torch.equal(far.normals(0)[0], near.normals(0)[0])
+    with jax.enable_x64(False):
+        shipped = JaxDraws(pcfg._replace(seed=2 ** 32 + 1), rank)
+    _bits_equal(far.normals(0)[0], shipped.normals(0)[0])
     z = [near.normals(it)[0] for it in (1021, 1022, 1099)]
     assert not torch.equal(z[0], z[1]) and not torch.equal(z[1], z[2])
     _bits_equal(z[2], JaxDraws(pcfg, rank).normals(1099)[0])

@@ -7,7 +7,9 @@ Run from the repository root on a CPU:
     JAX_PLATFORMS=cpu python tests/torch_jax_fixtures.py trajectory
 
 ``stream`` (a few seconds) writes ``tests/jax_stream_fixture.json``: draws
-of ``jax.random`` from keys of seeds 0, 1, 2, 2³¹−1 and 2³²+5 through the
+of ``jax.random`` from keys of seeds 0, 1, 2, 2³¹−1, 2³²+5 and −1, keyed
+with ``jax_enable_x64`` off as the JAX package runs (the fixture records
+the mode; seeds outside [0, 2³²) key otherwise with it on), through the
 JAX package's derivations (iteration keys ``split(fold_in(PRNGKey(s), it +
 1))``, the restarts of ``fold_in(PRNGKey(s), 0)``, unfolded keys, ensemble
 members ``PRNGKey(s + k)``) at the (r, S) and (n_train, S) shapes of the
@@ -52,7 +54,7 @@ jax.config.update("jax_enable_x64", True)
 
 STREAM_PATH = os.path.join(HERE, "jax_stream_fixture.json")
 TRAJECTORY_PATH = os.path.join(HERE, "jax_trajectory_fixture.json")
-STREAM_SEEDS = (0, 1, 2, 2 ** 31 - 1, 2 ** 32 + 5)
+STREAM_SEEDS = (0, 1, 2, 2 ** 31 - 1, 2 ** 32 + 5, -1)
 ROUNDING_PX = 0.1
 EDGE = 8
 
@@ -105,6 +107,12 @@ def _entry(kind, seed, key, shape, draw, **extra):
 
 
 def stream():
+    """The stream fixture, every key made with x64 off."""
+    with jax.enable_x64(False):
+        _stream()
+
+
+def _stream():
     from gaussian_process_edge_trace_tpu.trace import driver as rd
     shapes = {}
     for name, spec, right in (("demo", DEMO, -1), ("1000_S1e4", BIG, -1),
@@ -154,6 +162,7 @@ def stream():
     out.append(_entry("bits", 2, jax.random.PRNGKey(2), bits.shape, bits))
     with open(STREAM_PATH, "w") as f:
         json.dump({"jax": jax.__version__,
+                   "x64": bool(jax.config.jax_enable_x64),
                    "threefry_partitionable":
                    bool(jax.config.jax_threefry_partitionable),
                    "shapes": shapes, "edge": EDGE, "entries": out}, f,

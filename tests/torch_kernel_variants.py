@@ -1,18 +1,33 @@
 #!/usr/bin/env python3
 """The port's kernels against the designs they were chosen over, on an
-NVIDIA GPU: K1 and K3 at inputs taken from the traces themselves, K2 and
-K4 at ``chip_smoke.py``'s check shapes.
+NVIDIA GPU: K1 and K3 at inputs taken from the traces themselves, K2, K4
+and K7 at ``chip_smoke.py``'s check shapes.
 
 Not collected by pytest. Run from the repository root on a machine with a
 CUDA card and ``nvcc``:
 
-    python3 tests/torch_kernel_variants.py [--only K1K3|K2K4]
+    python3 tests/torch_kernel_variants.py [--only K1K3|K2K4|K7]
         [--previous DIR]
 
 ``--previous DIR`` names the ``csrc`` directory of an earlier tree (for
 example one unpacked with ``git archive``): its ``column_interp_kernel.cu``
 and ``binning_dense_kernel.cu``, whose launchers take no launch plan, are
-built and timed beside the shipped K2 and K4 in the same run.
+built and timed beside the shipped K2 and K4 in the same run, and with
+``--only K7`` its ``threefry_normal_kernel.cu`` (the one-draw launcher
+``gpet_threefry``, where the tree has it) beside the shipped K7.
+
+K7: the shipped draw kernel and its variants (256 threads per block where
+it takes 128; 2 and 4 elements per thread where it takes 8; threefry's adds
+all on the ALU, or only the rounds' adds on the FMA pipe, where it issues
+every add there; erf_inv's coefficient selected at each Horner step, or
+both chains evaluated and one selected, where it branches to the rare
+w >= 5 chain; log1p's arms behind a branch where it computes both; the
+one-element kernel's forms of both), each bitwise the shipped kernel's
+draws, timed at the 1000² noise draw (208, 10⁴), one iteration's table of
+the demo, the 1000² config and its S = 10⁵ row, beside ``torch.randn`` of
+the same shapes; and each build's SASS (``cuobjdump -sass``): the draw
+kernel's static instructions by opcode class, and per element (over its
+elements per thread).
 
 K2 and K4: K2 at the odd-E trace's unfused cost (E=999, M=1000, S=10⁴),
 the odd demo shape (E=499, M=500, S=1000) and the final cost (S = 1),
@@ -43,6 +58,9 @@ how many rows a batch of 32 kept curves falls, which is what
 from __future__ import annotations
 
 import ctypes
+import json
+import re
+import subprocess
 import sys
 from pathlib import Path
 
@@ -313,10 +331,222 @@ def k2_k4(dev, previous):
     return failed
 
 
+# K7's launch shape as shipped (csrc/threefry_normal_kernel.cu) and the
+# variants of it that are timed: threads per block, elements per thread.
+K7_SHAPE = {"kThreads": 128, "kPerThread": 8}
+K7_SHAPE_VARIANTS = {
+    "256 threads": {"kThreads": 256},
+    "4 per thread, 256 threads": {"kThreads": 256, "kPerThread": 4},
+    "2 per thread, 256 threads": {"kThreads": 256, "kPerThread": 2}}
+K7_VARIANTS = {
+    name: [(f"constexpr int {k} = {K7_SHAPE[k]};",
+            f"constexpr int {k} = {v};") for k, v in shape.items()]
+    for name, shape in K7_SHAPE_VARIANTS.items()}
+# threefry's adds: all on the ALU, or only the rounds' on the FMA pipe.
+INJECTIONS = (
+    "    x0 = add_on_fma(x0, ks[(i + 1) % 3], one);\n"
+    "    x1 = add_on_fma(x1, ks[(i + 2) % 3] + (uint32_t)(i + 1), one);",
+    "    x0 += ks[(i + 1) % 3];\n"
+    "    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);")
+K7_VARIANTS["adds on the ALU"] = [
+    ('  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(one), '
+     '"r"(b));', "  d = a + b;"), INJECTIONS]
+K7_VARIANTS["rounds' adds only on the FMA pipe"] = [INJECTIONS]
+K7_VARIANTS["log1p behind a branch"] = [
+    ("  const float large = xla_log(__fadd_rn(t, 1.0f));",
+     "  if (!(fabsf(t) < bits_f(0x3ED413CDu)))\n"
+     "    return xla_log(__fadd_rn(t, 1.0f));"),
+    ("  return fabsf(t) < bits_f(0x3ED413CDu) ? small : large;",
+     "  return small;")]
+# erf_inv's w < 5 and w >= 5 arms as the one-element kernel had them (one
+# Horner chain, its coefficient selected at each step) and as both chains
+# evaluated for every element, one selected: each takes the place of the
+# shipped branch, from ``float p;`` to the return.
+ERF_FORMS = {
+    "erf_inv selects per step": (
+        "  const bool lt = l1p > -5.0f;\n"
+        "  const float w = lt ? __fsub_rn(-2.5f, l1p)\n"
+        "                     : __fadd_rn(__fsqrt_rn(-l1p), -3.0f);\n"
+        "  const uint32_t lt5[9] = {0x32F16588u, 0x34B84B36u, 0xB66C7357u,\n"
+        "                           0xB6935AC1u, 0x396532DBu, 0xBAA45408u,\n"
+        "                           0xBB88E4EFu, 0x3E7C8F63u, 0x3FC02E2Fu};\n"
+        "  const uint32_t ge5[9] = {0xB951F09Bu, 0x38D3B56Bu, 0x3AB0DC72u,\n"
+        "                           0xBB70BDE7u, 0x3BBC127Bu, 0xBBF9C5D7u,\n"
+        "                           0x3C1AA57Eu, 0x3F8036DBu, 0x40354F7Eu};\n"
+        "  float p = fmaf(bits_f(lt ? lt5[0] : ge5[0]), w,\n"
+        "                 bits_f(lt ? lt5[1] : ge5[1]));\n"
+        "#pragma unroll\n"
+        "  for (int i = 2; i < 9; ++i)\n"
+        "    p = fmaf(w, p, bits_f(lt ? lt5[i] : ge5[i]));\n"
+        "  return __fmul_rn(x, p);"),
+    "erf_inv both chains selected": (
+        "  const bool lt = l1p > -5.0f;\n"
+        "  const float w = lt ? __fsub_rn(-2.5f, l1p)\n"
+        "                     : __fadd_rn(__fsqrt_rn(-l1p), -3.0f);\n"
+        "  float p = fmaf(bits_f(0x32F16588u), w, bits_f(0x34B84B36u));\n"
+        "  float q = fmaf(bits_f(0xB951F09Bu), w, bits_f(0x38D3B56Bu));\n"
+        + "".join(f"  p = fmaf(w, p, bits_f({a}));\n  q = fmaf(w, q, bits_f({b}));\n"
+                  for a, b in zip(
+                      ("0xB66C7357u", "0xB6935AC1u", "0x396532DBu",
+                       "0xBAA45408u", "0xBB88E4EFu", "0x3E7C8F63u",
+                       "0x3FC02E2Fu"),
+                      ("0x3AB0DC72u", "0xBB70BDE7u", "0x3BBC127Bu",
+                       "0xBBF9C5D7u", "0x3C1AA57Eu", "0x3F8036DBu",
+                       "0x40354F7Eu")))
+        + "  return __fmul_rn(x, lt ? p : q);")}
+
+
+def erf_form(src, name):
+    a = src.index("  float p;\n  if (l1p > -5.0f) {")
+    end = "  return __fmul_rn(x, p);"
+    b = src.index(end, a) + len(end)
+    return src[:a] + ERF_FORMS[name] + src[b:]
+
+
+# Opcode classes of the SASS counts (Hopper): integer ALU, integer
+# multiply-add (issued to the FMA pipe), float32, uniform datapath, memory
+# and the rest (control, moves, conversions).
+SASS_CLASSES = (
+    ("int", ("IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "ISETP",
+             "SEL", "LEA", "PRMT", "IABS", "IMNMX", "FLO", "POPC", "BMSK",
+             "PLOP3", "P2R", "R2P")),
+    ("imad", ("IMAD",)),
+    ("float", ("FFMA", "FADD", "FMUL", "FSETP", "FSEL", "FMNMX", "MUFU",
+               "FCHK", "I2F", "F2I", "FRND", "FSWZADD")),
+    ("uniform", ("U",)),
+    ("memory", ("LDG", "STG", "LDC", "LDS", "STS", "LDL", "STL", "LD",
+                "ST")))
+
+
+def sass_counts(so, name):
+    """Static SASS instructions of the kernel whose symbol holds ``name``
+    in the library ``so``: {opcode class: count}, NOPs left out."""
+    import collections
+    import shutil
+    tool = shutil.which("cuobjdump") or str(
+        Path(cuda_build._nvcc()).with_name("cuobjdump"))
+    dump = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, inside = collections.Counter(), False
+    for line in dump.splitlines():
+        fn = re.match(r"\s*Function : (\S+)", line)
+        if fn:
+            inside = name in fn.group(1)
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_]*)", line)
+        if inside and op and op.group(1) != "NOP":
+            base = op.group(1)
+            cls = next((c for c, ops in SASS_CLASSES
+                        if base in ops or (c == "uniform"
+                                           and base.startswith("U"))),
+                       "other")
+            counts[cls] += 1
+            counts["all"] += 1
+    return dict(counts)
+
+
+def k7(dev, previous):
+    """K7 as shipped against its variants and, with ``previous``, the
+    earlier tree's kernel; returns the names of the runs that failed."""
+    import chip_smoke as smoke
+    from gaussian_process_edge_trace_torch.ops import prng
+    src = (cuda_build.CSRC_DIR / "threefry_normal_kernel.cu").read_text()
+    variants = {name: substituted(src, subs)
+                for name, subs in K7_VARIANTS.items()}
+    for name in ERF_FORMS:
+        variants[name] = erf_form(src, name)
+    variants["both as in the one-element kernel"] = erf_form(
+        variants["log1p behind a branch"], "erf_inv selects per step")
+    libs = {}
+    for name, vsrc in {"shipped": src, **variants}.items():
+        libs[name] = (vsrc, int(re.search(r"constexpr int kPerThread = "
+                                          r"(\d+);", vsrc).group(1)))
+    built = {}
+    for name, (vsrc, per) in libs.items():
+        OUT.mkdir(parents=True, exist_ok=True)
+        stem = "k7_" + re.sub(r"\W+", "_", name)
+        cu = OUT / f"{stem}.cu"
+        cu.write_text(vsrc)
+        lib = cuda_build.compile_library(cu, OUT / f"lib{stem}.so")
+        lib.gpet_threefry_table.argtypes = [P, I, P]
+        built[name] = (lib, OUT / f"lib{stem}.so", per)
+    old = None
+    if previous and (Path(previous) / "threefry_normal_kernel.cu").exists():
+        so = OUT / "libprevious_threefry.so"
+        old = cuda_build.compile_library(
+            Path(previous) / "threefry_normal_kernel.cu", so)
+        if hasattr(old, "gpet_threefry"):
+            old.gpet_threefry.argtypes = [P, ctypes.c_uint, ctypes.c_uint] + [
+                ctypes.c_longlong] * 4 + [I, F, F, I, P]
+            built_old = (old, so, 1)
+        else:
+            old = None
+    key = prng.split(prng.fold_in(prng.prng_key(1), 1))
+    cases = {
+        "normals (208, 10^4)": [prng.Draw("normal", key[1], (208, 10000))],
+        "demo iteration (56 + 104, 1000)": [
+            prng.Draw("normal", key[0], (56, 1000)),
+            prng.Draw("normal", key[1], (104, 1000))],
+        "1000^2 iteration (48 + 208, 10^4)": [
+            prng.Draw("normal", key[0], (48, 10000)),
+            prng.Draw("normal", key[1], (208, 10000))],
+        "S=10^5 iteration (48 + 208, 10^5)": [
+            prng.Draw("normal", key[0], (48, 100000)),
+            prng.Draw("normal", key[1], (208, 100000))]}
+    failed = []
+    for case, table in cases.items():
+        outs = [prng.empty(d, dev) for d in table]
+        args = (prng._DrawArgs * len(table))(
+            *(prng._args(d, o) for d, o in zip(table, outs)))
+        want = prng.draw(table, dev)
+        randn_ms = smoke.cuda_ms(lambda: [torch.randn(d.shape, device=dev)
+                                          for d in table])
+        print(f"[K7] {case}: torch.randn of the same shapes {randn_ms:.4f} "
+              f"ms (context)")
+
+        def launch(lib):
+            stream = torch.cuda.current_stream().cuda_stream
+            cuda_build.check(lib.gpet_threefry_table(args, len(table),
+                                                     stream), "threefry")
+
+        runs = [(name, lambda lib=lib: launch(lib))
+                for name, (lib, _, _) in built.items()]
+        if old is not None:
+            def launch_old():
+                stream = torch.cuda.current_stream().cuda_stream
+                for d, o in zip(table, outs):
+                    rows, S, c0, n = prng._rows_cols(d.shape, d.cols)
+                    lo, span = prng._bounds(prng.NORMAL_LO, 1.0)
+                    cuda_build.check(old.gpet_threefry(
+                        o.data_ptr(), d.key[0], d.key[1], rows, S, c0, n, 2,
+                        lo, span, 256, stream), "previous threefry")
+            runs.append(("previous tree (one launch per draw)", launch_old))
+        for name, fn in runs:
+            for o in outs:
+                o.fill_(float("nan"))
+            fn()
+            torch.cuda.synchronize()
+            ok = all(smoke.same_bits(o, w) for o, w in zip(outs, want))
+            ms = smoke.cuda_ms(fn)
+            print(f"[K7] {case}: {name} {ms:.4f} ms "
+                  f"{'bitwise the shipped draws' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"K7 {case} {name}")
+    if old is not None:
+        built["previous tree"] = built_old
+    for name, (_, so, per) in built.items():
+        counts = sass_counts(so, "threefry")
+        print(f"[K7] SASS {name}: {json.dumps(counts)} static instructions "
+              f"of the draw kernel; {counts.get('all', 0) / per:.1f} per "
+              f"element ({per} per thread)")
+    return failed
+
+
 def main(argv=None) -> int:
     import argparse
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--only", choices=("K1K3", "K2K4"))
+    p.add_argument("--only", choices=("K1K3", "K2K4", "K7"))
     p.add_argument("--previous", help="an earlier tree's csrc directory")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -325,11 +555,13 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     print(f"[card] {cs.card_line()}")
     failed = []
-    if args.only != "K1K3":
+    if args.only in (None, "K2K4"):
         failed += k2_k4(dev, args.previous and previous_kernels(
             args.previous))
-    if args.only != "K2K4":
+    if args.only in (None, "K1K3"):
         failed += k1_k3(dev)
+    if args.only in (None, "K7"):
+        failed += k7(dev, args.previous)
     if failed:
         print(f"torch_kernel_variants: FAILED {failed}")
         return 1
