@@ -1222,18 +1222,10 @@ def check_kernels(checks, dev):
 
 
 def reset_counts():
-    """Every kernel's launch count, the host reads and the collectives set
-    to 0."""
-    from gaussian_process_edge_trace_torch.ops import collectives
-    from gaussian_process_edge_trace_torch.ops import cuda_chol as cc
-    from gaussian_process_edge_trace_torch.ops import cuda_interp as ci
-    from gaussian_process_edge_trace_torch.ops import prng
-    from gaussian_process_edge_trace_torch.trace import cuda_kde as ck
-    from gaussian_process_edge_trace_torch.trace import driver as pd
-    for counts in (ci.LAUNCHES, cc.LAUNCHES, cc.BLOCKED, ck.LAUNCHES,
-                   prng.LAUNCHES, pd.HOST_READS, collectives.COLLECTIVES):
-        for k in counts:
-            counts[k] = 0
+    """Every module counter (kernel launches, the host's waits and their
+    bytes, the collectives) set to 0."""
+    from gaussian_process_edge_trace_torch.utils import profiling
+    profiling.reset_counters()
 
 
 def read_counts():
@@ -2306,7 +2298,8 @@ def sequence_phase(checks, dev):
     res = ps.trace_sequence(cfg, grads, inits)
     torch.cuda.synchronize()
     got = read_counts()
-    reads = dict(pd.HOST_READS)
+    reads = {k: pd.HOST_READS[k]
+             for k in ("active", "finish", "state", "samples")}
     cold, warm = ps._sequence_configs(cfg)
     total = {k: 0 for k in got}
     for f, r in enumerate(res):
@@ -2490,8 +2483,6 @@ def introspective_phase(checks, tag, c):
     for name, kw in (("fused", {}), ("return_lines", {"return_lines": True}),
                      ("verbose", {"verbose": True})):
         reset_counts()
-        for k in pd.HOST_BYTES:
-            pd.HOST_BYTES[k] = 0
         printed = io.StringIO()
         with contextlib.redirect_stdout(printed):
             out = tracer(**kw)

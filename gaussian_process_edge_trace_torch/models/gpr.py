@@ -39,6 +39,7 @@ from gaussian_process_edge_trace_torch.ops.cuda_chol import (
 # Re-exported: the final fit's sums (ops/sums.py).
 from gaussian_process_edge_trace_torch.ops.sums import (  # noqa: F401
     _on_card, fixed_sum, tree_sum)
+from gaussian_process_edge_trace_torch.utils import profiling
 
 
 class GPState(NamedTuple):
@@ -58,11 +59,13 @@ def frame_by_frame(fn, *xs, min_dim=3):
     of operations, by the batch size; one call on the CPU, where the
     library keeps one order per matrix. ``xs[0]`` has a frame axis from
     ``min_dim`` dimensions up: 3 for batches of matrices, 2 for the rows
-    that :func:`frame_sum` reduces."""
+    that :func:`frame_sum` reduces. The per-frame calls run in the span
+    ``gpet.frame_by_frame``."""
     if not _on_card(xs[0]) or xs[0].dim() < min_dim or xs[0].shape[0] == 1:
         return fn(*xs)
-    return torch.cat([fn(*(x[f:f + 1] for x in xs))
-                      for f in range(xs[0].shape[0])])
+    with profiling.span("gpet.frame_by_frame"):
+        return torch.cat([fn(*(x[f:f + 1] for x in xs))
+                          for f in range(xs[0].shape[0])])
 
 
 def frame_sum(x):
@@ -84,12 +87,15 @@ def safe_cholesky(K, jitter_scales=(0.0, 1e-5, 1e-3), per_matrix=False):
     garbage where a factorisation fails, so its ``info``, not the diagonal,
     decides. With ``per_matrix``, on the card, the candidates go through
     K5 (:func:`cholesky_auto`), whose bits do not depend on the batch, and
-    a failed factor has a diagonal that is not finite."""
+    a failed factor has a diagonal that is not finite. The ladder and the
+    fallback index go to the device in blocking copies, two waits of kind
+    ``jitter``."""
     n = K.shape[-1]
     eye = torch.eye(n, dtype=K.dtype, device=K.device)
     scale = torch.diagonal(K, dim1=-2, dim2=-1).mean(-1)
-    jit = (torch.tensor(jitter_scales, dtype=K.dtype, device=K.device)
-           * scale[..., None])                              # (..., J)
+    with profiling.wait("jitter"):
+        ladder = torch.tensor(jitter_scales, dtype=K.dtype, device=K.device)
+    jit = ladder * scale[..., None]                         # (..., J)
     candidates = K[..., None, :, :] + jit[..., None, None] * eye
     if per_matrix and _on_card(K):
         Ls = cholesky_auto(candidates)
@@ -97,8 +103,10 @@ def safe_cholesky(K, jitter_scales=(0.0, 1e-5, 1e-3), per_matrix=False):
     else:
         Ls, info = torch.linalg.cholesky_ex(candidates)
         ok = info == 0
+    with profiling.wait("jitter"):
+        last = torch.tensor(len(jitter_scales) - 1, device=K.device)
     idx = torch.where(ok.any(-1), torch.argmax(ok.to(torch.uint8), dim=-1),
-                      torch.tensor(len(jitter_scales) - 1, device=K.device))
+                      last)
     return torch.take_along_dim(Ls, idx[..., None, None, None],
                                 dim=-3)[..., 0, :, :]
 

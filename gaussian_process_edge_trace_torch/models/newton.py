@@ -18,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from gaussian_process_edge_trace_torch.utils import profiling
+
 
 class NewtonResult(NamedTuple):
     x: torch.Tensor   # (d,) best iterate (with frames, (F, d))
@@ -90,7 +92,8 @@ def screen_and_polish(neg, starts, lb, ub, n_polish=8, iters=6,
     dt, dev = starts.dtype, starts.device
     lb = torch.as_tensor(lb, dtype=dt, device=dev)
     ub = torch.as_tensor(ub, dtype=dt, device=dev)
-    lam = torch.tensor(lambdas, dtype=dt, device=dev)
+    with profiling.wait("fit"):
+        lam = torch.tensor(lambdas, dtype=dt, device=dev)
     eye = torch.eye(starts.shape[-1], dtype=dt, device=dev)
     vneg = torch.func.vmap(neg)
     vgrad = torch.func.vmap(torch.func.grad(neg))
@@ -119,7 +122,8 @@ def lml_screen_grid(lb, ub, device=None):
                                dtype=lb.dtype)),
         float(lb[2]), float(ub[2]))
     G = torch.stack(torch.meshgrid(cs, ls, nz, indexing="ij"), dim=-1)
-    return G.reshape(-1, 3).to(device)
+    with profiling.wait("fit"):
+        return G.reshape(-1, 3).to(device)
 
 
 def screen_and_polish_batched(values_fn, vg_fn, starts, lb, ub, n_polish=8,
@@ -139,7 +143,8 @@ def screen_and_polish_batched(values_fn, vg_fn, starts, lb, ub, n_polish=8,
     dt, dev = starts.dtype, starts.device
     lead = starts.shape[:-2]
     d_dim = starts.shape[-1]
-    lam = torch.tensor(lambdas, dtype=dt, device=dev)
+    with profiling.wait("fit"):
+        lam = torch.tensor(lambdas, dtype=dt, device=dev)
     eye = torch.eye(d_dim, dtype=dt, device=dev)
     offs = torch.cat([torch.zeros((1, d_dim), dtype=dt, device=dev),
                       fd_h * eye, -fd_h * eye])                 # (2d+1, d)

@@ -44,6 +44,7 @@ from gaussian_process_edge_trace_torch.trace.kde import (
 from gaussian_process_edge_trace_torch.trace.scoring import (
     best_curves, curve_costs)
 from gaussian_process_edge_trace_torch.trace.select import select_pixels
+from gaussian_process_edge_trace_torch.utils.profiling import span
 
 
 def _numpy(t):
@@ -58,7 +59,8 @@ class GP_Edge_Tracing:
     keep_ratio, pixel_thresh, seed, return_std, fix_endpoints)``. Keyword-only
     extras: ``max_iters``, ``reference_quirks``, ``legacy_simpson``,
     ``device`` (where the trace runs; ``"cuda"`` by default) and ``draws``
-    (a draw source for the trace, :class:`StreamDraws` by default).
+    (a draw source for the trace, :class:`StreamDraws` by default). The
+    constructor runs in the span ``gpet.construct``.
     """
 
     def __init__(self, init, grad_img, kernel_options=(1, 3, 3), noise_y=1,
@@ -67,45 +69,49 @@ class GP_Edge_Tracing:
                  seed=42, return_std=False, fix_endpoints=True, *,
                  max_iters=48, reference_quirks=True, legacy_simpson=False,
                  device="cuda", draws=None):
-        init = np.asarray(init)
-        self.init = init[np.argsort(init[:, 0])].astype(int)  # gpet.py:95
-        self.obs = np.asarray(obs).reshape(-1, 2).astype(np.int64)
-        self.return_std = bool(return_std)
-        self.device = device
-        self.draws = draws
-        if not isinstance(grad_img, torch.Tensor):
-            grad_img = np.asarray(grad_img)
-        self.cfg = make_config(
-            self.init, tuple(grad_img.shape), kernel_options=kernel_options,
-            noise_y=noise_y, n_user_obs=self.obs.shape[0],
-            N_samples=N_samples, score_thresh=score_thresh, delta_x=delta_x,
-            keep_ratio=keep_ratio, pixel_thresh=pixel_thresh, seed=seed,
-            fix_endpoints=fix_endpoints, max_iters=max_iters,
-            reference_quirks=reference_quirks,
-            legacy_simpson=legacy_simpson)
-        self.data = make_data(self.cfg, grad_img, self.init, device)
-        # The reference's public attributes (gpet.py:95-119,161-162).
-        cfg = self.cfg
-        self.x_st, self.x_en = cfg.x_st, cfg.x_en
-        self.M, self.N = cfg.M, cfg.N
-        self.edge_length = cfg.edge_length
-        self.N_samples = cfg.N_samples
-        self.N_subints = cfg.N_subints
-        self.N_keep = cfg.N_keep
-        self.algo_thresh = cfg.algo_thresh
-        self.delta_x = cfg.delta_x
-        self.keep_ratio = (float(keep_ratio) if 0 < keep_ratio <= 1 else 0.1)
-        self.pixel_thresh = cfg.pixel_thresh
-        self.score_thresh = cfg.score_thresh0
-        self.kde_thresh = cfg.kde_thresh
-        self.seed = cfg.seed
-        self.fix_endpoints = cfg.fix_endpoints
-        self.noise_y = cfg.noise_y
-        self.sigma_f, self.sigma_l = cfg.sigma_f, cfg.sigma_l
-        self.x_grid = self.data.x_grid.cpu().numpy()
-        self.alpha_init = np.full((self.init.shape[0],),
-                                  cfg.init_noise_weight)
-        self._host = {}
+        with span("gpet.construct"):
+            init = np.asarray(init)
+            # gpet.py:95
+            self.init = init[np.argsort(init[:, 0])].astype(int)
+            self.obs = np.asarray(obs).reshape(-1, 2).astype(np.int64)
+            self.return_std = bool(return_std)
+            self.device = device
+            self.draws = draws
+            if not isinstance(grad_img, torch.Tensor):
+                grad_img = np.asarray(grad_img)
+            self.cfg = make_config(
+                self.init, tuple(grad_img.shape),
+                kernel_options=kernel_options, noise_y=noise_y,
+                n_user_obs=self.obs.shape[0], N_samples=N_samples,
+                score_thresh=score_thresh, delta_x=delta_x,
+                keep_ratio=keep_ratio, pixel_thresh=pixel_thresh, seed=seed,
+                fix_endpoints=fix_endpoints, max_iters=max_iters,
+                reference_quirks=reference_quirks,
+                legacy_simpson=legacy_simpson)
+            self.data = make_data(self.cfg, grad_img, self.init, device)
+            # The reference's public attributes (gpet.py:95-119,161-162).
+            cfg = self.cfg
+            self.x_st, self.x_en = cfg.x_st, cfg.x_en
+            self.M, self.N = cfg.M, cfg.N
+            self.edge_length = cfg.edge_length
+            self.N_samples = cfg.N_samples
+            self.N_subints = cfg.N_subints
+            self.N_keep = cfg.N_keep
+            self.algo_thresh = cfg.algo_thresh
+            self.delta_x = cfg.delta_x
+            self.keep_ratio = (float(keep_ratio) if 0 < keep_ratio <= 1
+                               else 0.1)
+            self.pixel_thresh = cfg.pixel_thresh
+            self.score_thresh = cfg.score_thresh0
+            self.kde_thresh = cfg.kde_thresh
+            self.seed = cfg.seed
+            self.fix_endpoints = cfg.fix_endpoints
+            self.noise_y = cfg.noise_y
+            self.sigma_f, self.sigma_l = cfg.sigma_f, cfg.sigma_l
+            self.x_grid = to_host(self.data.x_grid, "data").numpy()
+            self.alpha_init = np.full((self.init.shape[0],),
+                                      cfg.init_noise_weight)
+            self._host = {}
 
     def _cached(self, name, make):
         if name not in self._host:
@@ -406,12 +412,14 @@ class GP_Edge_Tracing:
             res = run_trace(cfg, data, state, draws=self.draws)
         # The adaptive threshold persists, as the reference's mutable
         # attribute does (gpet.py:595).
+        # One read of the trace, its interval and the last threshold.
         n_it = res.n_iters
-        self.score_thresh = (float(res.iter_thresh[n_it - 1]) if n_it > 0
+        thresh, edge_trace, cred = (t.numpy() for t in to_host(
+            (res.iter_thresh[max(n_it - 1, 0)], res.edge_trace,
+             res.cred_interval), "result"))
+        self.score_thresh = (float(thresh) if n_it > 0
                              else float(cfg.score_thresh0))
         self.last_result = res
-        edge_trace = _numpy(res.edge_trace)
-        cred = _numpy(res.cred_interval)
         if print_final_diagnostics:
             if not introspective:
                 curves = _numpy(res.iter_curves[:n_it])

@@ -36,15 +36,19 @@ from gaussian_process_edge_trace_torch.trace.driver import (
     FrameDraws, StreamDraws, TraceResult, TracerConfig, TracerData,
     TraceState, _device_at, _round_up, frame_arrays, frame_of, init_state,
     prior_factor, resolve_device, run_trace)
+from gaussian_process_edge_trace_torch.utils import profiling
 
 DATA_AXIS = "data"
 SAMPLE_AXIS = "sample"
 
 
 def _shared_leaves(cfg: TracerConfig, device):
-    """The prior factor and x grid: they depend on the config alone."""
-    return (torch.tensor(prior_factor(cfg), device=device),
-            cfg.x_st + torch.arange(cfg.edge_length, device=device))
+    """The prior factor and x grid: they depend on the config alone. The
+    factor goes to the device in a blocking copy, a wait of kind
+    ``data``."""
+    with profiling.wait("data"):
+        L_unit = torch.tensor(prior_factor(cfg), device=device)
+    return L_unit, cfg.x_st + torch.arange(cfg.edge_length, device=device)
 
 
 def make_batch_data(cfg: TracerConfig, grad_imgs, inits,

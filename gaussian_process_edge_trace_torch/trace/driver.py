@@ -59,7 +59,12 @@ from gaussian_process_edge_trace_torch.trace.scoring import (
     best_curves, curve_costs, sharded_best_curves)
 from gaussian_process_edge_trace_torch.trace.select import (
     BinSpec, make_bin_spec, select_consts, select_pixels)
+from gaussian_process_edge_trace_torch.utils import profiling
 from gaussian_process_edge_trace_torch.utils.image import normalise
+# The host's waits for the device by kind, and the bytes ``to_host``
+# copies: ``utils/profiling.py``'s counters, under their names here.
+from gaussian_process_edge_trace_torch.utils.profiling import (  # noqa: F401
+    HOST_BYTES, HOST_READS, span)
 
 # Relative eigenvalue threshold of the truncated prior factor.
 _PRIOR_RANK_RTOL = 1e-8
@@ -67,14 +72,6 @@ _PRIOR_RANK_RTOL = 1e-8
 # Largest training set the batched LML fit screens at full size; above it
 # the fit goes coarse-to-fine (driver.py:518-552).
 _DIRECT_FIT_N = 160
-
-# Reads of device values by the host: the loop's active mask (once before
-# the first iteration and once after each), finish_trace's n_iters and
-# converged, and the introspective tracer's reads (:func:`to_host`) of the
-# state (once before the first iteration and once after each) and of each
-# iteration's samples. HOST_BYTES counts the bytes that ``to_host`` copies.
-HOST_READS = {"active": 0, "finish": 0, "state": 0, "samples": 0}
-HOST_BYTES = {"state": 0, "samples": 0}
 
 
 class TracerConfig(NamedTuple):
@@ -254,8 +251,9 @@ def frame_arrays(cfg: TracerConfig, grad_img, init_xy, device=None):
     g = normalise(grad_img, (0, 1), device=device)
     gkde = gradient_kde(g, kde_thresh=cfg.kde_thresh)
     gcols = g.T[cfg.x_st:cfg.x_st + cfg.edge_length].contiguous()
-    init_xy = torch.as_tensor(np.array(init_xy), dtype=torch.int64,
-                              device=device)
+    with profiling.wait("data"):
+        init_xy = torch.as_tensor(np.array(init_xy), dtype=torch.int64,
+                                  device=device)
     init_xy = init_xy[torch.argsort(init_xy[:, 0], stable=True)]
     return g, gkde, gcols, init_xy[:, 0].contiguous(), \
         init_xy[:, 1].contiguous()
@@ -299,9 +297,10 @@ def make_data(cfg: TracerConfig, grad_img, init_xy,
     by default that of a tensor input, else the card."""
     device = resolve_device(device, grad_img, init_xy)
     g, gkde, gcols, ix, iy = frame_arrays(cfg, grad_img, init_xy, device)
+    with profiling.wait("data"):
+        L_prior_unit = torch.tensor(prior_factor(cfg), device=device)
     return TracerData(
-        grad_img=g, grad_kde=gkde, grad_cols=gcols,
-        L_prior_unit=torch.tensor(prior_factor(cfg), device=device),
+        grad_img=g, grad_kde=gkde, grad_cols=gcols, L_prior_unit=L_prior_unit,
         x_grid=cfg.x_st + torch.arange(cfg.edge_length, device=device),
         init_x=ix, init_y=iy)
 
@@ -333,7 +332,8 @@ def init_state(cfg: TracerConfig, user_obs_xy=None, user_obs_valid=None,
     f32 = dict(dtype=torch.float32, device=device)
     if user_obs_valid is None:
         valid = torch.ones(U, dtype=torch.bool, device=device)
-        n_fobs = torch.tensor(U, **i64)
+        with profiling.wait("init"):
+            n_fobs = torch.tensor(U, **i64)
     else:
         valid = torch.as_tensor(user_obs_valid, dtype=torch.bool,
                                 device=device)
@@ -341,11 +341,13 @@ def init_state(cfg: TracerConfig, user_obs_xy=None, user_obs_valid=None,
             raise ValueError(f"user_obs_valid of shape {tuple(valid.shape)} "
                              f"for {U} warm-start observations")
         n_fobs = valid.sum(dtype=torch.int64)
+    with profiling.wait("init"):
+        score_thresh = torch.tensor(cfg.score_thresh0, **f32)
     return TraceState(
         obs_x=torch.zeros(B, **i64), obs_y=torch.zeros(B, **i64),
         obs_valid=torch.zeros(B, dtype=torch.bool, device=device),
         user_x=user[:, 0].contiguous(), user_y=user[:, 1].contiguous(),
-        user_valid=valid, score_thresh=torch.tensor(cfg.score_thresh0, **f32),
+        user_valid=valid, score_thresh=score_thresh,
         n_fobs=n_fobs, it=0,
         iter_curves=torch.zeros((mi, E), **f32),
         iter_costs=torch.zeros(mi, **f32),
@@ -495,19 +497,23 @@ def _key_draws(cfg: TracerConfig, data: TracerData, seed) -> KeyDraws:
 
 
 def to_host(tree, kind: str):
-    """``tree`` (a tensor, or a NamedTuple of tensors and host values) on
-    the CPU, copied with one wait for the device, counted as one read of
-    ``kind`` in :data:`HOST_READS` and its bytes in :data:`HOST_BYTES`."""
+    """``tree`` (a tensor, or a tuple or NamedTuple of tensors and host
+    values) on the CPU, copied with one wait for the device
+    (:class:`~..utils.profiling.wait`: a span ``gpet.wait.<kind>`` and one
+    count of ``kind`` in :data:`HOST_READS`), and its bytes counted in
+    :data:`HOST_BYTES`."""
     one = isinstance(tree, torch.Tensor)
     items = [tree] if one else list(tree)
-    out = [v.to("cpu", non_blocking=True) if isinstance(v, torch.Tensor)
-           else v for v in items]
-    if any(isinstance(v, torch.Tensor) and v.is_cuda for v in items):
-        torch.cuda.current_stream().synchronize()
-    HOST_READS[kind] += 1
+    with profiling.wait(kind):
+        out = [v.to("cpu", non_blocking=True) if isinstance(v, torch.Tensor)
+               else v for v in items]
+        if any(isinstance(v, torch.Tensor) and v.is_cuda for v in items):
+            torch.cuda.current_stream().synchronize()
     HOST_BYTES[kind] += sum(v.numel() * v.element_size() for v in out
                             if isinstance(v, torch.Tensor))
-    return out[0] if one else type(tree)(*out)
+    if one:
+        return out[0]
+    return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
 
 
 def _sample_round(cfg: TracerConfig, data: TracerData, x, y, mask, noise_w,
@@ -534,26 +540,40 @@ def _sample_round(cfg: TracerConfig, data: TracerData, x, y, mask, noise_w,
 
 
 def _lift(state: TraceState) -> TraceState:
-    """One trace's state as a batch of one frame."""
-    return TraceState(*(
-        torch.tensor([v], dtype=torch.int64, device=state.obs_x.device)
-        if k == "it" else v[None] for k, v in state._asdict().items()))
+    """One trace's state as a batch of one frame: its iteration count goes
+    to the device in a blocking copy, one wait of kind ``lift``."""
+    with profiling.wait("lift"):
+        it = torch.tensor([state.it], dtype=torch.int64,
+                          device=state.obs_x.device)
+    return TraceState(*(it if k == "it" else v[None]
+                        for k, v in state._asdict().items()))
 
 
 def frame_of(batch, f: int):
     """Frame ``f`` of a batched :class:`TraceState` or :class:`TraceResult`
-    as one trace's: ``it`` and ``n_iters`` as ints, ``converged`` a bool."""
-    cast = {"it": int, "n_iters": int, "converged": bool}
-    return type(batch)(**{k: cast[k](v[f]) if k in cast else v[f]
-                          for k, v in batch._asdict().items()})
+    as one trace's: ``it`` and ``n_iters`` as ints, ``converged`` a bool.
+    A state's ``it`` lives on the device and is read in one
+    :func:`to_host` of kind ``frame``; a result's ``n_iters`` and
+    ``converged`` are host tensors already."""
+    out = {k: v[f] for k, v in batch._asdict().items()}
+    if "it" in out:
+        out["it"] = int(to_host(out["it"], "frame"))
+    else:
+        out["n_iters"] = int(out["n_iters"])
+        out["converged"] = bool(out["converged"])
+    return type(batch)(**out)
 
 
 def _iteration(cfg: TracerConfig, data: TracerData, state: TraceState, z, w,
-               blur=None, consts=None, k=None, with_score=False, shard=None):
+               blur=None, consts=None, k=None, with_score=False, shard=None,
+               draw=None):
     """One outer-loop iteration (gpet.py:829-861): sample, score, rank,
-    KDE, select. Returns the new state and the (E, S) samples, and with
-    ``with_score`` also the (M, N) pixel scores the selection ranked
-    (gpet.py:582) and the (M, N) KDE map they were made from.
+    KDE, select, each stage in its span (``gpet.sample``, ``gpet.score``,
+    ``gpet.kde``, ``gpet.select``). Returns the new state and the (E, S)
+    samples, and with ``with_score`` also the (M, N) pixel scores the
+    selection ranked (gpet.py:582) and the (M, N) KDE map they were made
+    from. ``draw``, where ``z`` and ``w`` are None, is a call that draws
+    them, made in the sampling stage's span.
 
     With ``shard`` (a :class:`~..ops.collectives.SampleShard`; the
     reference's sample-axis arm, driver.py:372-429) ``z`` and ``w`` are the
@@ -569,48 +589,56 @@ def _iteration(cfg: TracerConfig, data: TracerData, state: TraceState, z, w,
     one = isinstance(state.it, int)
     if one:
         state, k = _lift(state), state.it
-    x, y, mask, noise_w = _train_set(cfg, data, state)
-    samples = _sample_round(cfg, data, x, y, mask, noise_w, z, w)
-    even = "avg" if cfg.legacy_simpson else "simpson"
-    if shard is None:
-        costs, samples_t = curve_costs(
-            data.grad_cols, samples, kde_thresh=cfg.kde_thresh, even=even,
-            return_samples_t=True)
-        bc, bcosts = best_curves(samples, costs, cfg.N_keep,
-                                 samples_t=samples_t)
-    else:
-        costs = curve_costs(data.grad_cols, samples,
-                            kde_thresh=cfg.kde_thresh, even=even,
-                            plan_samples=cfg.N_samples)
-        bc, bcosts = sharded_best_curves(samples, costs, cfg.N_keep, shard)
-    inv = 1.0 / bcosts
-    weights = inv / frame_sum(inv)[..., None]               # gpet.py:492-493
-    kde_arr = curve_kde(bc, weights, cfg.M, cfg.N, cfg.x_st, blur=blur)
-
-    sel = select_pixels(
-        kde_arr, data.grad_kde,
-        torch.cat([state.user_x, state.obs_x], dim=-1),
-        torch.cat([state.user_y, state.obs_y], dim=-1),
-        torch.cat([state.user_valid, state.obs_valid], dim=-1),
-        n_pre=state.n_fobs, score_thresh=state.score_thresh, spec=cfg.bins,
-        fix_endpoints=cfg.fix_endpoints, kde_thresh=cfg.kde_thresh,
-        pixel_thresh=cfg.pixel_thresh, algo_thresh=cfg.algo_thresh,
-        max_decays=cfg.max_decays, consts=consts)
+    with span("gpet.sample"):
+        if draw is not None:
+            z, w = draw()
+        x, y, mask, noise_w = _train_set(cfg, data, state)
+        samples = _sample_round(cfg, data, x, y, mask, noise_w, z, w)
+    with span("gpet.score"):
+        even = "avg" if cfg.legacy_simpson else "simpson"
+        if shard is None:
+            costs, samples_t = curve_costs(
+                data.grad_cols, samples, kde_thresh=cfg.kde_thresh,
+                even=even, return_samples_t=True)
+            bc, bcosts = best_curves(samples, costs, cfg.N_keep,
+                                     samples_t=samples_t)
+        else:
+            costs = curve_costs(data.grad_cols, samples,
+                                kde_thresh=cfg.kde_thresh, even=even,
+                                plan_samples=cfg.N_samples)
+            bc, bcosts = sharded_best_curves(samples, costs, cfg.N_keep,
+                                             shard)
+    with span("gpet.kde"):
+        inv = 1.0 / bcosts
+        weights = inv / frame_sum(inv)[..., None]           # gpet.py:492-493
+        kde_arr = curve_kde(bc, weights, cfg.M, cfg.N, cfg.x_st, blur=blur)
 
     def put(buf, v):
         buf = buf.clone()
         buf[:, k] = v
         return buf
 
-    new_state = TraceState(
-        obs_x=sel.obs_x, obs_y=sel.obs_y, obs_valid=sel.obs_valid,
-        user_x=state.user_x, user_y=state.user_y,
-        user_valid=torch.zeros_like(state.user_valid),  # first iteration only
-        score_thresh=sel.score_thresh, n_fobs=sel.n_fobs, it=state.it + 1,
-        iter_curves=put(state.iter_curves, bc[..., 0]),
-        iter_costs=put(state.iter_costs, bcosts[..., 0]),
-        iter_nobs=put(state.iter_nobs, sel.n_fobs),
-        iter_thresh=put(state.iter_thresh, sel.score_thresh))
+    with span("gpet.select"):
+        sel = select_pixels(
+            kde_arr, data.grad_kde,
+            torch.cat([state.user_x, state.obs_x], dim=-1),
+            torch.cat([state.user_y, state.obs_y], dim=-1),
+            torch.cat([state.user_valid, state.obs_valid], dim=-1),
+            n_pre=state.n_fobs, score_thresh=state.score_thresh,
+            spec=cfg.bins, fix_endpoints=cfg.fix_endpoints,
+            kde_thresh=cfg.kde_thresh, pixel_thresh=cfg.pixel_thresh,
+            algo_thresh=cfg.algo_thresh, max_decays=cfg.max_decays,
+            consts=consts)
+        new_state = TraceState(
+            obs_x=sel.obs_x, obs_y=sel.obs_y, obs_valid=sel.obs_valid,
+            user_x=state.user_x, user_y=state.user_y,
+            user_valid=torch.zeros_like(state.user_valid),  # 1st iteration
+            score_thresh=sel.score_thresh, n_fobs=sel.n_fobs,
+            it=state.it + 1,
+            iter_curves=put(state.iter_curves, bc[..., 0]),
+            iter_costs=put(state.iter_costs, bcosts[..., 0]),
+            iter_nobs=put(state.iter_nobs, sel.n_fobs),
+            iter_thresh=put(state.iter_thresh, sel.score_thresh))
     if one:
         new_state, samples = frame_of(new_state, 0), samples[0]
         score, kde_arr = sel.score[0], kde_arr[0]
@@ -644,7 +672,8 @@ def optimize_lml(kernel: KernelSpec, xs, ys, mask, noise_w, starts, lb, ub,
     starts = starts.expand(lead + starts.shape[-2:])
     grid = lml_screen_grid(lb, ub, dev)
     allstarts = torch.cat([starts, grid.expand(lead + grid.shape)], dim=-2)
-    lb_d, ub_d = lb.to(dev), ub.to(dev)
+    with profiling.wait("fit"):
+        lb_d, ub_d = lb.to(dev), ub.to(dev)
     if not use_batched:
         if lead:
             raise ValueError("use_batched=False fits one training set")
@@ -713,9 +742,10 @@ def _final_fit_buffers(cfg: TracerConfig, data: TracerData, restarts_u, x,
     ub = torch.log(torch.tensor([1e3, 100.0, 1.0], dtype=torch.float32))
     theta0 = torch.minimum(torch.maximum(torch.log(torch.tensor(
         [5.0, 5.0, cfg.noise_y], dtype=torch.float32)), lb), ub)
-    lb_d, ub_d = lb.to(dev), ub.to(dev)
+    with profiling.wait("fit"):
+        lb_d, ub_d, theta0_d = lb.to(dev), ub.to(dev), theta0.to(dev)
     restarts = restarts_u.to(dev, torch.float32) * (ub_d - lb_d) + lb_d
-    starts = torch.cat([theta0.to(dev).expand(restarts.shape[:-2] + (1, 3)),
+    starts = torch.cat([theta0_d.expand(restarts.shape[:-2] + (1, 3)),
                         restarts], dim=-2)
 
     theta, lml = optimize_lml(cfg.kernel, xs, ys, mask, noise_w, starts, lb,
@@ -797,12 +827,21 @@ def trace_step(cfg: TracerConfig, data: TracerData, state: TraceState,
 
 def finish_trace(cfg: TracerConfig, data: TracerData, state: TraceState,
                  draws) -> TraceResult:
-    """Post-loop finalisation (gpet.py:874-890): the converged LML fit, the
-    credible interval, the yx trace and the final mean curve's cost. A
-    batched state is finished in one fit for all frames, with one host read
-    for their ``n_iters`` and ``converged``."""
-    if isinstance(state.it, int):
-        return frame_of(finish_trace(cfg, data, _lift(state), draws), 0)
+    """Post-loop finalisation (gpet.py:874-890), in the span
+    ``gpet.finish``: the converged LML fit, the credible interval, the yx
+    trace and the final mean curve's cost. A batched state is finished in
+    one fit for all frames, with one host read for their ``n_iters`` and
+    ``converged``."""
+    with span("gpet.finish"):
+        if isinstance(state.it, int):
+            return frame_of(_finish_frames(cfg, data, _lift(state), draws),
+                            0)
+        return _finish_frames(cfg, data, state, draws)
+
+
+def _finish_frames(cfg: TracerConfig, data: TracerData, state: TraceState,
+                   draws) -> TraceResult:
+    """:func:`finish_trace` of a batched state."""
     x, y, mask, noise_w = _train_set(cfg, data, state)
     y_mean, y_std_s, y_s, theta, lml = _final_fit_buffers(
         cfg, data, draws.restarts(), x, y, mask, noise_w)
@@ -820,9 +859,8 @@ def finish_trace(cfg: TracerConfig, data: TracerData, state: TraceState,
                              kde_thresh=cfg.kde_thresh,
                              even="avg" if cfg.legacy_simpson
                              else "simpson")[..., 0]
-    host = torch.stack([state.it, (state.n_fobs >= cfg.algo_thresh).to(
-        torch.int64)]).cpu()                                # one read
-    HOST_READS["finish"] += 1
+    host = to_host(torch.stack([state.it, (
+        state.n_fobs >= cfg.algo_thresh).to(torch.int64)]), "finish")
     return TraceResult(
         edge_trace=edge_trace, y_mean=y_mean, y_std=y_std,
         cred_interval=cred, cred_interval_px=cred_px, n_iters=host[0],
@@ -854,9 +892,10 @@ def run_loop(cfg: TracerConfig, data: TracerData, state0: TraceState,
     iteration. With a batched state it steps all frames while any is
     active, one read of the (B,) active mask per iteration, and keeps each
     finished frame's state as it was (the JAX package's vmapped
-    ``while_loop``). The active frames must stand at one iteration.
-    ``shard``: the sample arm of :func:`_iteration`; the rank draws its
-    columns ``draws.normals(it, shard.cols)``."""
+    ``while_loop``). The active frames must stand at one iteration. Each
+    iteration, its active-mask read included, runs in the span
+    ``gpet.iter``. ``shard``: the sample arm of :func:`_iteration`; the
+    rank draws its columns ``draws.normals(it, shard.cols)``."""
     if isinstance(state0.it, int):
         return frame_of(run_loop(cfg, data, _lift(state0), draws, shard), 0)
     if draws is None:
@@ -865,8 +904,8 @@ def run_loop(cfg: TracerConfig, data: TracerData, state0: TraceState,
     cols = () if shard is None else (shard.cols,)
     state = state0
     active = _active(cfg, state)
-    at = set(torch.where(active, state.it, -1).tolist()) - {-1}
-    HOST_READS["active"] += 1
+    at = set(to_host(torch.where(active, state.it, -1), "active").tolist()) \
+        - {-1}
     if len(at) > 1:
         raise ValueError(f"the active frames stand at iterations "
                          f"{sorted(at)}; a batch steps them together")
@@ -874,13 +913,15 @@ def run_loop(cfg: TracerConfig, data: TracerData, state0: TraceState,
     # A lone frame is active whenever the loop steps it: nothing to keep.
     lone = state.it.shape[0] == 1
     while k < cfg.max_iters:
-        z, w = draws.normals(k, *cols)
-        new, _ = _iteration(cfg, data, state, z, w, blur=blur,
-                            consts=consts, k=k, shard=shard)
-        state = new if lone else _keep_finished(active, new, state)
-        active = _active(cfg, state)
-        HOST_READS["active"] += 1
-        k = k + 1 if bool(active.any()) else cfg.max_iters
+        with span("gpet.iter"):
+            new, _ = _iteration(cfg, data, state, None, None, blur=blur,
+                                consts=consts, k=k, shard=shard,
+                                draw=functools.partial(draws.normals, k,
+                                                       *cols))
+            state = new if lone else _keep_finished(active, new, state)
+            active = _active(cfg, state)
+            k = (k + 1 if bool(to_host(active.any(), "active"))
+                 else cfg.max_iters)
     return state
 
 
@@ -889,8 +930,10 @@ def run_trace(cfg: TracerConfig, data: TracerData, state0: TraceState,
     """The full trace (gpet.py:768-908): the outer loop, then
     :func:`finish_trace`; for one trace or, with a batched state, for every
     frame. ``draws`` defaults to :class:`StreamDraws`; ``shard``: see
-    :func:`run_loop` (the final fit runs whole on every rank)."""
-    if draws is None:
-        draws = _default_draws(cfg, data)
-    state = run_loop(cfg, data, state0, draws, shard)
-    return finish_trace(cfg, data, state, draws)
+    :func:`run_loop` (the final fit runs whole on every rank). In the span
+    ``gpet.run_trace``."""
+    with span("gpet.run_trace"):
+        if draws is None:
+            draws = _default_draws(cfg, data)
+        state = run_loop(cfg, data, state0, draws, shard)
+        return finish_trace(cfg, data, state, draws)

@@ -26,6 +26,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from gaussian_process_edge_trace_torch.utils import profiling
+
 
 class BinSpec(NamedTuple):
     """Sub-interval binning over the whole image width:
@@ -97,11 +99,12 @@ def select_consts(spec: BinSpec, N: int, max_decays: int,
                   device) -> SelectConsts:
     cols = np.arange(N)
     onehot = bin_of_col(spec, N)[None, :] == np.arange(spec.n_bins)[:, None]
-    return SelectConsts(
-        bin_onehot=torch.as_tensor(onehot, device=device),
-        col_ok=torch.as_tensor((cols > spec.x_st) & (cols < spec.x_en),
-                               device=device),
-        ladder=torch.as_tensor(decay_ladder(max_decays), device=device))
+    with profiling.wait("consts"):
+        return SelectConsts(
+            bin_onehot=torch.as_tensor(onehot, device=device),
+            col_ok=torch.as_tensor((cols > spec.x_st) & (cols < spec.x_en),
+                                   device=device),
+            ladder=torch.as_tensor(decay_ladder(max_decays), device=device))
 
 
 def select_pixels(kde_arr, grad_kde, obs_x, obs_y, obs_valid, n_pre,
@@ -146,7 +149,8 @@ def select_pixels(kde_arr, grad_kde, obs_x, obs_y, obs_valid, n_pre,
     flat = torch.where(obs_valid, base + obs_y * N + obs_x,
                        torch.full_like(obs_x, frames * M * N))
     old = torch.zeros(frames * M * N + 1, dtype=torch.bool, device=dev)
-    old[flat] = True
+    with profiling.wait("select"):   # the value True is copied to the card
+        old[flat] = True
     elig = cand | (old[:frames * M * N].reshape(kde_arr.shape) & dense_cand)
 
     raw_score = (kde_arr * grad_kde + kde_arr + grad_kde) / 3.0  # gpet.py:582
@@ -167,8 +171,10 @@ def select_pixels(kde_arr, grad_kde, obs_x, obs_y, obs_valid, n_pre,
     n_at = (bin_best_score[..., None, :] >= threshs[..., :, None]).sum(-1)
     n_pre = torch.as_tensor(n_pre, device=dev)[..., None]
     stop = (n_at - n_pre >= pixel_thresh) | (n_at >= algo_thresh)
+    with profiling.wait("select"):
+        last = torch.tensor(max_decays - 1, device=dev)
     j = torch.where(stop.any(-1), torch.argmax(stop.to(torch.uint8), dim=-1),
-                    torch.tensor(max_decays - 1, device=dev))
+                    last)
     thresh = torch.take_along_dim(threshs, j[..., None], dim=-1)[..., 0]
 
     valid = bin_best_score >= thresh[..., None]

@@ -4,9 +4,17 @@ Port of ``gaussian_process_edge_trace_tpu/utils/profiling.py``. The
 reference's only instrumentation is ``time.time()`` prints
 (gpet.py:815,831-835,864-870,897-899). Here:
 
+- :func:`span`: a named span of the program on ``torch.profiler``'s clock
+  while a profiler records, and a shared do-nothing context otherwise;
+- :func:`wait`: one wait of the host for the device, a span
+  ``gpet.wait.<kind>`` and one count of ``kind`` in :data:`HOST_READS`;
+- :func:`counters` / :func:`reset_counters`: every module counter of the
+  package (kernel launches, blocked factorisations, the host's waits and
+  the bytes they copy, collectives) as one flat snapshot, and set to 0;
 - :class:`PhaseTimer`: host wall-clock accumulated per named phase;
 - :func:`device_trace`: ``torch.profiler`` around a block, written as a
-  Chrome trace (viewable in Perfetto or ``chrome://tracing``);
+  Chrome trace (viewable in Perfetto or ``chrome://tracing``), the
+  program's ``gpet.*`` spans over the device's kernels;
 - :func:`trace_telemetry`: the per-iteration telemetry of a
   :class:`~..trace.driver.TraceResult` as a dict of numpy arrays;
 - :func:`sync_timer`: the median device time of one call between CUDA
@@ -14,6 +22,13 @@ reference's only instrumentation is ``time.time()`` prints
   less that of an empty launch;
 - :func:`device_op_breakdown`: device time per kernel name from
   ``torch.profiler``.
+
+The spans, from the entry point down: ``gpet.construct``
+(``GP_Edge_Tracing.__init__``), ``gpet.run_trace``, ``gpet.iter`` (one
+iteration of ``run_loop``, its active-mask read included) holding the
+stages ``gpet.sample``, ``gpet.score``, ``gpet.kde`` and ``gpet.select``,
+``gpet.finish`` (the final fit), ``gpet.frame_by_frame`` (the per-frame
+library calls of a batch on the card) and ``gpet.wait.<kind>``.
 """
 
 from __future__ import annotations
@@ -24,6 +39,98 @@ from collections import defaultdict
 
 import numpy as np
 import torch
+
+# The host's waits for the device, by kind: each is one :class:`wait`
+# around a read by ``trace/driver.py::to_host`` or a blocking copy to the
+# device, and holds one host-device round trip, the first of a block
+# draining the stream. They are counted by code path, so the CPU counts
+# what the card waits for. ``active``: the loop's active mask, once before
+# the first iteration and once after each; ``finish``: ``finish_trace``'s
+# ``n_iters`` and ``converged``; ``state``/``samples``: the introspective
+# tracer's reads of the state and of each iteration's curves; ``frame``: a
+# batched state's iteration count as one trace's (``frame_of``); ``lift``:
+# one trace's iteration count to the device (``_lift``); ``result``: the
+# tracer's trace, interval and last threshold; ``data``: the constructor's
+# copies (init points, prior factor) and its read of the x grid; ``init``:
+# ``init_state``'s two scalars; ``consts``: the selection's tables, once a
+# trace; ``jitter``: ``safe_cholesky``'s jitter ladder and its fallback
+# index; ``select``: the selection's mark of old observations and its
+# fallback index; ``fit``: the final fit's bounds and first start, its
+# screen grid and its step sizes. HOST_BYTES counts, by kind, the bytes
+# that ``to_host`` copies to the host.
+HOST_READS = dict.fromkeys(
+    ("active", "finish", "state", "samples", "frame", "lift", "result",
+     "data", "init", "consts", "jitter", "select", "fit"), 0)
+HOST_BYTES = dict.fromkeys(HOST_READS, 0)
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A span of the program named ``name``: while a ``torch.profiler``
+    records, ``torch.profiler.record_function(name)`` (a
+    ``user_annotation`` event on the profiler's clock, beside the kernels it
+    launches); otherwise one shared do-nothing context, so a span costs
+    one check when no profiler records."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+class wait:
+    """One wait of the host for the device around the block (a read, or a
+    blocking copy from pageable host memory, which drains the stream
+    first): the span ``gpet.wait.<kind>`` and one count of ``kind`` in
+    :data:`HOST_READS`. The package reaches it as ``profiling.wait``, so
+    every such wait passes through this one class (a context manager, as
+    ``contextlib.suppress`` is)."""
+
+    __slots__ = ("kind", "_span")
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        self._span = None
+
+    def __enter__(self):
+        HOST_READS[self.kind] += 1
+        if torch.autograd._profiler_enabled():
+            self._span = torch.profiler.record_function(
+                "gpet.wait." + self.kind)
+            self._span.__enter__()
+
+    def __exit__(self, *exc):
+        if self._span is not None:
+            self._span.__exit__(*exc)
+
+
+def _counter_dicts():
+    from gaussian_process_edge_trace_torch.ops import (
+        collectives, cuda_chol, cuda_interp, prng)
+    from gaussian_process_edge_trace_torch.trace import cuda_kde
+    return {"LAUNCHES": (cuda_interp.LAUNCHES, cuda_kde.LAUNCHES,
+                         cuda_chol.LAUNCHES, prng.LAUNCHES),
+            "BLOCKED": (cuda_chol.BLOCKED,),
+            "HOST_READS": (HOST_READS,), "HOST_BYTES": (HOST_BYTES,),
+            "COLLECTIVES": (collectives.COLLECTIVES,)}
+
+
+def counters() -> dict:
+    """Every module counter of the package as one flat snapshot,
+    ``{"<DICT>.<key>": n}``: the kernels' ``LAUNCHES`` (K1-K7), the blocked
+    K5/K6 calls (``BLOCKED``), the host's waits (``HOST_READS``) and the
+    bytes ``to_host`` copies (``HOST_BYTES``), the collectives
+    (``COLLECTIVES``)."""
+    return {f"{name}.{k}": v for name, ds in _counter_dicts().items()
+            for d in ds for k, v in d.items()}
+
+
+def reset_counters():
+    """Set every module counter to 0, in place: the dicts stay where they
+    are, so a caller that holds one reads the new counts."""
+    for ds in _counter_dicts().values():
+        for d in ds:
+            for k in d:
+                d[k] = 0
 
 
 class PhaseTimer:
@@ -59,8 +166,9 @@ def _activities():
 def device_trace(log_dir):
     """``torch.profiler`` around the block (host and, where there is a
     card, device activity); the trace is written to
-    ``log_dir/trace.json`` in the Chrome trace format. Yields the
-    profiler."""
+    ``log_dir/trace.json`` in the Chrome trace format, the program's
+    ``gpet.*`` spans (:func:`span`) over the kernels they launched, on one
+    clock. Yields the profiler."""
     from pathlib import Path
 
     Path(log_dir).mkdir(parents=True, exist_ok=True)

@@ -892,3 +892,116 @@ def test_wide_draws_on_the_card(dev):
     long = pd.StreamDraws(cfg._replace(max_iters=1100), rank, dev)
     z = [long.normals(it)[0] for it in (1021, 1022, 1099)]
     assert not torch.equal(z[0], z[1]) and not torch.equal(z[1], z[2])
+
+
+# -- the program's spans and waits on the card -------------------------------
+
+def _demo_frames(dev, n):
+    """``n`` README demo gradient images (500², sinusoid with gaps, noise
+    seeds 1..n) on the card and their (2, 2) xy endpoints."""
+    grads, inits = [], []
+    for seed in range(1, n + 1):
+        img, edge = gpt.construct_test_img((500, 500), 200, 4, 0.05,
+                                           "sinusoidal", 0.3, gaps=True,
+                                           seed=seed)
+        grads.append(gpt.comp_grad_img(img, gpt.kernel_builder((11, 5)),
+                                       device=dev))
+        inits.append(np.array([[0, edge[0, 0]], [499, edge[499, 0]]]))
+    return torch.stack(grads), np.stack(inits)
+
+
+_DEMO = ({"kernel": "RBF", "sigma_f": 75, "length_scale": 20}, 1,
+         np.array([]), 1000, 1, 5, 0.1, 5, 1)
+
+
+def _demo_trace(dev, grad, init):
+    tracer = gpt.GP_Edge_Tracing(init, grad, *_DEMO, True, True, device=dev)
+    return tracer, tracer()
+
+
+def test_spans_and_kernels_share_one_clock(dev, tmp_path):
+    """In a profiled demo trace every K1 launch
+    (``fused_cost_partial_kernel``) starts on the card after its
+    iteration's ``gpet.score`` span starts on the host and before the next
+    ``gpet.iter`` starts, and each iteration launches K1."""
+    import json
+    from gaussian_process_edge_trace_torch.utils import profiling
+    grads, inits = _demo_frames(dev, 1)
+    _demo_trace(dev, grads[0], inits[0])            # builds the kernels
+    torch.cuda.synchronize()
+    with profiling.device_trace(tmp_path):
+        tracer, _ = _demo_trace(dev, grads[0], inits[0])
+        torch.cuda.synchronize()
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())
+              ["traceEvents"] if e.get("ph") == "X"]
+
+    def starts(name, cat):
+        return sorted(float(e["ts"]) for e in events
+                      if e.get("cat") == cat and e["name"] == name)
+    iters = starts("gpet.iter", "user_annotation")
+    scores = starts("gpet.score", "user_annotation")
+    k1 = sorted(float(e["ts"]) for e in events if e.get("cat") == "kernel"
+                and "fused_cost_partial_kernel" in e["name"])
+    n = tracer.last_result.n_iters
+    assert len(iters) == len(scores) == n and k1
+    ends = iters[1:] + [float("inf")]
+    per_iter = [0] * n
+    for t in k1:
+        i = max((j for j in range(n) if scores[j] <= t), default=-1)
+        assert i >= 0 and t < ends[i], (t, i)
+        per_iter[i] += 1
+    assert min(per_iter) >= 1
+
+
+def _lenient_waits(monkeypatch):
+    """``profiling.wait`` with the sync debug mode off inside it, so only
+    the waits it counts may synchronise."""
+    from gaussian_process_edge_trace_torch.utils import profiling
+
+    class lenient(profiling.wait):
+        __slots__ = ()
+
+        def __enter__(self):
+            torch.cuda.set_sync_debug_mode(0)
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            try:
+                return super().__exit__(*exc)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+    monkeypatch.setattr(profiling, "wait", lenient)
+
+
+def test_every_wait_on_the_card_is_counted(dev, monkeypatch):
+    """A demo trace, its constructor included, and a 4-frame demo batch,
+    from ``make_batch_data`` to the results on the host, run under
+    ``torch.cuda.set_sync_debug_mode("error")`` with only
+    ``profiling.wait`` let through: any other synchronisation raises, so
+    every wait of the host for the device on these paths is counted."""
+    from gaussian_process_edge_trace_torch.parallel import sharded as ps
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    from gaussian_process_edge_trace_torch.utils import profiling
+    grads, inits = _demo_frames(dev, 4)
+    _, want = _demo_trace(dev, grads[0], inits[0])  # builds the kernels
+    torch.cuda.synchronize()
+    _lenient_waits(monkeypatch)
+    cfg = pd.make_config(inits[0], (500, 500), kernel_options=_DEMO[0],
+                         N_samples=1000, delta_x=5, pixel_thresh=5, seed=1)
+    profiling.reset_counters()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, got = _demo_trace(dev, grads[0], inits[0])
+        single = dict(pd.HOST_READS)
+        data = ps.make_batch_data(cfg, grads, inits, device=dev)
+        states = ps.make_batch_state(cfg, 4, device=dev)
+        res = ps.trace_batch(cfg, data, states)
+        edges, creds = pd.to_host((res.edge_trace, res.cred_interval),
+                                  "result")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert single["active"] >= 2 and single["result"] == 1
+    assert edges.shape == (4, 500, 2) and creds.shape == (4, 2, 500)
+    assert pd.HOST_READS["active"] == single["active"] + int(
+        res.n_iters.max()) + 1

@@ -17,6 +17,7 @@ import torch
 from gaussian_process_edge_trace_torch import interop
 from gaussian_process_edge_trace_torch.parallel import sharded as ps
 from gaussian_process_edge_trace_torch.trace import driver as pd
+from gaussian_process_edge_trace_torch.utils import profiling
 from gaussian_process_edge_trace_tpu.parallel import sharded as rs
 from gaussian_process_edge_trace_tpu.trace import driver as rd
 from torch_parity import (PARALLEL_FINAL_FIT, PARALLEL_KW, JaxDraws,
@@ -190,11 +191,20 @@ def test_sequence_frames_equal_their_runs_from_the_handoff(sequences):
 
 def test_sequence_default_draws_and_host_reads(sequences):
     """With its default draws, each frame reads the host once before its
-    loop, once after each iteration and once in ``finish_trace``."""
-    pd.HOST_READS.update(active=0, finish=0, state=0, samples=0)
+    loop, once after each iteration and once in ``finish_trace``, and
+    waits for every other blocking copy where its code path makes one:
+    its init points to the device, its state's scalars (the warm frames
+    count their hand-off on the device), the lift of its state and its
+    result to a batch of one and back, the selection's tables once and
+    twice an iteration, the jitter ladder twice a sampling round and in
+    the final fit, whose bounds, grid and step sizes make four more; the
+    prior factor once for the sequence."""
+    profiling.reset_counters()
     res = ps.trace_sequence(sequences["pcfg"], torch.tensor(
         sequences["grads"]), sequences["inits"], device="cpu")
     n = sum(r.n_iters for r in res)
-    assert pd.HOST_READS == {"active": n + 3, "finish": 3, "state": 0,
-                             "samples": 0}
+    assert pd.HOST_READS == dict(
+        dict.fromkeys(pd.HOST_READS, 0), active=n + 3, finish=3, frame=3,
+        lift=6, data=4, init=4, consts=3, jitter=2 * n + 6, select=2 * n,
+        fit=12)
     assert all(r.edge_trace.shape == (64, 2) for r in res)

@@ -1,0 +1,166 @@
+"""PyTorch port, its tracing on the CPU: the ``gpet.*`` spans of a tiny
+single trace and of a 3-frame batch under ``torch.profiler`` (one run, one
+loop of ``gpet.iter`` spans with four stages each, one final fit, one
+``gpet.wait.<kind>`` span for every counted wait), nothing of the profiler
+entered without one, the same bits either way, and the module counters'
+snapshot and reset."""
+
+import numpy as np
+import pytest
+import torch
+
+import gaussian_process_edge_trace_torch as gpt
+from gaussian_process_edge_trace_torch.ops import collectives
+from gaussian_process_edge_trace_torch.ops import cuda_chol as cc
+from gaussian_process_edge_trace_torch.ops import cuda_interp as ci
+from gaussian_process_edge_trace_torch.ops import prng
+from gaussian_process_edge_trace_torch.parallel import sharded as ps
+from gaussian_process_edge_trace_torch.trace import cuda_kde as ck
+from gaussian_process_edge_trace_torch.trace import driver as pd
+from gaussian_process_edge_trace_torch.utils import profiling
+
+torch.set_num_threads(1)
+
+KW = dict(kernel_options={"kernel": "RBF", "sigma_f": 20, "length_scale": 8},
+          noise_y=1, N_samples=256, score_thresh=1, delta_x=6,
+          keep_ratio=0.1, pixel_thresh=4, seed=1, fix_endpoints=True)
+STAGES = ("gpet.sample", "gpet.score", "gpet.kde", "gpet.select")
+
+
+def _image(seed):
+    img, edge = gpt.construct_test_img((64, 96), 40, 2, 0.03, "sinusoidal",
+                                       0.3, seed=seed)
+    grad = gpt.comp_grad_img(img, gpt.kernel_builder((9, 5)), device="cpu")
+    return grad, np.array([[0, edge[0, 0]], [95, edge[95, 0]]])
+
+
+def _single():
+    """A tiny ``GP_Edge_Tracing(...)()``: ``(n_iters per frame, outputs)``."""
+    grad, init = _image(1)
+    tracer = gpt.GP_Edge_Tracing(
+        init, grad, KW["kernel_options"], KW["noise_y"], np.array([]),
+        KW["N_samples"], KW["score_thresh"], KW["delta_x"],
+        KW["keep_ratio"], KW["pixel_thresh"], KW["seed"], True,
+        KW["fix_endpoints"], device="cpu")
+    edge, cred = tracer()
+    return [tracer.last_result.n_iters], [edge, *cred]
+
+
+def _batch():
+    """A 3-frame ``trace_batch``: ``(n_iters per frame, outputs)``."""
+    frames = [_image(s) for s in (1, 2, 3)]
+    grads = torch.stack([g for g, _ in frames])
+    inits = np.stack([i for _, i in frames])
+    cfg = pd.make_config(inits[0], tuple(grads.shape[1:]), **KW)
+    data = ps.make_batch_data(cfg, grads, inits, device="cpu")
+    states = ps.make_batch_state(cfg, 3, device="cpu")
+    res = ps.trace_batch(cfg, data, states)
+    return res.n_iters.tolist(), [res.edge_trace, res.cred_interval]
+
+
+RUNS = {"single": _single, "batch": _batch}
+
+
+def _profiled(run):
+    """``run()`` under a CPU ``torch.profiler``: its result, its spans as
+    ``{name: [(start, end)]}`` sorted, and the counters' change."""
+    profiling.reset_counters()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = run()
+    spans = {}
+    for e in prof.events():
+        if e.name.startswith("gpet."):
+            spans.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.end))
+    return out, {k: sorted(v) for k, v in spans.items()}, \
+        profiling.counters()
+
+
+@pytest.fixture(scope="module", params=sorted(RUNS))
+def traced(request):
+    return request.param, _profiled(RUNS[request.param])
+
+
+def test_spans_make_one_tree_per_trace(traced):
+    """One ``gpet.run_trace``; one ``gpet.iter`` per loop iteration (the
+    longest frame's, for the batch), each holding each stage span once,
+    the four covering at least 90% of it; one ``gpet.finish``; one
+    ``gpet.wait.<kind>`` span for each wait that ``HOST_READS`` counts;
+    no per-frame calls on the CPU; the constructor's span for the single
+    trace."""
+    name, ((n_iters, _), spans, counts) = traced
+    assert len(spans["gpet.run_trace"]) == 1
+    iters = spans["gpet.iter"]
+    assert len(iters) == max(n_iters)
+    for stage in STAGES:
+        got = spans[stage]
+        assert len(got) == len(iters)
+        for (a, b), (s, e) in zip(iters, got):
+            assert a <= s and e <= b, stage
+    for (a, b), *stages in zip(iters, *(spans[s] for s in STAGES)):
+        assert sum(e - s for s, e in stages) >= 0.9 * (b - a)
+    (fa, fb), = spans["gpet.finish"]
+    (ra, rb), = spans["gpet.run_trace"]
+    assert ra <= iters[0][0] and iters[-1][1] <= fa and fb <= rb
+    waits = {k[len("gpet.wait."):]: len(v) for k, v in spans.items()
+             if k.startswith("gpet.wait.")}
+    reads = {k[len("HOST_READS."):]: v for k, v in counts.items()
+             if k.startswith("HOST_READS.") and v}
+    assert waits == reads
+    assert reads["active"] == max(n_iters) + 1
+    assert "gpet.frame_by_frame" not in spans
+    assert len(spans.get("gpet.construct", [])) == (name == "single")
+
+
+@pytest.mark.parametrize("name", sorted(RUNS))
+def test_no_profiler_enters_no_record_function(name, monkeypatch):
+    """Without a profiler no span enters ``record_function``, and the
+    results equal the profiled run's bit for bit."""
+    (_, want), _, _ = _profiled(RUNS[name])
+
+    def refuse(*a, **kw):
+        raise AssertionError("record_function entered without a profiler")
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    _, got = RUNS[name]()
+    for a, b in zip(got, want):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_span_is_a_shared_null_context_when_off():
+    assert profiling.span("gpet.iter") is profiling.span("gpet.kde")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        on = profiling.span("gpet.iter")
+    assert isinstance(on, torch.profiler.record_function)
+
+
+def test_counters_snapshot_and_reset_in_place():
+    """``counters()`` holds every key of every module counter dict once;
+    ``reset_counters()`` zeroes each dict in place, so the names the
+    modules and their callers hold read 0."""
+    dicts = {"LAUNCHES": (ci.LAUNCHES, ck.LAUNCHES, cc.LAUNCHES,
+                          prng.LAUNCHES),
+             "BLOCKED": (cc.BLOCKED,), "HOST_READS": (pd.HOST_READS,),
+             "HOST_BYTES": (pd.HOST_BYTES,),
+             "COLLECTIVES": (collectives.COLLECTIVES,)}
+    want = {f"{n}.{k}" for n, ds in dicts.items() for d in ds for k in d}
+    assert set(profiling.counters()) == want
+    assert len(want) == sum(len(d) for ds in dicts.values() for d in ds)
+    held = pd.HOST_READS
+    pd.HOST_READS["jitter"] += 3
+    ci.LAUNCHES["fused_cost"] += 2
+    assert profiling.counters()["HOST_READS.jitter"] >= 3
+    profiling.reset_counters()
+    assert held is pd.HOST_READS is profiling.HOST_READS
+    assert set(profiling.counters().values()) == {0}
+    assert ci.LAUNCHES["fused_cost"] == 0
+
+
+def test_to_host_reads_a_tuple_as_one_wait():
+    profiling.reset_counters()
+    a, b = pd.to_host((torch.arange(3), torch.ones(2, 2)), "result")
+    assert torch.equal(a, torch.arange(3)) and b.shape == (2, 2)
+    assert pd.HOST_READS["result"] == 1
+    assert pd.HOST_BYTES["result"] == 3 * 8 + 4 * 4
