@@ -346,6 +346,20 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+# K8: each input read once (a shared operand once for every frame), C
+# written once; a multiply-add (2 operations) for each k that meets the
+# band of a banded factor (2·band + 1 a row), else each k.
+def work_k8(B, M, N, K, a_shared=False, b_shared=False, band=None):
+    k_need = K if band is None else min(K, 2 * band + 1)
+    return (4 * (M * K * (1 if a_shared else B) + K * N * (1 if b_shared
+                                                           else B)
+                 + B * M * N), 2 * B * M * N * k_need)
+
+
+def work_k9(rows, n):
+    return 4 * (rows * n + rows), rows * n
+
+
 def cuda_ms(fn, target_ms=10.0, rounds=5):
     """Device time of one call of ``fn`` in ms: ``reps`` back-to-back calls
     captured in one CUDA graph, the graph replayed between one CUDA event
@@ -784,7 +798,17 @@ def check_chol(checks, rng, f32, dev):
             ("fine fit forward B=14 n=208 m=208", 14, 208, 208, False,
              False),
             ("blocked forward B=2 n=408 m=1", 2, 408, 1, False, False),
-            ("blocked backward B=2 n=408 m=1", 2, 408, 1, True, False)):
+            ("blocked backward B=2 n=408 m=1", 2, 408, 1, True, False),
+            # The sampling round's solve of its (n, S) residuals: the demo
+            # batch and the 1000² config's single trace.
+            ("sampling forward B=64 n=104 m=1000", 64, 104, 1000, False,
+             False),
+            ("sampling backward B=64 n=104 m=1000", 64, 104, 1000, True,
+             False),
+            ("sampling forward B=1 n=208 m=10⁴", 1, 208, 10000, False,
+             False),
+            ("sampling backward B=1 n=208 m=10⁴", 1, 208, 10000, True,
+             False)):
         if (B, n) not in factors:
             factors[B, n] = cc.cholesky_plain(spd(B, n))
         Lw = factors[B, n]
@@ -803,6 +827,92 @@ def check_chol(checks, rng, f32, dev):
             plain_ms=cuda_ms(lambda: cc.solve_plain(Lw, R, transpose)),
             library_ms=cuda_ms(lambda: library_solve(Lw, R, transpose)),
             work=work_k6(B, n, m), main=main)
+
+
+def check_frames_kernels(checks, rng, f32):
+    """K8 and K9 at the loop's shapes against their plain versions: the
+    sampling round's cross product (demo B=64 E=500 n=104 S=1000, odd E=499,
+    1000² E=1000 n=208 S=10⁴ as a single trace runs it) and the demo KDE
+    blur's two Toeplitz products over 64 frames of 502², the shared factor's
+    band skipped and not (bitwise equal); K9 over the loop's rows (the
+    sampling round's n = 104 and 208, the weights' S_keep = 100 and 1000,
+    64 and 256 frames). Errors against float64 within 2e-5 of max |·|
+    (f32 sums in another order, K <= 502); a rerun is bitwise equal. The
+    plain version is the one library call over every frame; the library
+    yardstick is what the loop ran before: one library call per frame."""
+    import torch
+    from gaussian_process_edge_trace_torch.ops import cuda_frames as cf
+    from gaussian_process_edge_trace_torch.trace.kde import (
+        _toeplitz, gaussian_taps)
+
+    def normal(*shape):
+        return torch.tensor(rng.normal(size=shape), **f32)
+
+    T = _toeplitz(502, gaussian_taps(8, device=f32["device"]))
+    grid = torch.tensor(rng.random((64, 502, 502)) * (
+        rng.random((64, 502, 502)) < 0.05), **f32)
+    for case, a, b, a_band, b_band, role in (
+            ("demo cross product B=64 E=500 n=104 S=1000",
+             normal(64, 500, 104).abs(), normal(64, 104, 1000), None, None,
+             "main"),
+            ("odd E cross product B=64 E=499 n=104 S=1000",
+             normal(64, 499, 104).abs(), normal(64, 104, 1000), None, None,
+             ""),
+            ("1000² cross product B=1 E=1000 n=208 S=10⁴",
+             normal(1, 1000, 208).abs(), normal(1, 208, 10000), None, None,
+             "also"),
+            ("demo blur Ty @ g B=64 502², band 8", T, grid, 8, None, "also"),
+            ("demo blur g @ Tx B=64 502², band 8", grid, T, None, 8, "also"),
+            ("demo blur Ty @ g B=64 502², full k", T, grid, None, None, "")):
+        C = cf.frames_product_cuda(a, b, a_band, b_band)
+        ref = a.double() @ b.double()
+        torch.cuda.synchronize()
+        e, r = rel_err(C.double(), ref)
+        same = torch.equal(cf.frames_product_cuda(a, b, a_band, b_band), C)
+        if a_band is not None or b_band is not None:
+            same = same and torch.equal(cf.frames_product_cuda(a, b), C)
+        F = max(a.shape[0] if a.dim() == 3 else 1,
+                b.shape[0] if b.dim() == 3 else 1)
+        M, N, K = C.shape[-2], C.shape[-1], a.shape[-1]
+
+        def per_frame():
+            return [(a if a.dim() == 2 else a[f]) @ (b if b.dim() == 2
+                                                     else b[f])
+                    for f in range(F)]
+        log(f"[kernels] K8 {case}: launch plan "
+            f"{cf.product_launch_plan(F, M, N, K)}; rerun (and the full k "
+            f"walk) bitwise equal: {same}")
+        checks.record(
+            "K8", case, e, "rel 2e-5 vs float64; rerun bitwise",
+            r <= 2e-5 and same,
+            ms=cuda_ms(lambda: cf.frames_product_cuda(a, b, a_band, b_band)),
+            plain_ms=cuda_ms(lambda: cf.frames_product_plain(a, b)),
+            library_ms=cuda_ms(per_frame),
+            work=work_k8(F, M, N, K, a.dim() == 2, b.dim() == 2,
+                         a_band or b_band),
+            main=role == "main", also_main=role == "also")
+    del grid
+    for case, rows, n, role in (("sampling rows B=64 n=104", 64, 104, "main"),
+                                ("weights B=64 S_keep=100", 64, 100, "also"),
+                                ("sampling rows B=256 n=104", 256, 104, ""),
+                                ("1000² sampling row n=208", 1, 208, "also"),
+                                ("1000² weights S_keep=1000", 1, 1000,
+                                 "also")):
+        x = normal(rows, n).abs()
+        out = cf.row_sum_cuda(x)
+        torch.cuda.synchronize()
+        e, r = rel_err(out.double(), x.double().sum(-1))
+        same = torch.equal(cf.row_sum_cuda(x), out)
+        log(f"[kernels] K9 {case}: launch plan {cf.row_sum_launch_plan(rows)}"
+            f"; rerun bitwise equal: {same}")
+        checks.record(
+            "K9", case, e, "rel 2e-5 vs float64; rerun bitwise",
+            r <= 2e-5 and same, ms=cuda_ms(lambda: cf.row_sum_cuda(x)),
+            plain_ms=cuda_ms(lambda: cf.row_sum_plain(x)),
+            library_ms=cuda_ms(lambda: [x[f:f + 1].sum(-1)
+                                        for f in range(rows)]),
+            work=work_k9(rows, n), main=role == "main",
+            also_main=role == "also")
 
 
 def frames_case(checks, kernel, case, batch, single, work):
@@ -880,6 +990,29 @@ def check_frames(checks, rng, f32):
                     lambda: (ck.binning_2l_cuda(y, w, M),),
                     lambda f: (ck.binning_2l_cuda(y[f], w[f], M),),
                     work_binning(E, S, M, B))
+    from gaussian_process_edge_trace_torch.ops import cuda_frames as cf
+    from gaussian_process_edge_trace_torch.trace.kde import (
+        _toeplitz, gaussian_taps)
+    T = _toeplitz(502, gaussian_taps(8, device=f32["device"]))
+    g = frames(lambda *a: rng.random(a), 502, 502)
+    Kq = frames(lambda *a: np.abs(rng.normal(size=a)), 500, 104)
+    A = frames(lambda *a: rng.normal(size=a), 104, 1000)
+    for case, a, b, a_band, b_band in (
+            ("demo cross product E=500 n=104 S=1000", Kq, A, None, None),
+            ("demo blur Ty @ g 502², band 8", T, g, 8, None),
+            ("demo blur g @ Tx 502², band 8", g, T, None, 8)):
+        frames_case(
+            checks, "K8", case,
+            lambda: (cf.frames_product_cuda(a, b, a_band, b_band),),
+            lambda f: (cf.frames_product_cuda(
+                a if a.dim() == 2 else a[f], b if b.dim() == 2 else b[f],
+                a_band, b_band),),
+            work_k8(B, a.shape[-2], b.shape[-1], a.shape[-1], a.dim() == 2,
+                    b.dim() == 2, a_band or b_band))
+    rows = frames(lambda *a: rng.normal(size=a), 104)
+    frames_case(checks, "K9", "sampling rows n=104",
+                lambda: (cf.row_sum_cuda(rows),),
+                lambda f: (cf.row_sum_cuda(rows[f]),), work_k9(B, 104))
 
 
 def check_shard_widths(checks, rng, f32):
@@ -1208,6 +1341,7 @@ def check_kernels(checks, dev):
     check_k2(checks, rng, f32)
     check_binning(checks, rng, f32)
     check_chol(checks, rng, f32, dev)
+    check_frames_kernels(checks, rng, f32)
     check_frames(checks, rng, f32)
     check_shard_widths(checks, rng, f32)
     jax_stream_phase(checks, dev)
@@ -1230,6 +1364,7 @@ def reset_counts():
 
 def read_counts():
     from gaussian_process_edge_trace_torch.ops import cuda_chol as cc
+    from gaussian_process_edge_trace_torch.ops import cuda_frames as cf
     from gaussian_process_edge_trace_torch.ops import cuda_interp as ci
     from gaussian_process_edge_trace_torch.ops import prng
     from gaussian_process_edge_trace_torch.trace import cuda_kde as ck
@@ -1239,7 +1374,9 @@ def read_counts():
             "K3": ck.LAUNCHES["binning_2l"],
             "K4": ck.LAUNCHES["binning_dense"],
             "K5": cc.LAUNCHES["cholesky"], "K6": cc.LAUNCHES["trsm"],
-            "K7": prng.LAUNCHES["threefry"]}
+            "K7": prng.LAUNCHES["threefry"],
+            "K8": cf.LAUNCHES["frames_product"],
+            "K9": cf.LAUNCHES["row_sum"]}
 
 
 class Config:
@@ -1342,6 +1479,10 @@ def traced(checks, tag, cfg, seeds, need, absent, gates, mse_gate=None):
         if got["K2"] != want:
             checks.failed.append(f"{tag} seed {seed}: K2 launches "
                                  f"{got['K2']}, {want} expected")
+        # K9 sums the sampling round's rows (3) and the weights.
+        if got["K9"] != 4 * n_iters:
+            checks.failed.append(f"{tag} seed {seed}: K9 launches "
+                                 f"{got['K9']}, {4 * n_iters} expected")
         # K7 draws each iteration's table, then the restarts.
         if got["K7"] != n_iters + 1:
             checks.failed.append(f"{tag} seed {seed}: K7 launches "
@@ -1939,6 +2080,19 @@ def device_busy(fn):
     return busy, wall, prof
 
 
+def loop_launches(cfg, one, n_one, n_max):
+    """The launches of K6, K8 and K9 that a batch (or ensemble) stepped
+    ``n_max`` iterations makes, from ``one``: those of a trace that stepped
+    ``n_one``. An iteration launches K6 twice (the sampling solve), K8 once
+    for the cross product and once for each blur axis that runs as a
+    product, K9 four times (the sampling round's std and mean, the
+    weights)."""
+    blur = (0 if min(cfg.M, cfg.N) + 2 > 600
+            else (cfg.M + 2 <= 600) + (cfg.N + 2 <= 600))
+    rates = {"K6": 2, "K8": 1 + blur, "K9": 4}
+    return {k: one[k] + r * (n_max - n_one) for k, r in rates.items()}
+
+
 def check_launches(checks, tag, got, want):
     log(f"[{tag}] launches {json.dumps(got)}, expected {json.dumps(want)}")
     for k, n in want.items():
@@ -1995,7 +2149,8 @@ def traced_batch(checks, tag, configs, gates, odd=False, profiled=False,
             "K1_transpose": n_max if cfg.N_samples >= 8192 and not odd
             else 0,
             "K2": n_max + 1 if odd else 1, "K3": n_max, "K4": 0,
-            "K5": one["K5"], "K6": one["K6"], "K7": n_max + 1}
+            "K5": one["K5"], "K7": n_max + 1,
+            **loop_launches(cfg, one, singles[0].n_iters, n_max)}
     check_launches(checks, tag, got, want)
     log(f"[{tag}] n_iters {res.n_iters.tolist()} (median "
         f"{float(np.median(res.n_iters.cpu().numpy()))}, largest {n_max}: "
@@ -2078,8 +2233,8 @@ def traced_batch(checks, tag, configs, gates, odd=False, profiled=False,
         for a, (calls, ms, _) in ranged_device_ms(prof).items():
             log(f"[{tag}] {a}: {calls} calls, device {ms:.3f} ms per batch, "
                 f"{ms / B:.3f} ms per trace")
-        # The library calls and sums that run once per frame on the card
-        # (models/gpr.py::frame_by_frame): their count and host time.
+        # The library calls and sums that ran once per frame on the card
+        # before K6, K8 and K9 took them: their count and host time.
         for e in events:
             if e.key in ("aten::cholesky_solve", "aten::matmul", "aten::sum",
                          "aten::linalg_cholesky_ex"):
@@ -2119,8 +2274,8 @@ def ensemble_phase(checks, dev, odd=False):
     check_launches(checks, tag, got, {
         "K1": 0 if odd else n_max, "K1_transpose": 0,
         "K2": n_max + 1 if odd else 1, "K3": n_max, "K4": 0,
-        "K5": one["K5"], "K6": one["K6"],
-        "K7": n_max + 1})
+        "K5": one["K5"], "K7": n_max + 1,
+        "K6": loop_launches(cfg, one, single.n_iters, n_max)["K6"]})
     costs = every.final_cost
     pick = int(torch.argmin(torch.where(torch.isnan(costs),
                                         torch.full_like(costs, torch.inf),
@@ -2209,7 +2364,8 @@ def multi_edge_phase(checks, dev):
     one = read_counts()
     check_launches(checks, tag, got, {
         "K1": n_max, "K1_transpose": 0, "K2": 1, "K3": n_max, "K4": 0,
-        "K5": one["K5"], "K6": one["K6"]})
+        "K5": one["K5"],
+        **loop_launches(cfg, one, int(tiled.n_iters.max()), n_max)})
     shared = pd.TracerData(**{k: (v[0] if k in ("grad_img", "grad_kde",
                                                 "grad_cols") else v)
                               for k, v in tiled_data._asdict().items()})
@@ -2304,6 +2460,8 @@ def sequence_phase(checks, dev):
     total = {k: 0 for k in got}
     for f, r in enumerate(res):
         c = cold if f == 0 else warm
+        # The frame's data counts too: its gradient KDE's blur runs on K8.
+        reset_counts()
         data = pd.make_data(c, grads[f], inits[f], dev)
         if f == 0:
             state = pd.init_state(c, dev)
@@ -2311,7 +2469,6 @@ def sequence_phase(checks, dev):
             prev = res[f - 1]
             state = pd.init_state(c, dev, *ps._compact_warm_obs(
                 prev.obs_x, prev.obs_y, prev.obs_valid, c.n_user_obs))
-        reset_counts()
         alone = pd.run_trace(c, data, state)
         torch.cuda.synchronize()
         one = read_counts()
@@ -3362,6 +3519,15 @@ KERNEL_ROWS = {
            "threefry_normal_kernel.cu",
            "gaussian_process_edge_trace_tpu/models/gpr.py:233 "
            "(jax.random.normal through XLA, no Pallas kernel)"),
+    # Not Pallas kernels: the JAX package leaves products and sums to XLA.
+    "K8": ("frames_product", "gaussian_process_edge_trace_torch/csrc/"
+           "frames_product_kernel.cu",
+           "gaussian_process_edge_trace_tpu/models/gpr.py:270 and "
+           "trace/kde.py:109,111 (matmuls through XLA, no Pallas kernel)"),
+    "K9": ("row_sum", "gaussian_process_edge_trace_torch/csrc/"
+           "row_sum_kernel.cu",
+           "gaussian_process_edge_trace_tpu/models/gpr.py:73-80 and "
+           "trace/driver.py:431 (jnp.sum through XLA, no Pallas kernel)"),
 }
 
 
@@ -3400,25 +3566,31 @@ def main() -> int:
     paths, configs = {}, {}
     for path, tag, make, seeds, need, absent, gates in (
             ("demo", "demo", demo_config, DEMO_SEEDS,
-             ("K1", "K2", "K3", "K5", "K6", "K7"), ("K1_transpose", "K4"),
+             ("K1", "K2", "K3", "K5", "K6", "K7", "K8", "K9"),
+             ("K1_transpose", "K4"),
              (0.985, 0.97)),
             ("1000_S1e4", "1000²", big_config, BIG_SEEDS,
-             ("K1", "K1_transpose", "K2", "K3", "K5", "K6", "K7"), ("K4",),
+             ("K1", "K1_transpose", "K2", "K3", "K5", "K6", "K7", "K8",
+              "K9"), ("K4",),
              (0.97, 0.95)),
             ("1000_S1e4_oddE", "1000² odd E",
              lambda dev: big_config(dev, right=-2), ODD_SEEDS,
-             ("K2", "K3", "K5", "K6", "K7"), ("K1", "K1_transpose", "K4"),
+             ("K2", "K3", "K5", "K6", "K7", "K8", "K9"),
+             ("K1", "K1_transpose", "K4"),
              (0.97, 0.95)),
             ("2000_S1e3", "2000²", config_2000, BIG2K_SEEDS,
-             ("K1", "K2", "K3", "K5", "K6", "K7"), ("K1_transpose", "K4"),
+             ("K1", "K2", "K3", "K5", "K6", "K7", "K8", "K9"),
+             ("K1_transpose", "K4"),
              BIG2K_GATES),
             ("1000_S1e5", "1000² S=10⁵",
              lambda dev: big_config(dev, n_samples=100000), S1E5_SEEDS,
-             ("K1", "K1_transpose", "K2", "K3", "K5", "K6", "K7"), ("K4",),
+             ("K1", "K1_transpose", "K2", "K3", "K5", "K6", "K7", "K8",
+              "K9"), ("K4",),
              S1E5_GATES),
             ("1000_S1e3", "1000² S=10³",
              lambda dev: big_config(dev, n_samples=1000), S1E3_SEEDS,
-             ("K1", "K2", "K3", "K5", "K6", "K7"), ("K1_transpose", "K4"),
+             ("K1", "K2", "K3", "K5", "K6", "K7", "K8", "K9"),
+             ("K1_transpose", "K4"),
              S1E3_GATES)):
         cfg = make(dev)
         paths[path] = traced(checks, tag, cfg, seeds, need, absent, gates,
@@ -3429,8 +3601,8 @@ def main() -> int:
     for name, (_, _, mse_gate) in NON_SQUARE.items():
         paths[f"{name}_S1e3"] = traced(
             checks, name, non_square_config(dev, name), (1,),
-            ("K1", "K2", "K3", "K5", "K6", "K7"), ("K1_transpose", "K4"),
-            None,
+            ("K1", "K2", "K3", "K5", "K6", "K7", "K8", "K9"),
+            ("K1_transpose", "K4"), None,
             mse_gate=mse_gate)
     coverage_phase(checks, configs["demo"][0])
     jax_trajectory_phase(checks, configs, dev)

@@ -8,11 +8,13 @@ reference leaves them to XLA; :func:`batched_lml` runs its factorisations and
 solves through the K5 and K6 kernels (:mod:`..ops.cuda_chol`).
 
 Scalars such as the variance stay 0-d tensors on the device, so a sampling
-round never waits for the host. On the card a sampling round's library calls
-run one frame at a time (:func:`frame_by_frame`), and so do its sums
-(:func:`frame_sum`), so a frame's curves do not depend on the batch. Every
-function takes an optional leading frame axis: (B, n) training buffers give
-B fits at once, with the scalars then (B,) tensors, one per frame.
+round never waits for the host. On the card a sampling round's solve runs
+through K6, its cross product through K8 and its sums through K9
+(:func:`frame_sum`), each one launch for all frames in an order of
+operations set by one frame's shapes, so a frame's curves do not depend on
+the batch. Every function takes an optional leading frame axis: (B, n)
+training buffers give B fits at once, with the scalars then (B,) tensors,
+one per frame.
 
 The final fit (:func:`gp_fit`, :func:`gp_predict`, :func:`batched_lml`)
 gives a frame the same bits whatever the number of frames fitted with it,
@@ -27,6 +29,7 @@ parity that the tests check; there they stay.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -36,6 +39,8 @@ from gaussian_process_edge_trace_torch.models.kernels import (
     KernelSpec, cross_gram, dk_unit_dlog_ls, k_unit, per_frame, train_gram)
 from gaussian_process_edge_trace_torch.ops.cuda_chol import (
     backward_solve_auto, cholesky_auto, forward_solve_auto)
+from gaussian_process_edge_trace_torch.ops.cuda_frames import (
+    frames_product, row_sum)
 # Re-exported: the final fit's sums (ops/sums.py).
 from gaussian_process_edge_trace_torch.ops.sums import (  # noqa: F401
     _on_card, fixed_sum, tree_sum)
@@ -52,31 +57,28 @@ class GPState(NamedTuple):
     mask: torch.Tensor    # (n,) bool validity
 
 
-def frame_by_frame(fn, *xs, min_dim=3):
-    """``fn(*xs)`` over the leading frame axis of (B, ...) tensors: on the
-    card one call per frame, each a batch of one as a single trace makes
-    it, since cuBLAS and cuSOLVER choose their kernels, and so their order
-    of operations, by the batch size; one call on the CPU, where the
-    library keeps one order per matrix. ``xs[0]`` has a frame axis from
-    ``min_dim`` dimensions up: 3 for batches of matrices, 2 for the rows
-    that :func:`frame_sum` reduces. The per-frame calls run in the span
-    ``gpet.frame_by_frame``."""
-    if not _on_card(xs[0]) or xs[0].dim() < min_dim or xs[0].shape[0] == 1:
-        return fn(*xs)
-    with profiling.span("gpet.frame_by_frame"):
-        return torch.cat([fn(*(x[f:f + 1] for x in xs))
-                          for f in range(xs[0].shape[0])])
+def frames_span(x, min_dim=3):
+    """The span ``gpet.frame_by_frame`` around a step of the loop that
+    serves every frame in one call whose order of operations does not depend
+    on the batch (K6's sampling solve, K8's products, K9's sums): opened on
+    the card where ``x`` has a frame axis (``min_dim`` dimensions up: 3 for
+    batches of matrices, 2 for rows) of more than one frame, as a batch
+    runs them; a do-nothing context otherwise."""
+    if _on_card(x) and x.dim() >= min_dim and x.shape[0] > 1:
+        return profiling.span("gpet.frame_by_frame")
+    return contextlib.nullcontext()
 
 
 def frame_sum(x):
-    """Sum over the last axis of (B, n) rows, each row as a batch of one
-    sums it (:func:`frame_by_frame`): ``torch.sum`` picks its thread
-    layout, and so its order, from the number of rows, which at 128 demo
-    frames moves a sampling round's sums off a single trace's. The loop's
-    sums (the sampling round's masked mean and std, the kept curves'
+    """Sum over the last axis of (B, n) rows, every row in one launch of
+    K9 on the card, in an order set by n alone: ``torch.sum`` picks its
+    thread layout, and so its order, from the number of rows, which at 128
+    demo frames moved a sampling round's sums off a single trace's. The
+    loop's sums (the sampling round's masked mean and std, the kept curves'
     weights) take it, so a batch frame draws and weighs its curves as its
-    single trace does."""
-    return frame_by_frame(_last_sum, x, min_dim=2)
+    single trace does. ``torch.sum`` on the CPU."""
+    with frames_span(x, min_dim=2):
+        return row_sum(x)
 
 
 def safe_cholesky(K, jitter_scales=(0.0, 1e-5, 1e-3), per_matrix=False):
@@ -226,9 +228,9 @@ def fit_and_sample(spec: KernelSpec, x, y, length_scale, variance, diag_noise,
     frame draws from the config's seed) pass one (r, S) ``z`` and the prior
     draw ``F z`` is computed once for all of them; frames with draws of
     their own (an ensemble's members) pass (B, r, S) and (B, n, S). On the
-    card the solve, the cross product and a per-frame ``F z`` run frame by
-    frame (:func:`frame_by_frame`), so a frame draws the curves its single
-    trace draws, bit for bit.
+    card the solve runs through K6, the cross product through K8 and a
+    per-frame ``F z`` one member at a time, so a frame draws the curves its
+    single trace draws, bit for bit.
 
     Args:
       x: (n,) padded training inputs (float); y: (n,) targets.
@@ -262,13 +264,18 @@ def fit_and_sample(spec: KernelSpec, x, y, length_scale, variance, diag_noise,
     f0_grid = scale * Fz.index_select(-2, grid_out)            # (..., E, S)
     eps = torch.sqrt(torch.clamp(diag_noise, min=0.0))[..., None] * w
     resid = torch.where(mask[..., None], yc[..., None] - f0_x - eps, zero)
-    A = torch.where(mask[..., None],
-                    frame_by_frame(torch.cholesky_solve, resid, L), zero)
+    with frames_span(resid):
+        if _on_card(resid):
+            A = backward_solve_auto(L, forward_solve_auto(L, resid))
+        else:
+            A = torch.cholesky_solve(resid, L)
+    A = torch.where(mask[..., None], A, zero)
 
     Kq = cross_gram(spec, grid_out.to(Fz.dtype), x, length_scale, variance)
     Kq = torch.where(mask[..., None, :], Kq, zero)             # (..., E, n)
-    return (per_frame(y_mean) + per_frame(post_scale)
-            * (f0_grid + frame_by_frame(torch.matmul, Kq, A)))  # (..., E, S)
+    with frames_span(Kq):
+        KqA = frames_product(Kq, A)                            # (..., E, S)
+    return per_frame(y_mean) + per_frame(post_scale) * (f0_grid + KqA)
 
 
 def log_marginal_likelihood(spec: KernelSpec, x, yc, mask, theta,

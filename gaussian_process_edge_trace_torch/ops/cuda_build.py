@@ -56,6 +56,8 @@ _SIGNATURES = {
     "gpet_batched_cholesky": [_P, _P, _I, _I, _P],
     "gpet_batched_trsm": [_P, _P, _P, _I, _I, _I, _I, _P],
     "gpet_threefry_table": [_P, _I, _P],
+    "gpet_frames_product": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gpet_row_sum": [_P, _P, _I, _I, _P],
     # Shared-memory bytes of one block (not kernels: ints, not cudaError_t).
     "gpet_batched_cholesky_smem": [_I],
     "gpet_batched_trsm_smem": [_I, _I],
@@ -63,6 +65,9 @@ _SIGNATURES = {
     "gpet_binning_2l_smem": [_I, _I, _I],
     "gpet_column_interp_smem": [_I, _I],
     "gpet_binning_dense_smem": [_I, _I, _I],
+    "gpet_frames_product_smem": [],
+    "gpet_frames_product_blocks": [_I, _I, _I],
+    "gpet_row_sum_blocks": [_I],
 }
 
 _lock = threading.Lock()

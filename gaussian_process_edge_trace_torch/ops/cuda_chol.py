@@ -215,7 +215,7 @@ def _product(a, b):
     batches of matrices: on the card one batched product per leading frame,
     each as a single trace (F = 1) forms it, since cuBLAS chooses its
     kernel, and so its order of operations, by the batch size; one product
-    on the CPU (as ``models/gpr.py::frame_by_frame``)."""
+    on the CPU, where the library keeps one order per matrix."""
     if a.device.type != "cuda" or a.dim() < 3 or a.shape[0] == 1:
         return a @ b
     return torch.cat([a[f:f + 1] @ b[f:f + 1] for f in range(a.shape[0])])

@@ -34,8 +34,9 @@ from gaussian_process_edge_trace_torch.ops.collectives import (
     SampleShard, all_gather_stack)
 from gaussian_process_edge_trace_torch.trace.driver import (
     FrameDraws, StreamDraws, TraceResult, TracerConfig, TracerData,
-    TraceState, _device_at, _round_up, frame_arrays, frame_of, init_state,
-    prior_factor, resolve_device, run_trace)
+    TraceState, _device_at, _round_up, frame_arrays, frame_of, frame_parts,
+    init_state, prior_factor, resolve_device, run_trace)
+from gaussian_process_edge_trace_torch.trace.kde import gradient_kde
 from gaussian_process_edge_trace_torch.utils import profiling
 
 DATA_AXIS = "data"
@@ -57,10 +58,12 @@ def make_batch_data(cfg: TracerConfig, grad_imgs, inits,
     :func:`frame_arrays` with a leading frame axis; the prior factor and x
     grid are shared. ``grad_imgs`` (B, M, N) and ``inits`` (B, n, 2) in
     xy-space; ``device`` defaults to that of a tensor input, else the
-    card."""
+    card. The gradient KDEs are one call over every frame, each frame the
+    bits of its own (the blur's products on K8, the min-max per frame)."""
     device = resolve_device(device, grad_imgs)
-    per = [frame_arrays(cfg, g, i, device) for g, i in zip(grad_imgs, inits)]
-    g, gkde, gcols, ix, iy = (torch.stack(leaf) for leaf in zip(*per))
+    per = [frame_parts(cfg, g, i, device) for g, i in zip(grad_imgs, inits)]
+    g, gcols, ix, iy = (torch.stack(leaf) for leaf in zip(*per))
+    gkde = gradient_kde(g, kde_thresh=cfg.kde_thresh)
     L_unit, x_grid = _shared_leaves(cfg, device)
     return TracerData(grad_img=g, grad_kde=gkde, grad_cols=gcols,
                       L_prior_unit=L_unit, x_grid=x_grid, init_x=ix,

@@ -247,16 +247,22 @@ def frame_arrays(cfg: TracerConfig, grad_img, init_xy, device=None):
     KDE, the (E, M) gradient columns along the x grid and the init points
     sorted by x. ``device`` defaults to that of a tensor input, else the
     card."""
+    g, gcols, ix, iy = frame_parts(cfg, grad_img, init_xy, device)
+    return g, gradient_kde(g, kde_thresh=cfg.kde_thresh), gcols, ix, iy
+
+
+def frame_parts(cfg: TracerConfig, grad_img, init_xy, device=None):
+    """:func:`frame_arrays` without the KDE: (normalised image, gradient
+    columns, init x, init y), for a batch that takes every frame's KDE in
+    one call."""
     device = resolve_device(device, grad_img, init_xy)
     g = normalise(grad_img, (0, 1), device=device)
-    gkde = gradient_kde(g, kde_thresh=cfg.kde_thresh)
     gcols = g.T[cfg.x_st:cfg.x_st + cfg.edge_length].contiguous()
     with profiling.wait("data"):
         init_xy = torch.as_tensor(np.array(init_xy), dtype=torch.int64,
                                   device=device)
     init_xy = init_xy[torch.argsort(init_xy[:, 0], stable=True)]
-    return g, gkde, gcols, init_xy[:, 0].contiguous(), \
-        init_xy[:, 1].contiguous()
+    return g, gcols, init_xy[:, 0].contiguous(), init_xy[:, 1].contiguous()
 
 
 @functools.lru_cache(maxsize=16)

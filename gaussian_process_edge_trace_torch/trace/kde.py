@@ -26,7 +26,8 @@ from __future__ import annotations
 
 import torch
 
-from gaussian_process_edge_trace_torch.models.gpr import frame_by_frame
+from gaussian_process_edge_trace_torch.models.gpr import frames_span
+from gaussian_process_edge_trace_torch.ops.cuda_frames import frames_product
 from gaussian_process_edge_trace_torch.trace.cuda_kde import column_binning
 
 # Gaussian truncation radius in pixels (bw = 1): exp(-0.5·8²) ≈ 1.3e-14.
@@ -67,35 +68,54 @@ def _blur_axis_fma(grid, taps, axis):
     return out
 
 
+class _BandedPair(tuple):
+    """(Ty, Tx) from :func:`blur_matrices`, with ``band``: the radius
+    beyond which both factors are zero."""
+    band = None
+
+
 def _separable_blur(grid, taps, mats=None):
     """2-D zero-boundary convolution with ``taps ⊗ taps``; ``mats`` are the
     precomputed :func:`blur_matrices` (a ``None`` entry blurs that axis as
     multiply-adds)."""
     m, n = grid.shape[-2:]
     if mats is None:
+        band = (taps.shape[0] - 1) // 2
         mats = (_toeplitz(m, taps) if m <= _BLUR_MATMUL_MAX else None,
                 _toeplitz(n, taps) if n <= _BLUR_MATMUL_MAX else None)
+    else:
+        band = getattr(mats, "band", None)
     Ty, Tx = mats
-    # On the card a (B, m, n) grid's products run frame by frame, as a
-    # single trace's (1, m, n) grid runs them: cuBLAS picks its kernel,
-    # and so its order of sums, by the shape (at 128 demo frames every
-    # frame's KDE moved off its single trace's).
-    out = (frame_by_frame(lambda g: Ty @ g, grid) if Ty is not None
-           else _blur_axis_fma(grid, taps, -2))
-    return (frame_by_frame(lambda g: g @ Tx, out) if Tx is not None
-            else _blur_axis_fma(out, taps, -1))
+    # On the card every frame's product runs in one K8 launch, the factor
+    # shared, each element summed in an order set by the shapes of one
+    # frame: cuBLAS picks its kernel, and so its order of sums, by the
+    # batch (at 128 demo frames every frame's KDE moved off its single
+    # trace's). Tiles skip the factor's zero band, which changes no value.
+    if Ty is None:
+        out = _blur_axis_fma(grid, taps, -2)
+    else:
+        with frames_span(grid):
+            out = frames_product(Ty, grid, a_band=band)
+    if Tx is None:
+        return _blur_axis_fma(out, taps, -1)
+    with frames_span(out):
+        return frames_product(out, Tx, b_band=band)
 
 
 def blur_matrices(M: int, N: int, dtype=torch.float32, device=None,
                   radius: int = DEFAULT_RADIUS, bw: float = 1.0):
     """Loop-invariant Toeplitz factors (Ty, Tx) for the padded (M+2, N+2)
     grid, built once per trace; ``None`` for an axis that blurs as
-    multiply-adds, ``None`` overall when both do."""
+    multiply-adds, ``None`` overall when both do. The pair carries
+    ``band``, the radius beyond which both are zero."""
     if min(M, N) + 2 > _BLUR_MATMUL_MAX:
         return None
     taps = gaussian_taps(radius, bw, dtype, device)
-    return (_toeplitz(M + 2, taps) if M + 2 <= _BLUR_MATMUL_MAX else None,
-            _toeplitz(N + 2, taps) if N + 2 <= _BLUR_MATMUL_MAX else None)
+    mats = _BandedPair((
+        _toeplitz(M + 2, taps) if M + 2 <= _BLUR_MATMUL_MAX else None,
+        _toeplitz(N + 2, taps) if N + 2 <= _BLUR_MATMUL_MAX else None))
+    mats.band = radius
+    return mats
 
 
 def _minmax(grid):

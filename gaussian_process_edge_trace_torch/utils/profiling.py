@@ -27,8 +27,9 @@ The spans, from the entry point down: ``gpet.construct``
 (``GP_Edge_Tracing.__init__``), ``gpet.run_trace``, ``gpet.iter`` (one
 iteration of ``run_loop``, its active-mask read included) holding the
 stages ``gpet.sample``, ``gpet.score``, ``gpet.kde`` and ``gpet.select``,
-``gpet.finish`` (the final fit), ``gpet.frame_by_frame`` (the per-frame
-library calls of a batch on the card) and ``gpet.wait.<kind>``.
+``gpet.finish`` (the final fit), ``gpet.frame_by_frame`` (the loop's
+frame-batched products, solve and sums of a batch on the card,
+``models/gpr.py::frames_span``) and ``gpet.wait.<kind>``.
 """
 
 from __future__ import annotations
@@ -105,10 +106,11 @@ class wait:
 
 def _counter_dicts():
     from gaussian_process_edge_trace_torch.ops import (
-        collectives, cuda_chol, cuda_interp, prng)
+        collectives, cuda_chol, cuda_frames, cuda_interp, prng)
     from gaussian_process_edge_trace_torch.trace import cuda_kde
     return {"LAUNCHES": (cuda_interp.LAUNCHES, cuda_kde.LAUNCHES,
-                         cuda_chol.LAUNCHES, prng.LAUNCHES),
+                         cuda_chol.LAUNCHES, prng.LAUNCHES,
+                         cuda_frames.LAUNCHES),
             "BLOCKED": (cuda_chol.BLOCKED,),
             "HOST_READS": (HOST_READS,), "HOST_BYTES": (HOST_BYTES,),
             "COLLECTIVES": (collectives.COLLECTIVES,)}
@@ -116,7 +118,7 @@ def _counter_dicts():
 
 def counters() -> dict:
     """Every module counter of the package as one flat snapshot,
-    ``{"<DICT>.<key>": n}``: the kernels' ``LAUNCHES`` (K1-K7), the blocked
+    ``{"<DICT>.<key>": n}``: the kernels' ``LAUNCHES`` (K1-K9), the blocked
     K5/K6 calls (``BLOCKED``), the host's waits (``HOST_READS``) and the
     bytes ``to_host`` copies (``HOST_BYTES``), the collectives
     (``COLLECTIVES``)."""

@@ -199,10 +199,12 @@ def test_card_final_fit_does_not_depend_on_frames(small_batch, monkeypatch):
 
 
 def test_card_sampling_round_runs_frame_by_frame(small_batch, monkeypatch):
-    """The sampling round's card path (forced on the CPU): the solve and
-    the cross product run once per frame, each on a batch of one as a
-    single trace runs them, and so does ``F z`` for frames with draws of
-    their own; the curves equal the CPU path's batched ones."""
+    """The sampling round's card path (forced on the CPU): the solve (K6's
+    forward and backward solves) and the cross product (K8) each run once
+    for all frames, and ``torch.cholesky_solve`` not at all; ``F z`` for
+    frames with draws of their own stays one product per member. Each frame
+    equals the same frame run as a batch of one, bit for bit, and the
+    curves are within float32 rounding of the CPU path's."""
     pcfg, pdata, draws = (small_batch[k] for k in ("pcfg", "pdata", "draws"))
     x, y, mask, noise_w = pd._train_set(pcfg, pdata, small_batch["pstates"])
     z, w = draws.normals(0)
@@ -210,27 +212,41 @@ def test_card_sampling_round_runs_frame_by_frame(small_batch, monkeypatch):
     cpu = pd._sample_round(pcfg, pdata, x, y, mask, noise_w, zs, ws)
     calls = []
 
-    def counted(fn):
-        def run(*args):
-            calls.append((fn.__name__, args[0].shape[0]))
-            return fn(*args)
-        run.__name__ = fn.__name__
+    def counted(name, fn, frames):
+        def run(*args, **kw):
+            calls.append((name, frames(*args)))
+            return fn(*args, **kw)
         return run
     monkeypatch.setattr(gpr, "_on_card", lambda t: True)
-    for name in ("cholesky_solve", "matmul"):
-        monkeypatch.setattr(torch, name, counted(getattr(torch, name)))
+    for name, frames in (("forward_solve_auto", lambda L, R: R.shape[0]),
+                         ("backward_solve_auto", lambda L, R: R.shape[0]),
+                         ("frames_product", lambda a, b: a.shape[0])):
+        monkeypatch.setattr(gpr, name, counted(name, getattr(gpr, name),
+                                               frames))
+    monkeypatch.setattr(torch, "cholesky_solve",
+                        counted("cholesky_solve", torch.cholesky_solve,
+                                lambda r, L: r.shape[0]))
     card = pd._sample_round(pcfg, pdata, x, y, mask, noise_w, zs, ws)
-    assert sorted(calls) == [("cholesky_solve", 1)] * 3 + [("matmul", 1)] * 3
-    assert torch.equal(card, cpu)
+    assert sorted(calls) == [("backward_solve_auto", 3),
+                             ("forward_solve_auto", 3),
+                             ("frames_product", 3)]
+    for f in range(3):
+        one = pd._sample_round(pcfg, pdata, x[f:f + 1], y[f:f + 1],
+                               mask[f:f + 1], noise_w, zs[f:f + 1],
+                               ws[f:f + 1])
+        assert torch.equal(card[f], one[0])
+    torch.testing.assert_close(card, cpu, rtol=1e-5,
+                               atol=1e-5 * cpu.abs().max().item())
 
 
 def test_card_loop_sums_and_blur_run_frame_by_frame(monkeypatch):
-    """The loop's other steps whose order depends on the batch size on the
-    card, forced on the CPU: ``frame_sum`` (the sampling round's masked
-    mean and std, the kept curves' weights) sums each frame's row as a
-    batch of one, and the KDE's two blur products run once per frame on a
-    (1, M+2, N+2) grid, as a single trace's; both give the CPU path's
-    values."""
+    """The loop's other steps whose order would depend on the batch size on
+    the card, forced on the CPU: ``frame_sum`` (the sampling round's masked
+    mean and std, the kept curves' weights) sums every frame's row in one
+    call (K9), and the KDE's two blur products run once each for the whole
+    (B, M+2, N+2) grid (K8), the Toeplitz factor shared and its band
+    given. Each frame equals the same frame run as a batch of one, bit for
+    bit, and both give the CPU path's values."""
     from gaussian_process_edge_trace_torch.trace import kde
     rng = np.random.default_rng(4)
     rows = torch.tensor(rng.normal(size=(3, 104)), dtype=torch.float32)
@@ -239,20 +255,28 @@ def test_card_loop_sums_and_blur_run_frame_by_frame(monkeypatch):
     w = torch.softmax(torch.tensor(rng.normal(size=(3, 100)),
                                    dtype=torch.float32), -1)
     cpu_sum, cpu_kde = gpr.frame_sum(rows), kde.curve_kde(y, w, 64, 96, 0)
-    shapes = []
+    calls = []
 
-    def recorded(fn, *xs, **kw):
-        def run(*a):
-            shapes.append(tuple(a[0].shape))
-            return fn(*a)
-        return gpr.frame_by_frame(run, *xs, **kw)
-    monkeypatch.setattr(kde, "frame_by_frame", recorded)
+    def recorded(fn, name):
+        def run(*a, **kw):
+            calls.append((name, tuple(a[0].shape), tuple(a[1].shape)
+                          if len(a) > 1 else None, kw))
+            return fn(*a, **kw)
+        return run
+    monkeypatch.setattr(kde, "frames_product",
+                        recorded(kde.frames_product, "product"))
+    monkeypatch.setattr(gpr, "row_sum", recorded(gpr.row_sum, "sum"))
     monkeypatch.setattr(gpr, "_on_card", lambda t: True)
     card_sum = gpr.frame_sum(rows)
     card_kde = kde.curve_kde(y, w, 64, 96, 0)
-    assert shapes == [(1, 66, 98)] * 6
+    assert calls == [("sum", (3, 104), None, {}),
+                     ("product", (66, 66), (3, 66, 98), {"a_band": 8}),
+                     ("product", (3, 66, 98), (98, 98), {"b_band": 8})]
     for f in range(3):
-        assert torch.equal(card_sum[f], rows[f:f + 1].sum(-1)[0])
+        assert torch.equal(card_sum[f], gpr.frame_sum(rows[f:f + 1])[0])
+        assert torch.equal(card_kde[f],
+                           kde.curve_kde(y[f:f + 1], w[f:f + 1], 64, 96,
+                                         0)[0])
     assert torch.equal(card_sum, cpu_sum)
     torch.testing.assert_close(card_kde, cpu_kde, rtol=1e-6, atol=1e-7)
 

@@ -1,8 +1,9 @@
 """PyTorch port on the card: each hand-written kernel (K1 with its
-transposed-samples output, K2, K3, K4, K5, K6) against its plain PyTorch
-version on CUDA tensors, K1-K4 over several frames in one launch
-against single-frame launches, the launch plans against the launchers, the
-curve costs over sample shards against the full launch's columns, and the
+transposed-samples output, K2, K3, K4, K5, K6, K8, K9) against its plain
+PyTorch version on CUDA tensors, K1-K4, K8 and K9 over several frames in
+one launch against single-frame launches, the launch plans against the
+launchers, the curve costs (and K6's and K8's columns) over sample shards
+against the full launch's columns, and the
 small slice traced on the card, at an even and at an odd edge length, as a
 batch of two frames and through a (1, 1) NCCL mesh; the self-test, the CLI's
 ``trace`` against the API and each denoiser against the port's CPU path.
@@ -606,6 +607,162 @@ def test_unfused_cost_shard_widths_equal_full_columns(dev, k):
         sl, sa = cost(ys[:, j * w:(j + 1) * w].contiguous())
         assert torch.equal(sl, line[j * w:(j + 1) * w])
         assert torch.equal(sa, arc[j * w:(j + 1) * w])
+
+
+U32 = 2.0 ** -24   # float32's unit roundoff
+
+
+def _toeplitz(n, dev):
+    from gaussian_process_edge_trace_torch.trace import kde
+    return kde._toeplitz(n, kde.gaussian_taps(8, device=dev))
+
+
+def _product_site(site, B, dev, seed=0):
+    """(a, b, a_band, b_band) of K8 at the loop's shapes: the demo's cross
+    product (E = 500 or 499, n = 104, S = 1000), the 1000² one (E = 1000,
+    n = 208, S = 10⁴) and the demo blur's two products over 502² grids,
+    the factor shared and banded; ``ragged``: shapes no float4 fits."""
+    rng = np.random.default_rng(seed)
+
+    def frames(*shape, pos=False):
+        x = rng.normal(size=(B,) + shape)
+        return torch.tensor(np.abs(x) if pos else x, dtype=torch.float32,
+                            device=dev)
+    if site in ("cross", "odd_cross", "big_cross"):
+        E, n, S = {"cross": (500, 104, 1000), "odd_cross": (499, 104, 1000),
+                   "big_cross": (1000, 208, 10000)}[site]
+        return frames(E, n, pos=True), frames(n, S), None, None
+    if site == "blur_rows":
+        return _toeplitz(502, dev), frames(502, 502, pos=True), 8, None
+    if site == "blur_cols":
+        return frames(502, 502, pos=True), _toeplitz(502, dev), None, 8
+    return frames(37, 13), frames(13, 70), None, None
+
+
+@pytest.mark.parametrize("site", ["cross", "odd_cross", "big_cross",
+                                  "blur_rows", "blur_cols", "ragged"])
+def test_frames_product_kernel_matches_plain(dev, site):
+    """K8 in one launch against a float64 product within float32 rounding
+    (K·u·Σ|a||b| an element) and within 2e-5 of max |·| of its plain
+    version; a banded factor's skipped k-tiles change no bit against the
+    full walk; a rerun is bitwise equal."""
+    from gaussian_process_edge_trace_torch.ops import cuda_frames as cf
+    a, b, a_band, b_band = _product_site(site, 1 if site == "big_cross"
+                                         else 2, dev)
+    n0 = cf.LAUNCHES["frames_product"]
+    C = cf.frames_product(a, b, a_band, b_band)
+    assert cf.LAUNCHES["frames_product"] == n0 + 1
+    exact = a.double() @ b.double()
+    scale = a.double().abs() @ b.double().abs()
+    assert (C.double() - exact).abs().le(a.shape[-1] * U32 * scale).all()
+    plain = cf.frames_product_plain(a, b)
+    torch.testing.assert_close(C, plain, rtol=0,
+                               atol=2e-5 * plain.abs().max().item())
+    assert torch.equal(cf.frames_product(a, b), C)
+    assert torch.equal(cf.frames_product(a, b, a_band, b_band), C)
+
+
+@pytest.mark.parametrize("B", [1, 16, 64, 256])
+@pytest.mark.parametrize("site", ["cross", "blur_rows", "blur_cols"])
+def test_frames_product_frames_equal_single_launches(dev, site, B):
+    """K8 over B demo frames in one launch: each frame equals its single
+    launch bit for bit, and a slice of the columns (a rank's sample shard)
+    equals the full launch's columns."""
+    from gaussian_process_edge_trace_torch.ops import cuda_frames as cf
+    a, b, a_band, b_band = _product_site(site, B, dev, seed=B)
+    C = cf.frames_product(a, b, a_band, b_band)
+    for f in range(B):
+        one = cf.frames_product(a if a.dim() == 2 else a[f],
+                                b if b.dim() == 2 else b[f], a_band, b_band)
+        assert torch.equal(C[f], one)
+    if site == "cross":
+        part = cf.frames_product(a, b[..., 250:750].contiguous())
+        assert torch.equal(part, C[..., 250:750])
+
+
+@pytest.mark.parametrize("n", [100, 104, 208, 1000])
+def test_row_sum_kernel_matches_plain_and_frames_equal_singles(dev, n):
+    """K9 over B ∈ {1, 16, 64, 256} rows of the loop's lengths in one
+    launch: within n·u·Σ|x| of a float64 sum, each row bitwise its single
+    launch, a rerun bitwise equal."""
+    from gaussian_process_edge_trace_torch.ops import cuda_frames as cf
+    rng = np.random.default_rng(n)
+    for B in (1, 16, 64, 256):
+        x = torch.tensor(rng.normal(size=(B, n)), dtype=torch.float32,
+                         device=dev)
+        n0 = cf.LAUNCHES["row_sum"]
+        s = cf.row_sum(x)
+        assert cf.LAUNCHES["row_sum"] == n0 + 1 and s.shape == (B,)
+        assert (s.double() - x.double().sum(-1)).abs().le(
+            n * U32 * x.double().abs().sum(-1)).all()
+        assert torch.equal(cf.row_sum(x), s)
+        for f in range(B):
+            assert torch.equal(cf.row_sum(x[f]), s[f])
+
+
+@pytest.mark.parametrize("n,m,B", [(104, 1000, 4), (208, 10000, 1)])
+def test_sampling_solve_k6_matches_plain(dev, n, m, B):
+    """K6 at the sampling round's solve, the (n, S) residuals of the demo
+    and the 1000² config: forward then backward, as ``fit_and_sample``
+    runs it, within 2e-5 of max |·| of the plain versions; a frame equals
+    its single launch and a half of the columns the full launch's, bit for
+    bit."""
+    L = cc.cholesky_plain(torch.tensor(_spd(B, n), device=dev))
+    R = torch.tensor(np.random.default_rng(m).normal(size=(B, n, m)),
+                     dtype=torch.float32, device=dev)
+
+    def solve(L, R):
+        return cc.backward_solve_auto(L, cc.forward_solve_auto(L, R))
+    t0 = cc.LAUNCHES["trsm"]
+    Z = solve(L, R)
+    assert cc.LAUNCHES["trsm"] == t0 + 2
+    Zp = cc.solve_plain(L, cc.solve_plain(L, R, False), True)
+    torch.testing.assert_close(Z, Zp, rtol=0,
+                               atol=2e-5 * Zp.abs().max().item())
+    assert torch.equal(solve(L[-1:], R[-1:])[0], Z[-1])
+    half = m // 2
+    assert torch.equal(solve(L, R[..., half:].contiguous()), Z[..., half:])
+
+
+def test_batch_data_kde_frames_equal_make_data(dev):
+    """``make_batch_data`` over four demo frames takes their gradient KDEs
+    in one K8 launch a blur axis; each frame's data equals its own
+    ``make_data`` on the card, bit for bit."""
+    from gaussian_process_edge_trace_torch.ops import cuda_frames as cf
+    from gaussian_process_edge_trace_torch.parallel import make_batch_data
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    imgs = [gpt.construct_test_img((500, 500), 200, 4, 0.05, "sinusoidal",
+                                   0.3, gaps=True, seed=s)
+            for s in (1, 2, 3, 4)]
+    grads = torch.stack([gpt.comp_grad_img(
+        img, gpt.kernel_builder((11, 5), unit=False), device=dev)
+        for img, _ in imgs])
+    inits = np.array([[[0, e[0, 0]], [499, e[499, 0]]] for _, e in imgs])
+    cfg = pd.make_config(inits[0], (500, 500), {
+        "kernel": "RBF", "sigma_f": 75, "length_scale": 20},
+        N_samples=1000, delta_x=5, keep_ratio=0.1, seed=1)
+    n0 = cf.LAUNCHES["frames_product"]
+    data = make_batch_data(cfg, grads, inits)
+    assert cf.LAUNCHES["frames_product"] == n0 + 2
+    for f in range(4):
+        one = pd.make_data(cfg, grads[f], inits[f])
+        for k in ("grad_img", "grad_kde", "grad_cols", "init_x", "init_y"):
+            assert torch.equal(getattr(data, k)[f], getattr(one, k)), k
+
+
+def test_k8_k9_plans_match_launchers(dev):
+    """K8's and K9's launch plans hold the launchers' shared memory and
+    block counts."""
+    from gaussian_process_edge_trace_torch.ops import cuda_frames as cf
+    lib = cuda_build.library()
+    for F, M, N, K in ((64, 500, 1000, 104), (1, 1000, 10000, 208),
+                       (256, 502, 502, 502), (3, 37, 70, 13)):
+        plan = cf.product_launch_plan(F, M, N, K)
+        assert lib.gpet_frames_product_smem() == plan["smem_bytes"]
+        assert lib.gpet_frames_product_blocks(F, M, N) == plan["blocks"]
+    for rows in (1, 9, 64, 256):
+        assert lib.gpet_row_sum_blocks(rows) == \
+            cf.row_sum_launch_plan(rows)["blocks"]
 
 
 def test_sharded_one_by_one_nccl_equals_trace_batch(dev, tmp_path):

@@ -12,6 +12,7 @@ import torch
 import gaussian_process_edge_trace_torch as gpt
 from gaussian_process_edge_trace_torch.ops import collectives
 from gaussian_process_edge_trace_torch.ops import cuda_chol as cc
+from gaussian_process_edge_trace_torch.ops import cuda_frames as cf
 from gaussian_process_edge_trace_torch.ops import cuda_interp as ci
 from gaussian_process_edge_trace_torch.ops import prng
 from gaussian_process_edge_trace_torch.parallel import sharded as ps
@@ -141,7 +142,7 @@ def test_counters_snapshot_and_reset_in_place():
     ``reset_counters()`` zeroes each dict in place, so the names the
     modules and their callers hold read 0."""
     dicts = {"LAUNCHES": (ci.LAUNCHES, ck.LAUNCHES, cc.LAUNCHES,
-                          prng.LAUNCHES),
+                          prng.LAUNCHES, cf.LAUNCHES),
              "BLOCKED": (cc.BLOCKED,), "HOST_READS": (pd.HOST_READS,),
              "HOST_BYTES": (pd.HOST_BYTES,),
              "COLLECTIVES": (collectives.COLLECTIVES,)}

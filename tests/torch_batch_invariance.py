@@ -21,12 +21,13 @@ once for all frames and once for each frame alone (a batch of one, as a
 single trace runs it). It prints, per stage, how many frames' outputs
 differ from their single run in any bit and by how much at most: a stage
 whose output depends on the batch size moves a batch frame off its single
-trace. The sampling round's solve and cross product are shown as one
-batched library call each ("... batched call"), beside the port's own
-sampling round (``_sample_round``, which runs them frame by frame on the
-card); the stages after it take the port's curves. The masked std and the
-kept curves' weights are shown also as one ``torch.sum`` over every frame
-("... one torch.sum call"), beside the port's ``frame_sum``, and so are
+trace. The sampling round's solve (K6) and cross product (K8) are shown
+beside one batched library call each ("... batched call"), and the port's
+own sampling round (``_sample_round``) beside the curves of those library
+calls ("batched samples"); the stages after it take the port's curves. The
+masked std and the kept curves' weights are shown also as one
+``torch.sum`` over every frame ("... one torch.sum call"), beside the
+port's ``frame_sum`` (K9), and so are
 the costs, whose sums over E the port takes by ``ops/sums.py::fixed_sum``.
 After the last iteration the final fit runs on the state the loop reached
 (its mean curve, std, θ and LML, batch against each frame alone), and the
@@ -73,6 +74,8 @@ def stages(cfg, data, state, z, w, blur, consts):
     from gaussian_process_edge_trace_torch.models import gpr
     from gaussian_process_edge_trace_torch.models.kernels import (
         cross_gram, per_frame, train_gram)
+    from gaussian_process_edge_trace_torch.ops.cuda_frames import (
+        frames_product)
     from gaussian_process_edge_trace_torch.trace import driver as pd
     from gaussian_process_edge_trace_torch.trace.kde import curve_kde
     from gaussian_process_edge_trace_torch.trace.scoring import (
@@ -101,12 +104,16 @@ def stages(cfg, data, state, z, w, blur, consts):
     f0_grid = scale * Fz.index_select(-2, data.x_grid)
     eps = torch.sqrt(torch.clamp(diag_noise, min=0.0))[..., None] * w
     resid = torch.where(mask[..., None], yc[..., None] - f0_x - eps, zero)
-    out["cholesky_solve batched call"] = A = torch.where(
+    out["solve"] = A = torch.where(
+        mask[..., None], gpr.backward_solve_auto(
+            L, gpr.forward_solve_auto(L, resid)), zero)
+    out["cholesky_solve batched call"] = A_lib = torch.where(
         mask[..., None], torch.cholesky_solve(resid, L), zero)
     Kq = cross_gram(cfg.kernel, data.x_grid.to(Fz.dtype), xs, cfg.sigma_l,
                     variance)
     Kq = torch.where(mask[..., None, :], Kq, zero)
-    out["Kq @ A batched call"] = KA = Kq @ A
+    out["Kq @ A"] = frames_product(Kq, A)
+    out["Kq @ A batched call"] = KA = Kq @ A_lib
     out["batched samples"] = (per_frame(y_mean) + per_frame(post_scale)
                               * (f0_grid + KA)) * per_frame(y_s)
     out["samples"] = samples = pd._sample_round(cfg, data, x, y, mask,
