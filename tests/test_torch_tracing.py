@@ -165,3 +165,70 @@ def test_to_host_reads_a_tuple_as_one_wait():
     assert torch.equal(a, torch.arange(3)) and b.shape == (2, 2)
     assert pd.HOST_READS["result"] == 1
     assert pd.HOST_BYTES["result"] == 3 * 8 + 4 * 4
+
+
+@pytest.mark.parametrize("name", sorted(RUNS))
+def test_active_reads_bound_what_each_iteration_launched(name):
+    """The benchmark ties a device operation to the loop iteration that
+    launched it by the loop's reads of its active mask
+    (``gpet_bench/metrics/_device.py``): an iteration's operations run
+    between the end of the read before its ``gpet.iter`` span and the end
+    of the read inside it. Here each ATen operator of a tiny profiled trace
+    stands for a launch; a device that runs each iteration's launches just
+    before its read returns, long after the stages closed, and every other
+    launch at once, gives the reader exactly the iterations' launches. So
+    nothing is launched between a read and the next iteration. (Between
+    them ``.tolist()`` of the read's host copy resolves its conjugate and
+    negative bits: no operator of the device's.)"""
+    from gpet_bench import profile as bench_profile
+    from gpet_bench.metrics import _device
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        RUNS[name]()
+    events = list(prof.events())
+    host = [(e.name, float(e.time_range.start),
+             float(e.time_range.elapsed_us()))
+            for e in events if e.name.startswith("gpet.")]
+    iters = sorted((s, s + d) for n, s, d in host if n == "gpet.iter")
+    reads = sorted(s + d for n, s, d in host if n == _device.ACTIVE)
+    host_only = ("aten::resolve_conj", "aten::resolve_neg")
+    launches = sorted(float(e.time_range.start) for e in events
+                      if e.name.startswith("aten::")
+                      and e.name not in host_only)
+    inside = [[t for t in launches if a <= t <= b] for a, b in iters]
+    device, want = [], []
+    for (a, b), ts in zip(iters, inside):
+        end = max(r for r in reads if a < r <= b)
+        for i in range(len(ts)):
+            name_i = f"void at::native::op_{len(device)}"
+            device.append((name_i, "kernel", end - (len(ts) - i) * 1e-3,
+                           1e-4))
+            want.append(name_i)
+    for t in launches:
+        if not any(a <= t <= b for a, b in iters):
+            device.append((f"void at::native::op_{len(device)}", "kernel",
+                           t, 1e-4))
+    assert sum(map(len, inside)) > 0 and len(device) == len(launches)
+    tl = bench_profile.Timeline(device, host, min(launches),
+                                max(launches) + 1.0)
+    ops, n = _device.loop_ops({"profile": {"timeline": tl}})
+    assert n == len(iters)
+    assert [o for o, _, _ in ops] == want
+
+
+def test_k8_bound_follows_the_programs_blur_rule():
+    """The benchmark's K8 bound counts a banded blur product for each axis
+    of the (M + 2, N + 2) KDE grid that the program blurs as a matmul, at
+    the program's band."""
+    from gaussian_process_edge_trace_torch.trace import kde
+    from gpet_bench.metrics import K8_roofline
+
+    assert K8_roofline.BLUR_MATMUL_MAX == kde._BLUR_MATMUL_MAX
+    assert K8_roofline.BAND == kde.DEFAULT_RADIUS
+    for M, N in ((500, 500), (500, 700), (700, 500), (700, 700)):
+        mats = kde.blur_matrices(M, N) or (None, None)
+        assert [m is not None for m in mats] == [
+            s + 2 <= K8_roofline.BLUR_MATMUL_MAX for s in (M, N)]
+        if mats[0] is not None or mats[1] is not None:
+            assert mats.band == K8_roofline.BAND
