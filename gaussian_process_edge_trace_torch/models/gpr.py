@@ -89,15 +89,15 @@ def safe_cholesky(K, jitter_scales=(0.0, 1e-5, 1e-3), per_matrix=False):
     garbage where a factorisation fails, so its ``info``, not the diagonal,
     decides. With ``per_matrix``, on the card, the candidates go through
     K5 (:func:`cholesky_auto`), whose bits do not depend on the batch, and
-    a failed factor has a diagonal that is not finite. The ladder and the
-    fallback index go to the device in blocking copies, two waits of kind
-    ``jitter``."""
+    a failed factor has a diagonal that is not finite. Each rung scales the
+    mean diagonal as a Python scalar (rounded to ``K``'s dtype, as a tensor
+    of the ladder would be) and the fallback index is a Python scalar: the
+    function copies nothing from the host and never waits for the device,
+    so a CUDA graph can capture it."""
     n = K.shape[-1]
     eye = torch.eye(n, dtype=K.dtype, device=K.device)
     scale = torch.diagonal(K, dim1=-2, dim2=-1).mean(-1)
-    with profiling.wait("jitter"):
-        ladder = torch.tensor(jitter_scales, dtype=K.dtype, device=K.device)
-    jit = ladder * scale[..., None]                         # (..., J)
+    jit = torch.stack([scale * s for s in jitter_scales], dim=-1)  # (..., J)
     candidates = K[..., None, :, :] + jit[..., None, None] * eye
     if per_matrix and _on_card(K):
         Ls = cholesky_auto(candidates)
@@ -105,10 +105,8 @@ def safe_cholesky(K, jitter_scales=(0.0, 1e-5, 1e-3), per_matrix=False):
     else:
         Ls, info = torch.linalg.cholesky_ex(candidates)
         ok = info == 0
-    with profiling.wait("jitter"):
-        last = torch.tensor(len(jitter_scales) - 1, device=K.device)
     idx = torch.where(ok.any(-1), torch.argmax(ok.to(torch.uint8), dim=-1),
-                      last)
+                      len(jitter_scales) - 1)
     return torch.take_along_dim(Ls, idx[..., None, None, None],
                                 dim=-3)[..., 0, :, :]
 

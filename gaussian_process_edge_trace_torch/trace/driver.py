@@ -17,6 +17,10 @@ scalar from the device per iteration.
 - :func:`run_trace` — the loop of :func:`_iteration`, then
   :func:`finish_trace`, the LML-optimised final fit.
 
+On the card an iteration's sampling stage (:func:`_sample_stage`) replays
+one CUDA graph per shape (``trace/stage_graph.py``) in place of its ~140
+launches; the other stages run op by op.
+
 Frames: every stage takes an optional leading frame axis, and the loop runs
 B traces at once (``parallel/sharded.py`` builds the batched data and
 states): each stage launches once per iteration for all frames. The loop
@@ -29,7 +33,9 @@ tensor; every frame that is still active stands at the same iteration.
 Random numbers come from a draw source (:class:`StreamDraws` by default, the
 JAX package's own random stream of the config's seed): the normals of
 iteration ``it`` and the uniforms of the final fit's restarts. A caller may
-pass another source with the same two methods. A batch's frames share one
+pass another source with the same two methods (one that also states
+``normal_shapes`` and takes ``out`` draws straight into the sampling stage's
+graph on the card, as the package's sources do). A batch's frames share one
 source, as the JAX package's frames share one key; sources whose draws carry a
 leading frame axis give each frame its own (an ensemble's members). Under a
 sample axis (``parallel/sharded.py::sharded_trace_batch``) a rank asks its
@@ -53,6 +59,7 @@ from gaussian_process_edge_trace_torch.models.kernels import (
 from gaussian_process_edge_trace_torch.models.newton import (
     lml_screen_grid, screen_and_polish, screen_and_polish_batched)
 from gaussian_process_edge_trace_torch.ops import prng
+from gaussian_process_edge_trace_torch.trace import stage_graph
 from gaussian_process_edge_trace_torch.trace.kde import (
     blur_matrices, curve_kde, gradient_kde)
 from gaussian_process_edge_trace_torch.trace.scoring import (
@@ -64,7 +71,7 @@ from gaussian_process_edge_trace_torch.utils.image import normalise
 # The host's waits for the device by kind, and the bytes ``to_host``
 # copies: ``utils/profiling.py``'s counters, under their names here.
 from gaussian_process_edge_trace_torch.utils.profiling import (  # noqa: F401
-    HOST_BYTES, HOST_READS, span)
+    GRAPHS, HOST_BYTES, HOST_READS, span)
 
 # Relative eigenvalue threshold of the truncated prior factor.
 _PRIOR_RANK_RTOL = 1e-8
@@ -421,10 +428,17 @@ class StreamDraws:
         return [prng.Draw("uniform", prng.fold_in(self.key, 0),
                           (self.cfg.lml_restarts, 3))]
 
-    def normals(self, it: int, cols=slice(None)):
+    def normals(self, it: int, cols=slice(None), out=None):
         """(z (r, S), w (n_train, S)) standard normals of iteration ``it``,
-        or their columns ``cols``."""
-        return tuple(prng.draw(self.normal_table(it, cols), self.device))
+        or their columns ``cols``; drawn into ``out`` (two tensors of
+        :meth:`normal_shapes`) where given."""
+        return tuple(prng.draw(self.normal_table(it, cols), self.device,
+                               out=out))
+
+    def normal_shapes(self, cols=slice(None)):
+        """The shapes of :meth:`normals` ``(it, cols)``, any ``it``."""
+        n = len(range(*cols.indices(self.cfg.N_samples)))
+        return (self.rank, n), (self.cfg.n_train, n)
 
     def restarts(self):
         """(lml_restarts, 3) uniforms in [0, 1) for the final fit."""
@@ -444,21 +458,34 @@ class FrameDraws:
         self.tabled = all(hasattr(src, "normal_table")
                           for src in self.sources)
 
-    def _stacked(self, tables):
+    def _stacked(self, tables, out=None):
         """One tensor per entry of the sources' tables (equal in layout),
-        frame k of it drawn from source k's entry, all in one table."""
+        frame k of it drawn from source k's entry, all in one table; into
+        ``out`` where given."""
         dev = self.sources[0].device
-        stacks = [prng.empty(d, dev, lead=(len(tables),)) for d in tables[0]]
+        stacks = out or [prng.empty(d, dev, lead=(len(tables),))
+                         for d in tables[0]]
         prng.draw([d for t in tables for d in t], dev,
                   out=[s[k] for k in range(len(tables)) for s in stacks])
         return stacks
 
-    def normals(self, it: int, *cols):
+    def normals(self, it: int, *cols, out=None):
+        """Every frame's ``normals(it, *cols)`` stacked; sources with
+        tables draw into ``out`` where given."""
         if self.tabled:
             return tuple(self._stacked([src.normal_table(it, *cols)
-                                        for src in self.sources]))
+                                        for src in self.sources], out))
         z, w = zip(*(src.normals(it, *cols) for src in self.sources))
         return torch.stack(z), torch.stack(w)
+
+    def normal_shapes(self, *cols):
+        """The shapes of :meth:`normals` where every source states its
+        own (:meth:`StreamDraws.normal_shapes`) and draws from tables,
+        else None."""
+        shapes = getattr(self.sources[0], "normal_shapes", None)
+        if not self.tabled or shapes is None:
+            return None
+        return tuple((len(self.sources),) + tuple(s) for s in shapes(*cols))
 
     def restarts(self):
         if self.tabled:
@@ -545,6 +572,89 @@ def _sample_round(cfg: TracerConfig, data: TracerData, x, y, mask, noise_w,
     return samples * per_frame(y_s)                         # (..., E, S)
 
 
+def _sample_curves(cfg: TracerConfig, data: TracerData, state: TraceState,
+                   z, w):
+    """The sampling stage's work: the padded training buffers and the
+    sampling round on them."""
+    x, y, mask, noise_w = _train_set(cfg, data, state)
+    return _sample_round(cfg, data, x, y, mask, noise_w, z, w)
+
+
+# The fields of the data and of the state that the sampling stage reads.
+_STAGE_DATA = ("init_x", "init_y", "L_prior_unit", "x_grid")
+_STAGE_STATE = ("user_x", "user_y", "user_valid", "obs_x", "obs_y",
+                "obs_valid")
+
+
+def _stage_fn(cfg: TracerConfig):
+    """:func:`_sample_curves` on the stage's tensors: those of
+    ``_STAGE_DATA``, those of ``_STAGE_STATE``, then ``z`` and ``w``."""
+    nd, ns = len(_STAGE_DATA), len(_STAGE_STATE)
+
+    def fn(*ts):
+        data = TracerData(*(None,) * len(TracerData._fields))._replace(
+            **dict(zip(_STAGE_DATA, ts[:nd])))
+        state = TraceState(*(None,) * len(TraceState._fields))._replace(
+            **dict(zip(_STAGE_STATE, ts[nd:nd + ns])))
+        return _sample_curves(cfg, data, state, *ts[nd + ns:])
+    return fn
+
+
+def _stage_key(cfg: TracerConfig, tensors, zw):
+    """Everything the sampling stage's Python reads: each tensor's
+    device, dtype and shape, those of ``zw`` (``(shape, dtype)`` pairs of
+    ``z`` and ``w``) and the configuration's scalars that
+    :func:`_train_set` and :func:`_sample_round` read (not its seed)."""
+    return (tuple((t.device, t.dtype, tuple(t.shape)) for t in tensors),
+            tuple(zw), cfg.kernel, cfg.sigma_f, cfg.sigma_l, cfg.noise_y,
+            cfg.gp_jitter, cfg.init_noise_weight, cfg.reference_quirks,
+            cfg.n_inits, cfg.n_user_obs, cfg.bins.n_bins, cfg.n_train)
+
+
+def _sample_stage(cfg: TracerConfig, data: TracerData, state: TraceState,
+                  z, w, draws=None, k=None, cols=(), scratch=False):
+    """The sampling stage: iteration ``k``'s normals from ``draws`` (its
+    columns ``cols``) where ``z`` and ``w`` are None, then the (..., E, S)
+    curves of :func:`_sample_curves`.
+
+    Where :func:`stage_graph.engaged` (on the card) the stage replays its
+    CUDA graph (``trace/stage_graph.py``), captured at its key's first use,
+    in the span ``gpet.sample.replay``: a source that states its shapes
+    (``normal_shapes``) draws straight into the graph's ``z`` and ``w``;
+    other normals, the state and the data are copied in. A replay's curves
+    are the graph's output buffer where ``scratch`` (a caller that is done
+    with them before the next iteration), else a copy. Elsewhere, and for
+    a key whose capture failed, it runs op by op. ``GRAPHS`` counts
+    either way."""
+    dev = data.x_grid.device
+    graph = None
+    if stage_graph.engaged(dev):
+        shapes = None
+        if z is None:
+            normal_shapes = getattr(draws, "normal_shapes", None)
+            shapes = normal_shapes(*cols) if normal_shapes else None
+            if shapes is None:
+                z, w = draws.normals(k, *cols)
+        zw = ([(tuple(s), torch.float32) for s in shapes] if shapes
+              else [(tuple(t.shape), t.dtype) for t in (z, w)])
+        tensors = ([getattr(data, f) for f in _STAGE_DATA]
+                   + [getattr(state, f) for f in _STAGE_STATE])
+        graph = stage_graph.lookup(
+            _stage_key(cfg, tensors, zw),
+            lambda: (_stage_fn(cfg), tensors + [
+                torch.zeros(s, dtype=d, device=dev) for s, d in zw]),
+            "gpet.sample.replay")
+    if graph is None:
+        GRAPHS["eager"] += 1
+        if z is None:
+            z, w = draws.normals(k, *cols)
+        return _sample_curves(cfg, data, state, z, w)
+    if z is None:
+        z, w = draws.normals(k, *cols, out=graph.static[-2:])
+    samples = graph(tensors + [z, w])
+    return samples if scratch else samples.clone()
+
+
 def _lift(state: TraceState) -> TraceState:
     """One trace's state as a batch of one frame: its iteration count goes
     to the device in a blocking copy, one wait of kind ``lift``."""
@@ -572,14 +682,18 @@ def frame_of(batch, f: int):
 
 def _iteration(cfg: TracerConfig, data: TracerData, state: TraceState, z, w,
                blur=None, consts=None, k=None, with_score=False, shard=None,
-               draw=None):
+               draws=None, cols=(), scratch=False):
     """One outer-loop iteration (gpet.py:829-861): sample, score, rank,
     KDE, select, each stage in its span (``gpet.sample``, ``gpet.score``,
     ``gpet.kde``, ``gpet.select``). Returns the new state and the (E, S)
     samples, and with ``with_score`` also the (M, N) pixel scores the
     selection ranked (gpet.py:582) and the (M, N) KDE map they were made
-    from. ``draw``, where ``z`` and ``w`` are None, is a call that draws
-    them, made in the sampling stage's span.
+    from. Where ``z`` and ``w`` are None, the sampling stage draws them
+    from ``draws``, ``draws.normals(k, *cols)`` (see
+    :func:`_sample_stage`, which the stage runs, replayed from its CUDA
+    graph on the card). The samples are the caller's own, or with
+    ``scratch`` (a caller that discards them) the graph's output buffer,
+    which the next replay overwrites.
 
     With ``shard`` (a :class:`~..ops.collectives.SampleShard`; the
     reference's sample-axis arm, driver.py:372-429) ``z`` and ``w`` are the
@@ -596,10 +710,8 @@ def _iteration(cfg: TracerConfig, data: TracerData, state: TraceState, z, w,
     if one:
         state, k = _lift(state), state.it
     with span("gpet.sample"):
-        if draw is not None:
-            z, w = draw()
-        x, y, mask, noise_w = _train_set(cfg, data, state)
-        samples = _sample_round(cfg, data, x, y, mask, noise_w, z, w)
+        samples = _sample_stage(cfg, data, state, z, w, draws, k, cols,
+                                scratch)
     with span("gpet.score"):
         even = "avg" if cfg.legacy_simpson else "simpson"
         if shard is None:
@@ -922,8 +1034,7 @@ def run_loop(cfg: TracerConfig, data: TracerData, state0: TraceState,
         with span("gpet.iter"):
             new, _ = _iteration(cfg, data, state, None, None, blur=blur,
                                 consts=consts, k=k, shard=shard,
-                                draw=functools.partial(draws.normals, k,
-                                                       *cols))
+                                draws=draws, cols=cols, scratch=True)
             state = new if lone else _keep_finished(active, new, state)
             active = _active(cfg, state)
             k = (k + 1 if bool(to_host(active.any(), "active"))

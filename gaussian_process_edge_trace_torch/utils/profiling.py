@@ -8,9 +8,10 @@ reference's only instrumentation is ``time.time()`` prints
   while a profiler records, and a shared do-nothing context otherwise;
 - :func:`wait`: one wait of the host for the device, a span
   ``gpet.wait.<kind>`` and one count of ``kind`` in :data:`HOST_READS`;
-- :func:`counters` / :func:`reset_counters`: every module counter of the
-  package (kernel launches, blocked factorisations, the host's waits and
-  the bytes they copy, collectives) as one flat snapshot, and set to 0;
+- :func:`counters` / :func:`reset_counters` / :func:`add_counts`: every
+  module counter of the package (kernel launches, blocked factorisations,
+  the host's waits and the bytes they copy, collectives, the sampling
+  stage's graphs) as one flat snapshot, set to 0, or added to;
 - :class:`PhaseTimer`: host wall-clock accumulated per named phase;
 - :func:`device_trace`: ``torch.profiler`` around a block, written as a
   Chrome trace (viewable in Perfetto or ``chrome://tracing``), the
@@ -26,10 +27,12 @@ reference's only instrumentation is ``time.time()`` prints
 The spans, from the entry point down: ``gpet.construct``
 (``GP_Edge_Tracing.__init__``), ``gpet.run_trace``, ``gpet.iter`` (one
 iteration of ``run_loop``, its active-mask read included) holding the
-stages ``gpet.sample``, ``gpet.score``, ``gpet.kde`` and ``gpet.select``,
-``gpet.finish`` (the final fit), ``gpet.frame_by_frame`` (the loop's
-frame-batched products, solve and sums of a batch on the card,
-``models/gpr.py::frames_span``) and ``gpet.wait.<kind>``.
+stages ``gpet.sample`` (holding ``gpet.sample.replay`` where the stage
+replays its CUDA graph, ``trace/stage_graph.py``), ``gpet.score``,
+``gpet.kde`` and ``gpet.select``, ``gpet.finish`` (the final fit),
+``gpet.frame_by_frame`` (the loop's frame-batched products, solve and sums
+of a batch on the card, ``models/gpr.py::frames_span``) and
+``gpet.wait.<kind>``.
 """
 
 from __future__ import annotations
@@ -54,15 +57,20 @@ import torch
 # tracer's trace, interval and last threshold; ``data``: the constructor's
 # copies (init points, prior factor) and its read of the x grid; ``init``:
 # ``init_state``'s two scalars; ``consts``: the selection's tables, once a
-# trace; ``jitter``: ``safe_cholesky``'s jitter ladder and its fallback
-# index; ``select``: the selection's mark of old observations and its
+# trace; ``select``: the selection's mark of old observations and its
 # fallback index; ``fit``: the final fit's bounds and first start, its
 # screen grid and its step sizes. HOST_BYTES counts, by kind, the bytes
 # that ``to_host`` copies to the host.
 HOST_READS = dict.fromkeys(
     ("active", "finish", "state", "samples", "frame", "lift", "result",
-     "data", "init", "consts", "jitter", "select", "fit"), 0)
+     "data", "init", "consts", "select", "fit"), 0)
 HOST_BYTES = dict.fromkeys(HOST_READS, 0)
+
+# The loop's sampling stage as a CUDA graph (``trace/stage_graph.py``):
+# ``capture``: graphs captured; ``replay``: stages replayed from one;
+# ``eager``: stages run op by op (off the card, under a dispatch mode, or
+# where the capture failed); ``failed``: captures that raised, once a key.
+GRAPHS = dict.fromkeys(("capture", "replay", "eager", "failed"), 0)
 
 _OFF = contextlib.nullcontext()
 
@@ -113,7 +121,7 @@ def _counter_dicts():
                          cuda_frames.LAUNCHES),
             "BLOCKED": (cuda_chol.BLOCKED,),
             "HOST_READS": (HOST_READS,), "HOST_BYTES": (HOST_BYTES,),
-            "COLLECTIVES": (collectives.COLLECTIVES,)}
+            "COLLECTIVES": (collectives.COLLECTIVES,), "GRAPHS": (GRAPHS,)}
 
 
 def counters() -> dict:
@@ -121,9 +129,20 @@ def counters() -> dict:
     ``{"<DICT>.<key>": n}``: the kernels' ``LAUNCHES`` (K1-K9), the blocked
     K5/K6 calls (``BLOCKED``), the host's waits (``HOST_READS``) and the
     bytes ``to_host`` copies (``HOST_BYTES``), the collectives
-    (``COLLECTIVES``)."""
+    (``COLLECTIVES``), the sampling stage's graphs (``GRAPHS``)."""
     return {f"{name}.{k}": v for name, ds in _counter_dicts().items()
             for d in ds for k, v in d.items()}
+
+
+def add_counts(delta: dict):
+    """Add ``{"<DICT>.<key>": n}`` (keys of :func:`counters`) to the module
+    counters, in place."""
+    dicts = _counter_dicts()
+    for name_key, n in delta.items():
+        name, key = name_key.split(".", 1)
+        for d in dicts[name]:
+            if key in d:
+                d[key] += n
 
 
 def reset_counters():

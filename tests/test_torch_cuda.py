@@ -1162,3 +1162,205 @@ def test_every_wait_on_the_card_is_counted(dev, monkeypatch):
     assert edges.shape == (4, 500, 2) and creds.shape == (4, 2, 500)
     assert pd.HOST_READS["active"] == single["active"] + int(
         res.n_iters.max()) + 1
+
+
+# --- the sampling stage as a CUDA graph ------------------------------------
+
+# The shapes the loop serves: (image side, frames, S, right endpoint's
+# column, ensemble members).
+_STAGE_CASES = {"demo": (500, 1, 1000, 499, 0),
+                "1000": (1000, 1, 10_000, 999, 0),
+                "1000_oddE": (1000, 1, 10_000, 998, 0),
+                "demo_B64": (500, 64, 1000, 499, 0),
+                "1000_S1e5": (1000, 1, 100_000, 999, 0),
+                "demo_ensemble5": (500, 1, 1000, 499, 5)}
+
+
+def _stage_problem(dev, side, frames, S, right, members):
+    """A case's config, data, first-iteration state (with a frame axis)
+    and draws: the README generator at the demo's or the 1000² suite's
+    settings, image seeds 1..frames."""
+    from gaussian_process_edge_trace_torch.parallel import sharded as ps
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    amp, sf, ls = (200, 75, 20) if side == 500 else (400, 200, 50)
+    grads, inits = [], []
+    for seed in range(1, frames + 1):
+        img, edge = gpt.construct_test_img((side, side), amp, 4, 0.05,
+                                           "sinusoidal", 0.3, gaps=True,
+                                           seed=seed)
+        grads.append(gpt.comp_grad_img(img, gpt.kernel_builder((11, 5)),
+                                       device=dev))
+        inits.append(np.array([[0, edge[0, 0]], [right, edge[right, 0]]]))
+    cfg = pd.make_config(inits[0], (side, side), {
+        "kernel": "RBF", "sigma_f": sf, "length_scale": ls}, N_samples=S,
+        delta_x=5, pixel_thresh=5, seed=1)
+    if frames > 1:
+        data = ps.make_batch_data(cfg, torch.stack(grads), np.stack(inits),
+                                  device=dev)
+        state = ps.make_batch_state(cfg, frames, device=dev)
+    else:
+        data = pd.make_data(cfg, grads[0], inits[0], dev)
+        state = pd._lift(pd.init_state(cfg, dev))
+    draws = pd._default_draws(cfg, data)
+    if members:
+        state = pd.TraceState(*(
+            torch.zeros(members, dtype=torch.int64, device=dev) if k == "it"
+            else v[0].expand((members,) + v.shape[1:])
+            for k, v in state._asdict().items()))
+        draws = pd.FrameDraws([pd.StreamDraws(cfg, draws.rank, dev,
+                                              seed=1 + m)
+                               for m in range(members)])
+    return cfg, data, state, draws
+
+
+@pytest.mark.parametrize("case", sorted(_STAGE_CASES))
+def test_replayed_sampling_stage_is_the_stage_op_by_op(dev, case):
+    """At each shape the loop serves (a single trace at the demo, at 1000²,
+    at odd E and at S = 10⁵, a batch of 64, an ensemble's per-frame
+    normals) the sampling stage replayed from its graph gives the curves
+    of the stage run op by op, bit for bit: at the first iteration (the
+    capture's own run), then at two more, each from the state the
+    iteration before left, the draws written straight into the graph's
+    buffers; one capture, the rest replays."""
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    from gaussian_process_edge_trace_torch.trace import stage_graph
+    from gaussian_process_edge_trace_torch.utils import profiling
+    cfg, data, state, draws = _stage_problem(dev, *_STAGE_CASES[case])
+    stage_graph.clear()
+    profiling.reset_counters()
+    try:
+        for k in range(3):
+            z, w = draws.normals(k)
+            want = pd._sample_curves(cfg, data, state, z, w)
+            got = pd._sample_stage(cfg, data, state, None, None, draws, k)
+            assert _bits_equal(got, want), k
+            state, _ = pd._iteration(cfg, data, state, z, w, k=k)
+        assert pd.GRAPHS == dict(capture=1, replay=5, eager=0, failed=0)
+    finally:
+        stage_graph.clear()
+
+
+def test_second_tracer_of_a_config_replays_without_capture(dev):
+    """A new request of a configuration already traced replays every
+    iteration's sampling stage and captures nothing, with the launches of
+    the stage run op by op counted all the same."""
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    from gaussian_process_edge_trace_torch.utils import profiling
+    grads, inits = _demo_frames(dev, 2)
+    _demo_trace(dev, grads[0], inits[0])
+    profiling.reset_counters()
+    tracer, _ = _demo_trace(dev, grads[1], inits[1])
+    n = tracer.last_result.n_iters
+    assert pd.GRAPHS == dict(capture=0, replay=n, eager=0, failed=0)
+    # Per iteration the sampling solve's forward and backward K6 and the
+    # cross product's K8; the final fit adds more.
+    assert cc.LAUNCHES["trsm"] > 2 * n
+
+
+def test_trace_step_curves_stay_the_callers(dev):
+    """``trace_step``'s curves are the caller's own tensor: the next step's
+    replay leaves them as they were; each equals the stage op by op."""
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    from gaussian_process_edge_trace_torch.utils import profiling
+    grads, inits = _demo_frames(dev, 1)
+    cfg = pd.make_config(inits[0], (500, 500), kernel_options=_DEMO[0],
+                         N_samples=1000, delta_x=5, pixel_thresh=5, seed=1)
+    data = pd.make_data(cfg, grads[0], inits[0], dev)
+    draws = pd._default_draws(cfg, data)
+    state = pd.init_state(cfg, dev)
+    profiling.reset_counters()
+    kept = []
+    for k in range(3):
+        want = pd._sample_curves(cfg, data, pd._lift(state),
+                                 *draws.normals(k))[0]
+        state, curves = pd.trace_step(cfg, data, state)
+        assert _bits_equal(curves, want)
+        kept.append((curves, want))
+    assert all(_bits_equal(c, w) for c, w in kept)
+    assert pd.GRAPHS["replay"] >= 2 and pd.GRAPHS["eager"] == 0
+
+
+def test_a_stage_that_fails_capture_runs_op_by_op(dev, monkeypatch):
+    """A stage that reads the host cannot be captured: its first call
+    counts the failure, warns and still gives its curves, and the key runs
+    op by op from then on, with the stage's bits."""
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    from gaussian_process_edge_trace_torch.trace import stage_graph
+    from gaussian_process_edge_trace_torch.utils import profiling
+    cfg, data, state, draws = _stage_problem(dev, *_STAGE_CASES["demo"])
+    curves = pd._sample_curves
+
+    def reads_the_host(*args):
+        out = curves(*args)
+        float(out.sum())
+        return out
+    want = [curves(cfg, data, state, *draws.normals(k)) for k in range(2)]
+    monkeypatch.setattr(pd, "_sample_curves", reads_the_host)
+    stage_graph.clear()
+    profiling.reset_counters()
+    try:
+        with pytest.warns(RuntimeWarning, match="capture"):
+            got = [pd._sample_stage(cfg, data, state, None, None, draws, 0)]
+        got.append(pd._sample_stage(cfg, data, state, None, None, draws, 1))
+    finally:
+        stage_graph.clear()
+    assert all(_bits_equal(g, w) for g, w in zip(got, want))
+    assert pd.GRAPHS == dict(capture=0, replay=0, eager=1, failed=1)
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+
+
+@pytest.mark.parametrize("per_matrix", [False, True])
+def test_safe_cholesky_waits_for_nothing(dev, per_matrix):
+    """The jitter ladder and its fallback index are device work: under
+    ``set_sync_debug_mode("error")`` no synchronisation, and the factors
+    those of the CPU's ladder (K5 where ``per_matrix``)."""
+    from gaussian_process_edge_trace_torch.models import gpr
+    K = torch.tensor(_spd(6, 40))
+    K[0] -= 2.0 * torch.eye(40)          # needs a rung, or none factors
+    Kd = K.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        L = gpr.safe_cholesky(Kd, per_matrix=per_matrix)
+        L2 = gpr.safe_cholesky(Kd, jitter_scales=(0.0, 1e-3),
+                               per_matrix=per_matrix)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for got, scales in ((L, (0.0, 1e-5, 1e-3)), (L2, (0.0, 1e-3))):
+        want = gpr.safe_cholesky(K, jitter_scales=scales)
+        torch.testing.assert_close(got[1:].cpu(), want[1:], rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_profiler_sees_each_replayed_stage(dev, tmp_path):
+    """In a profiled demo trace each iteration's sampling stage replays,
+    in its ``gpet.sample.replay`` span inside ``gpet.sample``, and the
+    profiler sees the graph's kernels: the sampling solve's two K6 launches
+    start on the card after each replay span starts and before the next
+    iteration's."""
+    import json
+    from gaussian_process_edge_trace_torch.utils import profiling
+    grads, inits = _demo_frames(dev, 1)
+    _demo_trace(dev, grads[0], inits[0])
+    torch.cuda.synchronize()
+    with profiling.device_trace(tmp_path):
+        tracer, _ = _demo_trace(dev, grads[0], inits[0])
+        torch.cuda.synchronize()
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())
+              ["traceEvents"] if e.get("ph") == "X"]
+
+    def spans(name):
+        return sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                      for e in events if e.get("cat") == "user_annotation"
+                      and e["name"] == name)
+    n = tracer.last_result.n_iters
+    iters, stages = spans("gpet.iter"), spans("gpet.sample")
+    replays = spans("gpet.sample.replay")
+    assert len(iters) == len(stages) == len(replays) == n
+    for (a, b), (s, e) in zip(stages, replays):
+        assert a <= s and e <= b
+    k6 = sorted(float(e["ts"]) for e in events if e.get("cat") == "kernel"
+                and "batched_trsm_kernel" in e["name"])
+    ends = [s for s, _ in iters[1:]] + [float("inf")]
+    for (s, _), end in zip(replays, ends):
+        assert sum(1 for t in k6 if s <= t < end) >= 2

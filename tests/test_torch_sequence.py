@@ -196,15 +196,16 @@ def test_sequence_default_draws_and_host_reads(sequences):
     its init points to the device, its state's scalars (the warm frames
     count their hand-off on the device), the lift of its state and its
     result to a batch of one and back, the selection's tables once and
-    twice an iteration, the jitter ladder twice a sampling round and in
-    the final fit, whose bounds, grid and step sizes make four more; the
-    prior factor once for the sequence."""
+    twice an iteration, the final fit's bounds, grid and step sizes; the
+    prior factor once for the sequence. The jitter ladders of the sampling
+    round and of the final fit wait for nothing, and on the CPU every
+    sampling stage runs op by op."""
     profiling.reset_counters()
     res = ps.trace_sequence(sequences["pcfg"], torch.tensor(
         sequences["grads"]), sequences["inits"], device="cpu")
     n = sum(r.n_iters for r in res)
     assert pd.HOST_READS == dict(
         dict.fromkeys(pd.HOST_READS, 0), active=n + 3, finish=3, frame=3,
-        lift=6, data=4, init=4, consts=3, jitter=2 * n + 6, select=2 * n,
-        fit=12)
+        lift=6, data=4, init=4, consts=3, select=2 * n, fit=12)
+    assert pd.GRAPHS == dict(capture=0, replay=0, eager=n, failed=0)
     assert all(r.edge_trace.shape == (64, 2) for r in res)

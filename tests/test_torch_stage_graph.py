@@ -1,0 +1,269 @@
+"""PyTorch port, the sampling stage as a CUDA graph, what the CPU can hold:
+``safe_cholesky``'s ladder as device work (the factors bit for bit those of
+the ladder copied from the host, each rung taken where it must be), the
+stage that the graph captures (its function on the stage's tensors, its key,
+the draw sources' shapes and their draws into given buffers) equal to the
+stage run op by op, the CPU loop that waits for no ladder and runs every
+stage op by op, the counters, and the benchmark's reader of the replayed
+share. The capture and the replays themselves run on the card
+(``tests/test_torch_cuda.py``)."""
+
+import numpy as np
+import pytest
+import torch
+
+import gaussian_process_edge_trace_torch as gpt
+from gaussian_process_edge_trace_torch.models import gpr
+from gaussian_process_edge_trace_torch.parallel import sharded as ps
+from gaussian_process_edge_trace_torch.trace import driver as pd
+from gaussian_process_edge_trace_torch.trace import stage_graph
+from gaussian_process_edge_trace_torch.utils import debug, profiling
+
+torch.set_num_threads(1)
+
+KW = dict(kernel_options={"kernel": "RBF", "sigma_f": 20, "length_scale": 8},
+          noise_y=1, N_samples=256, score_thresh=1, delta_x=6,
+          keep_ratio=0.1, pixel_thresh=4, seed=1, fix_endpoints=True)
+
+
+def _ladder_on_the_host(K, jitter_scales, per_matrix):
+    """``safe_cholesky`` with its ladder and its fallback index made as
+    tensors from the host's values (on the CPU ``per_matrix`` takes the
+    same library call)."""
+    n = K.shape[-1]
+    eye = torch.eye(n, dtype=K.dtype)
+    scale = torch.diagonal(K, dim1=-2, dim2=-1).mean(-1)
+    ladder = torch.tensor(jitter_scales, dtype=K.dtype)
+    candidates = K[..., None, :, :] + (ladder * scale[..., None])[
+        ..., None, None] * eye
+    Ls, info = torch.linalg.cholesky_ex(candidates)
+    ok = info == 0
+    last = torch.tensor(len(jitter_scales) - 1)
+    idx = torch.where(ok.any(-1), torch.argmax(ok.to(torch.uint8), dim=-1),
+                      last)
+    return torch.take_along_dim(Ls, idx[..., None, None, None],
+                                dim=-3)[..., 0, :, :]
+
+
+def _ladder_cases(dtype, jitter_scales, n=12, seed=3):
+    """One SPD matrix per rung that is the first to factor it (its least
+    eigenvalue at −½ of the rung's jitter, or positive for rung 0), and one
+    that no rung factors (least eigenvalue −0.5·mean diagonal)."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    mats = []
+    for j, s in enumerate(list(jitter_scales) + [1.0]):
+        w = rng.uniform(1.0, 2.0, n)
+        w[0] = 0.0
+        K = (Q * w) @ Q.T
+        m = np.trace(K) / n
+        K -= np.eye(n) * (0.5 * s * m if j else -0.5 * m)
+        mats.append(K)
+    return torch.tensor(np.stack(mats), dtype=dtype)
+
+
+@pytest.mark.parametrize("per_matrix", [False, True])
+@pytest.mark.parametrize("jitter_scales", [(0.0, 1e-5, 1e-3), (0.0, 1e-3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ladder_on_the_device_gives_the_same_factors(per_matrix,
+                                                     jitter_scales, dtype):
+    """Every rung taken where it must be, and the fallback where none
+    factors: the factors equal those of the ladder copied from the host,
+    bit for bit, and each is the factor of its rung's candidate."""
+    K = _ladder_cases(dtype, jitter_scales)
+    got = gpr.safe_cholesky(K, jitter_scales, per_matrix=per_matrix)
+    want = _ladder_on_the_host(K, jitter_scales, per_matrix)
+    assert torch.equal(got.view(-1).view(torch.uint8),
+                       want.view(-1).view(torch.uint8))
+    J = len(jitter_scales)
+    scale = torch.diagonal(K, dim1=-2, dim2=-1).mean(-1)
+    eye = torch.eye(K.shape[-1], dtype=dtype)
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    for j in range(J):                   # matrix j first factors at rung j
+        cand = K[j] + jitter_scales[j] * scale[j] * eye
+        assert torch.linalg.cholesky_ex(cand).info == 0
+        if j:
+            prev = K[j] + jitter_scales[j - 1] * scale[j] * eye
+            assert torch.linalg.cholesky_ex(prev).info != 0
+        L = got[j]
+        assert torch.allclose(L @ L.T, cand, atol=tol * float(scale[j]))
+    last = K[J] + jitter_scales[-1] * scale[J] * eye
+    assert torch.linalg.cholesky_ex(last).info != 0
+
+
+def _image(seed):
+    img, edge = gpt.construct_test_img((64, 96), 40, 2, 0.03, "sinusoidal",
+                                       0.3, seed=seed)
+    grad = gpt.comp_grad_img(img, gpt.kernel_builder((9, 5)), device="cpu")
+    return grad, np.array([[0, edge[0, 0]], [95, edge[95, 0]]])
+
+
+@pytest.fixture(scope="module")
+def small():
+    grad, init = _image(1)
+    cfg = pd.make_config(init, tuple(grad.shape), **KW)
+    data = pd.make_data(cfg, grad, init, device="cpu")
+    state, _ = pd.trace_step(cfg, data, pd.init_state(cfg, device="cpu"))
+    state, _ = pd.trace_step(cfg, data, state)
+    return cfg, data, pd._lift(state)
+
+
+def test_cpu_loop_waits_for_no_ladder_and_runs_each_stage_op_by_op(small):
+    """No wait for the jitter ladder; on the CPU every iteration's sampling
+    stage runs op by op, counted once, and nothing is captured."""
+    cfg, data, _ = small
+    assert "jitter" not in pd.HOST_READS
+    profiling.reset_counters()
+    state = pd.run_loop(cfg, data, pd.init_state(cfg, device="cpu"))
+    assert pd.GRAPHS == dict(capture=0, replay=0, eager=state.it, failed=0)
+    assert pd.HOST_READS["active"] == state.it + 1
+
+
+def test_stage_fn_is_the_stage_op_by_op(small):
+    """The function a capture records, on the stage's tensors alone, gives
+    the stage's curves bit for bit, as does the stage itself."""
+    cfg, data, state = small
+    draws = pd.StreamDraws(cfg, data.L_prior_unit.shape[1], "cpu")
+    z, w = draws.normals(2)
+    x, y, mask, noise_w = pd._train_set(cfg, data, state)
+    want = pd._sample_round(cfg, data, x, y, mask, noise_w, z, w)
+    tensors = ([getattr(data, f) for f in pd._STAGE_DATA]
+               + [getattr(state, f) for f in pd._STAGE_STATE])
+    assert torch.equal(pd._stage_fn(cfg)(*tensors, z, w), want)
+    assert torch.equal(pd._sample_stage(cfg, data, state, z, w), want)
+    got = pd._sample_stage(cfg, data, state, None, None, draws, 2)
+    assert torch.equal(got, want)
+
+
+def test_stage_key_reads_the_stage_not_the_seed(small):
+    """Requests of one configuration share a key whatever their seed; a
+    scalar the stage reads, or a shape, gives another."""
+    cfg, data, state = small
+    tensors = ([getattr(data, f) for f in pd._STAGE_DATA]
+               + [getattr(state, f) for f in pd._STAGE_STATE])
+    zw = [((8, 256), torch.float32), ((cfg.n_train, 256), torch.float32)]
+    key = pd._stage_key(cfg, tensors, zw)
+    assert pd._stage_key(cfg._replace(seed=2 ** 40 + 7), tensors, zw) == key
+    for other in (cfg._replace(sigma_l=cfg.sigma_l * 2),
+                  cfg._replace(noise_y=2.0),
+                  cfg._replace(reference_quirks=False)):
+        assert pd._stage_key(other, tensors, zw) != key
+    assert pd._stage_key(cfg, tensors, zw[:1] + [((cfg.n_train, 128),
+                                                  torch.float32)]) != key
+    wide = [t[None].expand((3,) + t.shape) for t in tensors]
+    assert pd._stage_key(cfg, wide, zw) != key
+
+
+@pytest.mark.parametrize("cols", [(), (slice(64, 192),)])
+def test_sources_state_their_shapes_and_draw_into_buffers(small, cols):
+    """``normal_shapes`` gives the shapes ``normals`` draws, and ``normals``
+    with ``out`` writes the same normals into the given tensors: one
+    source, and an ensemble's stacked sources."""
+    cfg, data, _ = small
+    rank = data.L_prior_unit.shape[1]
+    one = pd.StreamDraws(cfg, rank, "cpu")
+    frames = pd.FrameDraws([pd.StreamDraws(cfg, rank, "cpu", seed=s)
+                            for s in (1, 2, 3)])
+    for src in (one, frames):
+        want = src.normals(4, *cols)
+        assert src.normal_shapes(*cols) == tuple(t.shape for t in want)
+        out = [torch.full(t.shape, float("nan")) for t in want]
+        got = src.normals(4, *cols, out=out)
+        assert all(g is o for g, o in zip(got, out))
+        assert all(torch.equal(g, t) for g, t in zip(got, want))
+
+
+def test_untabled_frames_state_no_shapes(small):
+    cfg, data, _ = small
+
+    class Plain:
+        def __init__(self, seed):
+            self.src = pd.StreamDraws(cfg, data.L_prior_unit.shape[1], "cpu",
+                                      seed=seed)
+
+        def normals(self, it, *cols):
+            return self.src.normals(it, *cols)
+    assert pd.FrameDraws([Plain(1), Plain(2)]).normal_shapes() is None
+
+
+def test_graphs_engage_only_on_the_card_outside_dispatch_modes():
+    assert not stage_graph.engaged(torch.device("cpu"))
+    with debug.debug_nans():
+        assert not stage_graph.engaged(torch.device("cuda"))
+
+
+def test_batch_loop_counts_one_stage_per_iteration():
+    frames = [_image(s) for s in (1, 2, 3)]
+    grads = torch.stack([g for g, _ in frames])
+    inits = np.stack([i for _, i in frames])
+    cfg = pd.make_config(inits[0], tuple(grads.shape[1:]), **KW)
+    data = ps.make_batch_data(cfg, grads, inits, device="cpu")
+    profiling.reset_counters()
+    res = ps.trace_batch(cfg, data, ps.make_batch_state(cfg, 3,
+                                                        device="cpu"))
+    assert pd.GRAPHS["eager"] == int(res.n_iters.max())
+    assert pd.GRAPHS["capture"] == pd.GRAPHS["replay"] == 0
+
+
+def test_stage_graph_copies_in_only_what_changed():
+    """A stage graph's static buffers take an input unless it is already
+    there: the buffer itself, or the tensor copied last time at the same
+    version. A tensor written in place, another tensor, or an inference
+    tensor (no version counter) is copied. (The buffers are made without
+    the card; the capture needs it.)"""
+    a, b = torch.arange(4.0), torch.zeros(3)
+    g = stage_graph.StageGraph(lambda x, y: x, [a, b], "gpet.test")
+    assert g.static[0] is not a and torch.equal(g.static[0], a)
+    g.static[0].fill_(-1.0)
+    g._load([a, b])
+    assert torch.equal(g.static[0], torch.full((4,), -1.0))
+    a.add_(1.0)
+    c = torch.ones(3)
+    g._load([a, c])
+    assert torch.equal(g.static[0], a) and torch.equal(g.static[1], c)
+    g._load([a, g.static[1]])
+    assert torch.equal(g.static[1], c)
+    with torch.inference_mode():
+        t = torch.full((4,), 7.0)
+    for _ in range(2):
+        g.static[0].zero_()
+        g._load([t, c])
+        assert torch.equal(g.static[0], t)
+
+
+def test_add_counts_adds_in_place():
+    profiling.reset_counters()
+    held = pd.GRAPHS
+    profiling.add_counts({"GRAPHS.replay": 3, "LAUNCHES.trsm": 2,
+                          "GRAPHS.replay_typo": 9})
+    assert held is pd.GRAPHS and pd.GRAPHS["replay"] == 3
+    assert profiling.counters()["LAUNCHES.trsm"] == 2
+    profiling.add_counts({"LAUNCHES.trsm": -2, "GRAPHS.replay": -3})
+    assert set(profiling.counters().values()) == {0}
+
+
+def _record(names):
+    """A profiled tail of one request whose host events are ``names``, one
+    span each (name, start µs, duration µs)."""
+    from gpet_bench import profile
+    return {"profile": {"timeline": profile.Timeline([], names, 0.0, 1e3),
+                        "requests": [{"n_iters": [2]}]}}
+
+
+def test_sample_replay_pct_reads_the_replayed_share():
+    """The benchmark's reader: replay spans inside ``gpet.iter`` over the
+    sampling stages inside them; None without a replay (a program without
+    the graph); stages outside the loop are not counted."""
+    from gpet_bench import harness
+    read = harness.reader("sample_replay_pct")
+    loop = [("gpet.iter", 0.0, 100.0), ("gpet.sample", 1.0, 40.0),
+            ("gpet.iter", 200.0, 100.0), ("gpet.sample", 201.0, 40.0),
+            ("gpet.sample", 500.0, 40.0)]
+    assert read(_record(loop)) is None
+    one = loop + [("gpet.sample.replay", 210.0, 5.0),
+                  ("gpet.sample.replay", 510.0, 5.0)]
+    assert read(_record(one)) == pytest.approx(50.0)
+    both = one + [("gpet.sample.replay", 10.0, 5.0)]
+    assert read(_record(both)) == pytest.approx(100.0)
+    assert harness.reader("sample_ms_per_iter")(_record(both)) == \
+        pytest.approx(0.04)

@@ -145,14 +145,15 @@ def test_counters_snapshot_and_reset_in_place():
                           prng.LAUNCHES, cf.LAUNCHES),
              "BLOCKED": (cc.BLOCKED,), "HOST_READS": (pd.HOST_READS,),
              "HOST_BYTES": (pd.HOST_BYTES,),
-             "COLLECTIVES": (collectives.COLLECTIVES,)}
+             "COLLECTIVES": (collectives.COLLECTIVES,),
+             "GRAPHS": (pd.GRAPHS,)}
     want = {f"{n}.{k}" for n, ds in dicts.items() for d in ds for k in d}
     assert set(profiling.counters()) == want
     assert len(want) == sum(len(d) for ds in dicts.values() for d in ds)
     held = pd.HOST_READS
-    pd.HOST_READS["jitter"] += 3
+    pd.HOST_READS["select"] += 3
     ci.LAUNCHES["fused_cost"] += 2
-    assert profiling.counters()["HOST_READS.jitter"] >= 3
+    assert profiling.counters()["HOST_READS.select"] >= 3
     profiling.reset_counters()
     assert held is pd.HOST_READS is profiling.HOST_READS
     assert set(profiling.counters().values()) == {0}
