@@ -1735,10 +1735,8 @@ def first_divergence(cfg, a, b):
             return None
         grids = []
         for i, (data, _, draws, f) in enumerate((a, b)):
-            z, w = draws.normals(k)
-            new, _, score, _ = pd._iteration(cfg, data, states[i], z, w,
-                                             blur, consts, k=k,
-                                             with_score=True)
+            new, _, score, _ = pd._iteration(cfg, data, states[i], draws, k,
+                                             (blur, consts), with_score=True)
             states[i] = pd._keep_finished(act[i], new, states[i])
             grids.append(score[f])
         obs = [(s.obs_x[side[3]], s.obs_y[side[3]], s.obs_valid[side[3]],
@@ -1870,11 +1868,10 @@ def divergence_scores(tracer, state, draws, inv, it, ref_obs, got_obs,
     iteration; ``ref_thresh``: the JAX package's threshold after it."""
     from gaussian_process_edge_trace_torch.trace import driver as pd
     cfg, data = tracer.cfg, tracer.data
-    z, w = draws.normals(it)
-    new, _, score, kde = pd._iteration(cfg, data, state, z, w, blur=inv[0],
-                                       consts=inv[1], with_score=True)
-    thresh = float(new.score_thresh)
-    score, kde = score.cpu().numpy(), kde.cpu().numpy()
+    new, _, score, kde = pd._iteration(cfg, data, pd._lift(state), draws, it,
+                                       inv, with_score=True)
+    thresh = float(new.score_thresh[0])
+    score, kde = score[0].cpu().numpy(), kde[0].cpu().numpy()
     rows = []
     differ = ((ref_obs[0] != got_obs[0]) | (ref_obs[1] != got_obs[1])
               | (ref_obs[2] != got_obs[2]))

@@ -390,7 +390,7 @@ class GP_Edge_Tracing:
                              "source; pass per-member sources to "
                              "trace_ensemble instead of draws=")
         cfg, data = self.cfg, self.data
-        state = init_state(cfg, self.device, user_obs_xy=self.obs)
+        state = init_state(cfg, user_obs_xy=self.obs, device=self.device)
         preview = []
         if show_init_post:
             preview.append(_numpy(preview_samples(cfg, data, state)))

@@ -26,9 +26,12 @@ B traces at once (``parallel/sharded.py`` builds the batched data and
 states): each stage launches once per iteration for all frames. The loop
 keeps the semantics of the JAX package's vmapped ``while_loop``: it runs
 while any frame is active, reading the (B,) active mask once per iteration,
-and a frame that has finished keeps its state unchanged. A single trace is
-the case B = 1. In a batched :class:`TraceState` ``it`` is a (B,) int64
-tensor; every frame that is still active stands at the same iteration.
+and a frame that has finished keeps its state unchanged. In a batched
+:class:`TraceState` ``it`` is a (B,) int64 tensor; every frame that is still
+active stands at the same iteration. A single trace is the case B = 1: its
+state (``it`` a Python int) exists only at the public edge, which lifts it
+into a batch of one with no wait and takes frame 0 back out, at the
+iteration the host counted, with no read.
 
 Random numbers come from a draw source (:class:`StreamDraws` by default, the
 JAX package's own random stream of the config's seed): the normals of
@@ -612,57 +615,60 @@ def _stage_key(cfg: TracerConfig, tensors, zw):
 
 
 def _sample_stage(cfg: TracerConfig, data: TracerData, state: TraceState,
-                  z, w, draws=None, k=None, cols=(), scratch=False):
+                  draws, k: int, cols=()):
     """The sampling stage: iteration ``k``'s normals from ``draws`` (its
-    columns ``cols``) where ``z`` and ``w`` are None, then the (..., E, S)
-    curves of :func:`_sample_curves`.
+    columns ``cols``), then the (..., E, S) curves of
+    :func:`_sample_curves`.
 
     Where :func:`stage_graph.engaged` (on the card) the stage replays its
     CUDA graph (``trace/stage_graph.py``), captured at its key's first use,
     in the span ``gpet.sample.replay``: a source that states its shapes
     (``normal_shapes``) draws straight into the graph's ``z`` and ``w``;
-    other normals, the state and the data are copied in. A replay's curves
-    are the graph's output buffer where ``scratch`` (a caller that is done
-    with them before the next iteration), else a copy. Elsewhere, and for
-    a key whose capture failed, it runs op by op. ``GRAPHS`` counts
-    either way."""
+    the normals of another source, the state and the data are copied in.
+    A replay's curves are the graph's output buffer, which the next replay
+    overwrites: a caller that keeps them copies them. Elsewhere, and for a
+    key whose capture failed, it runs op by op. ``GRAPHS`` counts either
+    way."""
     dev = data.x_grid.device
-    graph = None
+    graph, zw = None, None
     if stage_graph.engaged(dev):
-        shapes = None
-        if z is None:
-            normal_shapes = getattr(draws, "normal_shapes", None)
-            shapes = normal_shapes(*cols) if normal_shapes else None
-            if shapes is None:
-                z, w = draws.normals(k, *cols)
-        zw = ([(tuple(s), torch.float32) for s in shapes] if shapes
-              else [(tuple(t.shape), t.dtype) for t in (z, w)])
+        normal_shapes = getattr(draws, "normal_shapes", None)
+        shapes = normal_shapes(*cols) if normal_shapes else None
+        if shapes is None:
+            zw = draws.normals(k, *cols)
+            specs = [(tuple(t.shape), t.dtype) for t in zw]
+        else:
+            specs = [(tuple(s), torch.float32) for s in shapes]
         tensors = ([getattr(data, f) for f in _STAGE_DATA]
                    + [getattr(state, f) for f in _STAGE_STATE])
         graph = stage_graph.lookup(
-            _stage_key(cfg, tensors, zw),
+            _stage_key(cfg, tensors, specs),
             lambda: (_stage_fn(cfg), tensors + [
-                torch.zeros(s, dtype=d, device=dev) for s, d in zw]),
+                torch.zeros(s, dtype=d, device=dev) for s, d in specs]),
             "gpet.sample.replay")
     if graph is None:
         GRAPHS["eager"] += 1
-        if z is None:
-            z, w = draws.normals(k, *cols)
-        return _sample_curves(cfg, data, state, z, w)
-    if z is None:
-        z, w = draws.normals(k, *cols, out=graph.static[-2:])
-    samples = graph(tensors + [z, w])
-    return samples if scratch else samples.clone()
+        return _sample_curves(cfg, data, state,
+                              *(zw or draws.normals(k, *cols)))
+    if zw is None:
+        zw = draws.normals(k, *cols, out=graph.static[-2:])
+    return graph(tensors + list(zw))
 
 
 def _lift(state: TraceState) -> TraceState:
-    """One trace's state as a batch of one frame: its iteration count goes
-    to the device in a blocking copy, one wait of kind ``lift``."""
-    with profiling.wait("lift"):
-        it = torch.tensor([state.it], dtype=torch.int64,
-                          device=state.obs_x.device)
+    """One trace's state as a batch of one frame, its iteration count
+    filled in on the device: no wait."""
+    it = torch.full((1,), state.it, dtype=torch.int64,
+                    device=state.obs_x.device)
     return TraceState(*(it if k == "it" else v[None]
                         for k, v in state._asdict().items()))
+
+
+def _single(batch: TraceState, it: int) -> TraceState:
+    """A batch of one frame as one trace's state at iteration ``it``, which
+    the host knows: no read."""
+    return TraceState(*(it if k == "it" else v[0]
+                        for k, v in batch._asdict().items()))
 
 
 def frame_of(batch, f: int):
@@ -680,38 +686,30 @@ def frame_of(batch, f: int):
     return type(batch)(**out)
 
 
-def _iteration(cfg: TracerConfig, data: TracerData, state: TraceState, z, w,
-               blur=None, consts=None, k=None, with_score=False, shard=None,
-               draws=None, cols=(), scratch=False):
-    """One outer-loop iteration (gpet.py:829-861): sample, score, rank,
-    KDE, select, each stage in its span (``gpet.sample``, ``gpet.score``,
-    ``gpet.kde``, ``gpet.select``). Returns the new state and the (E, S)
-    samples, and with ``with_score`` also the (M, N) pixel scores the
-    selection ranked (gpet.py:582) and the (M, N) KDE map they were made
-    from. Where ``z`` and ``w`` are None, the sampling stage draws them
-    from ``draws``, ``draws.normals(k, *cols)`` (see
-    :func:`_sample_stage`, which the stage runs, replayed from its CUDA
-    graph on the card). The samples are the caller's own, or with
-    ``scratch`` (a caller that discards them) the graph's output buffer,
-    which the next replay overwrites.
+def _iteration(cfg: TracerConfig, data: TracerData, state: TraceState, draws,
+               k: int, invariants, shard=None, with_score=False):
+    """One outer-loop iteration (gpet.py:829-861) of a batched state, at
+    iteration ``k`` (where its active frames stand): sample from
+    ``draws.normals(k)`` (:func:`_sample_stage`), score, rank, KDE, select,
+    each stage in its span (``gpet.sample``, ``gpet.score``, ``gpet.kde``,
+    ``gpet.select``) and once for all frames; the caller keeps finished
+    frames as they were. ``invariants``: :func:`loop_invariants`. Returns
+    the new state and the (B, E, S) samples (on the card the graph's
+    buffer, which the next replay overwrites), and with ``with_score`` also
+    the (B, M, N) pixel scores the selection ranked (gpet.py:582) and the
+    KDE maps they were made from.
 
     With ``shard`` (a :class:`~..ops.collectives.SampleShard`; the
-    reference's sample-axis arm, driver.py:372-429) ``z`` and ``w`` are the
-    rank's columns of the iteration's draws: it samples and scores its
-    ``shard.width`` curves, with K1 planned on the group's S and no
-    transposed copy, and :func:`sharded_best_curves` ranks over the group.
-    The KDE and the selection then run replicated on every rank.
-
-    A batched state (``it`` a tensor) steps every frame, each stage once
-    for all of them, and writes the telemetry of iteration ``k``, at which
-    its active frames stand; the caller keeps finished frames as they
-    were."""
-    one = isinstance(state.it, int)
-    if one:
-        state, k = _lift(state), state.it
+    reference's sample-axis arm, driver.py:372-429) the rank draws its
+    columns of the iteration's normals, ``draws.normals(k, shard.cols)``:
+    it samples and scores its ``shard.width`` curves, with K1 planned on
+    the group's S and no transposed copy, and :func:`sharded_best_curves`
+    ranks over the group. The KDE and the selection then run replicated on
+    every rank."""
+    blur, consts = invariants
     with span("gpet.sample"):
-        samples = _sample_stage(cfg, data, state, z, w, draws, k, cols,
-                                scratch)
+        samples = _sample_stage(cfg, data, state, draws, k,
+                                () if shard is None else (shard.cols,))
     with span("gpet.score"):
         even = "avg" if cfg.legacy_simpson else "simpson"
         if shard is None:
@@ -757,12 +755,7 @@ def _iteration(cfg: TracerConfig, data: TracerData, state: TraceState, z, w,
             iter_costs=put(state.iter_costs, bcosts[..., 0]),
             iter_nobs=put(state.iter_nobs, sel.n_fobs),
             iter_thresh=put(state.iter_thresh, sel.score_thresh))
-    if one:
-        new_state, samples = frame_of(new_state, 0), samples[0]
-        score, kde_arr = sel.score[0], kde_arr[0]
-    else:
-        score = sel.score
-    return ((new_state, samples, score, kde_arr) if with_score
+    return ((new_state, samples, sel.score, kde_arr) if with_score
             else (new_state, samples))
 
 
@@ -932,15 +925,17 @@ def trace_step(cfg: TracerConfig, data: TracerData, state: TraceState,
     (:class:`StreamDraws` by default), so stepping a state to the end of
     the loop and calling :func:`finish_trace` gives :func:`run_trace`'s
     result bit for bit. A caller that steps a whole trace builds
-    :func:`loop_invariants` once and passes them."""
+    :func:`loop_invariants` once and passes them. The state goes in as a
+    batch of one and comes out with no wait; the curves are a copy of the
+    stage's."""
     if not isinstance(state.it, int):
         raise ValueError("trace_step steps one trace; trace_batch steps "
                          "frames")
     if draws is None:
         draws = _default_draws(cfg, data)
-    blur, consts = invariants or loop_invariants(cfg, data)
-    z, w = draws.normals(state.it)
-    return _iteration(cfg, data, state, z, w, blur=blur, consts=consts)
+    new, samples = _iteration(cfg, data, _lift(state), draws, state.it,
+                              invariants or loop_invariants(cfg, data))
+    return _single(new, state.it + 1), samples[0].clone()
 
 
 def finish_trace(cfg: TracerConfig, data: TracerData, state: TraceState,
@@ -949,46 +944,39 @@ def finish_trace(cfg: TracerConfig, data: TracerData, state: TraceState,
     ``gpet.finish``: the converged LML fit, the credible interval, the yx
     trace and the final mean curve's cost. A batched state is finished in
     one fit for all frames, with one host read for their ``n_iters`` and
-    ``converged``."""
+    ``converged``; one trace's as a batch of one."""
+    if isinstance(state.it, int):
+        return frame_of(finish_trace(cfg, data, _lift(state), draws), 0)
     with span("gpet.finish"):
-        if isinstance(state.it, int):
-            return frame_of(_finish_frames(cfg, data, _lift(state), draws),
-                            0)
-        return _finish_frames(cfg, data, state, draws)
-
-
-def _finish_frames(cfg: TracerConfig, data: TracerData, state: TraceState,
-                   draws) -> TraceResult:
-    """:func:`finish_trace` of a batched state."""
-    x, y, mask, noise_w = _train_set(cfg, data, state)
-    y_mean, y_std_s, y_s, theta, lml = _final_fit_buffers(
-        cfg, data, draws.restarts(), x, y, mask, noise_w)
-    # Reference quirk: the interval and y_std keep the standardised-y std
-    # (gpet.py:266); with reference_quirks=False both are in pixels.
-    y_std_px = y_s[..., None] * y_std_s
-    y_std = y_std_s if cfg.reference_quirks else y_std_px
-    cred = torch.stack([y_mean - 1.96 * y_std, y_mean + 1.96 * y_std],
-                       dim=-2)
-    cred_px = torch.stack([y_mean - 1.96 * y_std_px,
-                           y_mean + 1.96 * y_std_px], dim=-2)
-    edge_trace = torch.stack([torch.round(y_mean).to(torch.int64),
-                              data.x_grid.expand(y_mean.shape)], dim=-1)
-    final_cost = curve_costs(data.grad_cols, y_mean[..., None],
-                             kde_thresh=cfg.kde_thresh,
-                             even="avg" if cfg.legacy_simpson
-                             else "simpson")[..., 0]
-    host = to_host(torch.stack([state.it, (
-        state.n_fobs >= cfg.algo_thresh).to(torch.int64)]), "finish")
-    return TraceResult(
-        edge_trace=edge_trace, y_mean=y_mean, y_std=y_std,
-        cred_interval=cred, cred_interval_px=cred_px, n_iters=host[0],
-        converged=host[1].to(torch.bool), theta=theta, lml=lml,
-        final_cost=final_cost, iter_curves=state.iter_curves,
-        iter_costs=state.iter_costs, iter_nobs=state.iter_nobs,
-        iter_thresh=state.iter_thresh,
-        obs_x=torch.cat([state.user_x, state.obs_x], dim=-1),
-        obs_y=torch.cat([state.user_y, state.obs_y], dim=-1),
-        obs_valid=torch.cat([state.user_valid, state.obs_valid], dim=-1))
+        x, y, mask, noise_w = _train_set(cfg, data, state)
+        y_mean, y_std_s, y_s, theta, lml = _final_fit_buffers(
+            cfg, data, draws.restarts(), x, y, mask, noise_w)
+        # Reference quirk: the interval and y_std keep the standardised-y std
+        # (gpet.py:266); with reference_quirks=False both are in pixels.
+        y_std_px = y_s[..., None] * y_std_s
+        y_std = y_std_s if cfg.reference_quirks else y_std_px
+        cred = torch.stack([y_mean - 1.96 * y_std, y_mean + 1.96 * y_std],
+                           dim=-2)
+        cred_px = torch.stack([y_mean - 1.96 * y_std_px,
+                               y_mean + 1.96 * y_std_px], dim=-2)
+        edge_trace = torch.stack([torch.round(y_mean).to(torch.int64),
+                                  data.x_grid.expand(y_mean.shape)], dim=-1)
+        final_cost = curve_costs(data.grad_cols, y_mean[..., None],
+                                 kde_thresh=cfg.kde_thresh,
+                                 even="avg" if cfg.legacy_simpson
+                                 else "simpson")[..., 0]
+        host = to_host(torch.stack([state.it, (
+            state.n_fobs >= cfg.algo_thresh).to(torch.int64)]), "finish")
+        return TraceResult(
+            edge_trace=edge_trace, y_mean=y_mean, y_std=y_std,
+            cred_interval=cred, cred_interval_px=cred_px, n_iters=host[0],
+            converged=host[1].to(torch.bool), theta=theta, lml=lml,
+            final_cost=final_cost, iter_curves=state.iter_curves,
+            iter_costs=state.iter_costs, iter_nobs=state.iter_nobs,
+            iter_thresh=state.iter_thresh,
+            obs_x=torch.cat([state.user_x, state.obs_x], dim=-1),
+            obs_y=torch.cat([state.user_y, state.obs_y], dim=-1),
+            obs_valid=torch.cat([state.user_valid, state.obs_valid], dim=-1))
 
 
 def _active(cfg: TracerConfig, state: TraceState):
@@ -1013,44 +1001,47 @@ def run_loop(cfg: TracerConfig, data: TracerData, state0: TraceState,
     ``while_loop``). The active frames must stand at one iteration. Each
     iteration, its active-mask read included, runs in the span
     ``gpet.iter``. ``shard``: the sample arm of :func:`_iteration`; the
-    rank draws its columns ``draws.normals(it, shard.cols)``."""
-    if isinstance(state0.it, int):
-        return frame_of(run_loop(cfg, data, _lift(state0), draws, shard), 0)
+    rank draws its columns ``draws.normals(it, shard.cols)``. One trace's
+    state runs as a batch of one and comes back at the iteration the host
+    counted."""
+    one = isinstance(state0.it, int)
+    state = _lift(state0) if one else state0
     if draws is None:
         draws = _default_draws(cfg, data)
-    blur, consts = loop_invariants(cfg, data)
-    cols = () if shard is None else (shard.cols,)
-    state = state0
+    invariants = loop_invariants(cfg, data)
     active = _active(cfg, state)
     at = set(to_host(torch.where(active, state.it, -1), "active").tolist()) \
         - {-1}
     if len(at) > 1:
         raise ValueError(f"the active frames stand at iterations "
                          f"{sorted(at)}; a batch steps them together")
-    k = at.pop() if at else cfg.max_iters
+    k0 = k = at.pop() if at else cfg.max_iters
     # A lone frame is active whenever the loop steps it: nothing to keep.
     lone = state.it.shape[0] == 1
     while k < cfg.max_iters:
         with span("gpet.iter"):
-            new, _ = _iteration(cfg, data, state, None, None, blur=blur,
-                                consts=consts, k=k, shard=shard,
-                                draws=draws, cols=cols, scratch=True)
+            new, _ = _iteration(cfg, data, state, draws, k,
+                                invariants=invariants, shard=shard)
             state = new if lone else _keep_finished(active, new, state)
             active = _active(cfg, state)
-            k = (k + 1 if bool(to_host(active.any(), "active"))
-                 else cfg.max_iters)
-    return state
+            k += 1
+            if not bool(to_host(active.any(), "active")):
+                break
+    return _single(state, state0.it + k - k0) if one else state
 
 
 def run_trace(cfg: TracerConfig, data: TracerData, state0: TraceState,
               draws=None, shard=None) -> TraceResult:
     """The full trace (gpet.py:768-908): the outer loop, then
-    :func:`finish_trace`; for one trace or, with a batched state, for every
-    frame. ``draws`` defaults to :class:`StreamDraws`; ``shard``: see
-    :func:`run_loop` (the final fit runs whole on every rank). In the span
-    ``gpet.run_trace``."""
+    :func:`finish_trace`; for one trace (as a batch of one, frame 0 of the
+    result) or, with a batched state, for every frame. ``draws`` defaults
+    to :class:`StreamDraws`; ``shard``: see :func:`run_loop` (the final
+    fit runs whole on every rank). In the span ``gpet.run_trace``."""
     with span("gpet.run_trace"):
         if draws is None:
             draws = _default_draws(cfg, data)
-        state = run_loop(cfg, data, state0, draws, shard)
-        return finish_trace(cfg, data, state, draws)
+        one = isinstance(state0.it, int)
+        state = run_loop(cfg, data, _lift(state0) if one else state0, draws,
+                         shard)
+        res = finish_trace(cfg, data, state, draws)
+        return frame_of(res, 0) if one else res

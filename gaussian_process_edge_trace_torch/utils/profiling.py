@@ -52,9 +52,10 @@ import torch
 # the first iteration and once after each; ``finish``: ``finish_trace``'s
 # ``n_iters`` and ``converged``; ``state``/``samples``: the introspective
 # tracer's reads of the state and of each iteration's curves; ``frame``: a
-# batched state's iteration count as one trace's (``frame_of``); ``lift``:
-# one trace's iteration count to the device (``_lift``); ``result``: the
-# tracer's trace, interval and last threshold; ``data``: the constructor's
+# batched state's iteration count as one trace's (``frame_of``; one trace's
+# state, run as a batch of one, comes back at an iteration the host counted
+# and waits for nothing on the way in or out); ``result``: the tracer's
+# trace, interval and last threshold; ``data``: the constructor's
 # copies (init points, prior factor) and its read of the x grid; ``init``:
 # ``init_state``'s two scalars; ``consts``: the selection's tables, once a
 # trace; ``select``: the selection's mark of old observations and its
@@ -62,7 +63,7 @@ import torch
 # screen grid and its step sizes. HOST_BYTES counts, by kind, the bytes
 # that ``to_host`` copies to the host.
 HOST_READS = dict.fromkeys(
-    ("active", "finish", "state", "samples", "frame", "lift", "result",
+    ("active", "finish", "state", "samples", "frame", "result",
      "data", "init", "consts", "select", "fit"), 0)
 HOST_BYTES = dict.fromkeys(HOST_READS, 0)
 

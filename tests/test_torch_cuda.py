@@ -1228,13 +1228,13 @@ def test_replayed_sampling_stage_is_the_stage_op_by_op(dev, case):
     cfg, data, state, draws = _stage_problem(dev, *_STAGE_CASES[case])
     stage_graph.clear()
     profiling.reset_counters()
+    inv = pd.loop_invariants(cfg, data)
     try:
         for k in range(3):
-            z, w = draws.normals(k)
-            want = pd._sample_curves(cfg, data, state, z, w)
-            got = pd._sample_stage(cfg, data, state, None, None, draws, k)
+            want = pd._sample_curves(cfg, data, state, *draws.normals(k))
+            got = pd._sample_stage(cfg, data, state, draws, k)
             assert _bits_equal(got, want), k
-            state, _ = pd._iteration(cfg, data, state, z, w, k=k)
+            state, _ = pd._iteration(cfg, data, state, draws, k, inv)
         assert pd.GRAPHS == dict(capture=1, replay=5, eager=0, failed=0)
     finally:
         stage_graph.clear()
@@ -1280,6 +1280,65 @@ def test_trace_step_curves_stay_the_callers(dev):
     assert pd.GRAPHS["replay"] >= 2 and pd.GRAPHS["eager"] == 0
 
 
+def test_trace_step_draws_the_curves_of_run_loop(dev, monkeypatch):
+    """``trace_step`` and ``run_loop`` both draw their normals straight
+    into the graph's buffers: the curves ``trace_step`` gives at each step
+    are those ``run_loop`` drew at that iteration, bit for bit, and the
+    last states agree; every stage a replay but the first."""
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    from gaussian_process_edge_trace_torch.trace import stage_graph
+    from gaussian_process_edge_trace_torch.utils import profiling
+    grads, inits = _demo_frames(dev, 1)
+    cfg = pd.make_config(inits[0], (500, 500), kernel_options=_DEMO[0],
+                         N_samples=1000, delta_x=5, pixel_thresh=5, seed=1)
+    data = pd.make_data(cfg, grads[0], inits[0], dev)
+    iteration, drawn = pd._iteration, []
+
+    def recording(*args, **kw):
+        out = iteration(*args, **kw)
+        drawn.append(out[1][0].clone())
+        return out
+    monkeypatch.setattr(pd, "_iteration", recording)
+    stage_graph.clear()
+    profiling.reset_counters()
+    try:
+        looped = pd.run_loop(cfg, data, pd.init_state(cfg, device=dev))
+        looped_curves = list(drawn)
+        state, stepped = pd.init_state(cfg, device=dev), []
+        while state.it < looped.it:
+            state, curves = pd.trace_step(cfg, data, state)
+            stepped.append(curves)
+        assert pd.GRAPHS == dict(capture=1, replay=2 * looped.it - 1,
+                                 eager=0, failed=0)
+    finally:
+        stage_graph.clear()
+    assert len(stepped) == len(looped_curves) == looped.it > 1
+    assert all(_bits_equal(a, b) for a, b in zip(stepped, looped_curves))
+    for k in pd.TraceState._fields:
+        if k != "it":
+            assert torch.equal(getattr(state, k), getattr(looped, k)), k
+
+
+def test_a_source_without_shapes_is_copied_into_the_graph(dev):
+    """The normals of a source that states no shapes are copied into the
+    graph's buffers: its replays give the stage's curves op by op."""
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    from gaussian_process_edge_trace_torch.trace import stage_graph
+    from gaussian_process_edge_trace_torch.utils import profiling
+    cfg, data, state, draws = _stage_problem(dev, *_STAGE_CASES["demo"])
+    shapeless = types.SimpleNamespace(normals=draws.normals)
+    stage_graph.clear()
+    profiling.reset_counters()
+    try:
+        for k in range(3):
+            want = pd._sample_curves(cfg, data, state, *draws.normals(k))
+            got = pd._sample_stage(cfg, data, state, shapeless, k)
+            assert _bits_equal(got, want), k
+        assert pd.GRAPHS == dict(capture=1, replay=2, eager=0, failed=0)
+    finally:
+        stage_graph.clear()
+
+
 def test_a_stage_that_fails_capture_runs_op_by_op(dev, monkeypatch):
     """A stage that reads the host cannot be captured: its first call
     counts the failure, warns and still gives its curves, and the key runs
@@ -1300,8 +1359,8 @@ def test_a_stage_that_fails_capture_runs_op_by_op(dev, monkeypatch):
     profiling.reset_counters()
     try:
         with pytest.warns(RuntimeWarning, match="capture"):
-            got = [pd._sample_stage(cfg, data, state, None, None, draws, 0)]
-        got.append(pd._sample_stage(cfg, data, state, None, None, draws, 1))
+            got = [pd._sample_stage(cfg, data, state, draws, 0)]
+        got.append(pd._sample_stage(cfg, data, state, draws, 1))
     finally:
         stage_graph.clear()
     assert all(_bits_equal(g, w) for g, w in zip(got, want))

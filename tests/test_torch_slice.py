@@ -233,9 +233,10 @@ def test_first_iterations_match_reference_at_1000():
         cfg._asdict(), jax.device_get(data._asdict()),
         jax.device_get(state._asdict()), device="cpu")
     draws = JaxDraws(pcfg, pdata.L_prior_unit.shape[1])
+    inv = pd.loop_invariants(pcfg, pdata)
     for it in range(3):
         state, _ = rd.trace_step(cfg, data, state)
-        pstate, _ = pd._iteration(pcfg, pdata, pstate, *draws.normals(it))
+        pstate, _ = pd.trace_step(pcfg, pdata, pstate, draws, inv)
         ref = jax.device_get(state)
         for f in ("obs_x", "obs_y", "obs_valid", "n_fobs", "score_thresh"):
             np.testing.assert_array_equal(

@@ -8,6 +8,8 @@ stage op by op, the counters, and the benchmark's reader of the replayed
 share. The capture and the replays themselves run on the card
 (``tests/test_torch_cuda.py``)."""
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -121,7 +123,8 @@ def test_cpu_loop_waits_for_no_ladder_and_runs_each_stage_op_by_op(small):
 
 def test_stage_fn_is_the_stage_op_by_op(small):
     """The function a capture records, on the stage's tensors alone, gives
-    the stage's curves bit for bit, as does the stage itself."""
+    the stage's curves bit for bit, as does the stage itself, from a source
+    that states its shapes and from one that does not."""
     cfg, data, state = small
     draws = pd.StreamDraws(cfg, data.L_prior_unit.shape[1], "cpu")
     z, w = draws.normals(2)
@@ -130,8 +133,10 @@ def test_stage_fn_is_the_stage_op_by_op(small):
     tensors = ([getattr(data, f) for f in pd._STAGE_DATA]
                + [getattr(state, f) for f in pd._STAGE_STATE])
     assert torch.equal(pd._stage_fn(cfg)(*tensors, z, w), want)
-    assert torch.equal(pd._sample_stage(cfg, data, state, z, w), want)
-    got = pd._sample_stage(cfg, data, state, None, None, draws, 2)
+    shapeless = types.SimpleNamespace(normals=lambda it, *cols: (z, w))
+    assert torch.equal(pd._sample_stage(cfg, data, state, shapeless, 2),
+                       want)
+    got = pd._sample_stage(cfg, data, state, draws, 2)
     assert torch.equal(got, want)
 
 

@@ -2,8 +2,10 @@
 single trace and of a 3-frame batch under ``torch.profiler`` (one run, one
 loop of ``gpet.iter`` spans with four stages each, one final fit, one
 ``gpet.wait.<kind>`` span for every counted wait), nothing of the profiler
-entered without one, the same bits either way, and the module counters'
-snapshot and reset."""
+entered without one, the same bits either way, the module counters'
+snapshot and reset, and the waits of one trace's state at the driver's
+public edge: none to run it as a batch of one, or to step it, and one to
+read a batched state's iteration count."""
 
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ from gaussian_process_edge_trace_torch.parallel import sharded as ps
 from gaussian_process_edge_trace_torch.trace import cuda_kde as ck
 from gaussian_process_edge_trace_torch.trace import driver as pd
 from gaussian_process_edge_trace_torch.utils import profiling
+from torch_parity import assert_same_bits
 
 torch.set_num_threads(1)
 
@@ -60,6 +63,13 @@ def _batch():
 
 
 RUNS = {"single": _single, "batch": _batch}
+
+
+def _problem():
+    """The single run's config and data, without the tracer."""
+    grad, init = _image(1)
+    cfg = pd.make_config(init, tuple(grad.shape), **KW)
+    return cfg, pd.make_data(cfg, grad, init, device="cpu")
 
 
 def _profiled(run):
@@ -233,3 +243,69 @@ def test_k8_bound_follows_the_programs_blur_rule():
             s + 2 <= K8_roofline.BLUR_MATMUL_MAX for s in (M, N)]
         if mats[0] is not None or mats[1] is not None:
             assert mats.band == K8_roofline.BAND
+
+
+def test_single_trace_runs_as_a_batch_of_one_with_no_crossing_wait():
+    """One trace's ``run_trace`` runs as a batch of one: nothing lifts its
+    state with a wait or reads its iteration count back (its waits are
+    the loop's active reads and the final fit's), and its result is frame
+    0 of the same trace run as a batch of one, bit for bit."""
+    cfg, data = _problem()
+    state0 = pd.init_state(cfg, device="cpu")
+    profiling.reset_counters()
+    got = pd.run_trace(cfg, data, state0)
+    assert "lift" not in pd.HOST_READS
+    assert {k for k, v in pd.HOST_READS.items() if v} == {
+        "active", "consts", "select", "fit", "finish"}
+    assert pd.HOST_READS["active"] == got.n_iters + 1
+    assert pd.HOST_READS["finish"] == 1
+    batch = pd.run_trace(cfg, data, ps.make_batch_state(cfg, 1,
+                                                        device="cpu"))
+    assert_same_bits(got, pd.frame_of(batch, 0))
+    loop = pd.run_loop(cfg, data, state0)
+    assert isinstance(loop.it, int) and loop.it == got.n_iters
+
+
+def test_trace_step_waits_for_nothing_and_steps_to_run_trace():
+    """``trace_step`` lifts one trace's state and takes it back out at the
+    iteration the host counts: a step waits only for the selection's two
+    reads, none for its iteration count. Stepped to the end and finished,
+    the trace is ``run_trace``'s bit for bit."""
+    cfg, data = _problem()
+    inv = pd.loop_invariants(cfg, data)
+    state = pd.init_state(cfg, device="cpu")
+    profiling.reset_counters()
+    steps = 0
+    while int(state.n_fobs) < cfg.algo_thresh and state.it < cfg.max_iters:
+        state, samples = pd.trace_step(cfg, data, state, invariants=inv)
+        steps += 1
+        assert isinstance(state.it, int) and state.it == steps
+        assert samples.shape == (cfg.edge_length, cfg.N_samples)
+    assert steps > 1
+    assert pd.HOST_READS == dict(dict.fromkeys(pd.HOST_READS, 0),
+                                 select=2 * steps)
+    draws = pd.StreamDraws(cfg, data.L_prior_unit.shape[1], "cpu")
+    assert_same_bits(pd.finish_trace(cfg, data, state, draws),
+                     pd.run_trace(cfg, data, pd.init_state(cfg, device="cpu"),
+                                  draws))
+
+
+def test_frame_of_a_batched_state_reads_its_iteration_once():
+    """A batched state's iteration count lives on the device, so taking a
+    frame out as one trace's state reads it, in one wait of kind
+    ``frame``; a batched result's counts are on the host already."""
+    cfg, data = _problem()
+    state, _ = pd.trace_step(cfg, data, pd.init_state(cfg, device="cpu"))
+    batch = pd._lift(state)
+    assert batch.it.device.type == "cpu" and batch.it.shape == (1,)
+    profiling.reset_counters()
+    one = pd.frame_of(batch, 0)
+    assert pd.HOST_READS == dict(dict.fromkeys(pd.HOST_READS, 0), frame=1)
+    assert isinstance(one.it, int) and one.it == state.it == 1
+    for k in pd.TraceState._fields:
+        if k != "it":
+            assert torch.equal(getattr(one, k), getattr(state, k)), k
+    res = pd.run_trace(cfg, data, batch)
+    profiling.reset_counters()
+    pd.frame_of(res, 0)
+    assert set(pd.HOST_READS.values()) == {0}

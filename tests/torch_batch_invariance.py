@@ -206,8 +206,7 @@ def run(tag, configs, iters):
         compare(k, stages(cfg, data, state, z, w, blur, consts),
                 [stages(cfg, frame(data, f, own_d), frame(state, f, fields),
                         z, w, blur, consts) for f in range(B)])
-        state, _ = pd._iteration(cfg, data, state, z, w, blur=blur,
-                                 consts=consts, k=k)
+        state, _ = pd._iteration(cfg, data, state, draws, k, (blur, consts))
     whole = final_stages(cfg, data, state, draws)
     compare("final", whole, [final_stages(
         cfg, frame(data, f, own_d), frame(state, f, fields), draws,

@@ -76,9 +76,10 @@ def probe(name, seed, it):
         jax.device_get(state._asdict()), device="cpu")
     draws = pd.StreamDraws(pcfg, pdata.L_prior_unit.shape[1],
                            torch.device("cpu"))
-    z, w = draws.normals(it)
-    _, psamples, pscore, pkde = pd._iteration(pcfg, pdata, pstate, z, w,
-                                              with_score=True)
+    _, psamples, pscore, pkde = pd._iteration(
+        pcfg, pdata, pd._lift(pstate), draws, it,
+        pd.loop_invariants(pcfg, pdata), with_score=True)
+    psamples, pscore, pkde = psamples[0], pscore[0], pkde[0]
     from gaussian_process_edge_trace_torch.trace.scoring import (
         curve_costs as port_costs)
     costs_p = port_costs(pdata.grad_cols, psamples[None],

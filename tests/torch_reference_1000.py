@@ -137,8 +137,7 @@ def lockstep(cfg, data, state0):
         if r_go:
             rstate, rsamples = rd.trace_step(cfg, data, rstate)
         if p_go:
-            pstate, psamples = pd._iteration(pcfg, pdata, pstate,
-                                             *draws.normals(pstate.it))
+            pstate, psamples = pd.trace_step(pcfg, pdata, pstate, draws)
         if (info["first_diff_iter"] is None and r_go and p_go
                 and not same_state(pstate, jax.device_get(rstate))):
             sel = port_selects_from(pcfg, pdata, pprev, rsamples)
