@@ -17,9 +17,10 @@ scalar from the device per iteration.
 - :func:`run_trace` — the loop of :func:`_iteration`, then
   :func:`finish_trace`, the LML-optimised final fit.
 
-On the card an iteration's sampling stage (:func:`_sample_stage`) replays
-one CUDA graph per shape (``trace/stage_graph.py``) in place of its ~140
-launches; the other stages run op by op.
+On the card each of an iteration's four stages (sampling, scoring, KDE,
+selection) replays one CUDA graph per shape (``trace/stage_graph.py``) in
+place of its tens to ~140 launches; the loop's active-mask read and the
+keeping of finished frames run between the graphs.
 
 Frames: every stage takes an optional leading frame axis, and the loop runs
 B traces at once (``parallel/sharded.py`` builds the batched data and
@@ -64,11 +65,11 @@ from gaussian_process_edge_trace_torch.models.newton import (
 from gaussian_process_edge_trace_torch.ops import prng
 from gaussian_process_edge_trace_torch.trace import stage_graph
 from gaussian_process_edge_trace_torch.trace.kde import (
-    blur_matrices, curve_kde, gradient_kde)
+    banded_pair, blur_matrices, curve_kde, gradient_kde)
 from gaussian_process_edge_trace_torch.trace.scoring import (
     best_curves, curve_costs, sharded_best_curves)
 from gaussian_process_edge_trace_torch.trace.select import (
-    BinSpec, make_bin_spec, select_consts, select_pixels)
+    BinSpec, SelectConsts, make_bin_spec, select_consts, select_pixels)
 from gaussian_process_edge_trace_torch.utils import profiling
 from gaussian_process_edge_trace_torch.utils.image import normalise
 # The host's waits for the device by kind, and the bytes ``to_host``
@@ -608,10 +609,10 @@ def _stage_key(cfg: TracerConfig, tensors, zw):
     device, dtype and shape, those of ``zw`` (``(shape, dtype)`` pairs of
     ``z`` and ``w``) and the configuration's scalars that
     :func:`_train_set` and :func:`_sample_round` read (not its seed)."""
-    return (tuple((t.device, t.dtype, tuple(t.shape)) for t in tensors),
-            tuple(zw), cfg.kernel, cfg.sigma_f, cfg.sigma_l, cfg.noise_y,
-            cfg.gp_jitter, cfg.init_noise_weight, cfg.reference_quirks,
-            cfg.n_inits, cfg.n_user_obs, cfg.bins.n_bins, cfg.n_train)
+    return (stage_graph.specs(tensors), tuple(zw), cfg.kernel, cfg.sigma_f,
+            cfg.sigma_l, cfg.noise_y, cfg.gp_jitter, cfg.init_noise_weight,
+            cfg.reference_quirks, cfg.n_inits, cfg.n_user_obs,
+            cfg.bins.n_bins, cfg.n_train)
 
 
 def _sample_stage(cfg: TracerConfig, data: TracerData, state: TraceState,
@@ -655,6 +656,153 @@ def _sample_stage(cfg: TracerConfig, data: TracerData, state: TraceState,
     return graph(tensors + list(zw))
 
 
+def _even(cfg: TracerConfig) -> str:
+    return "avg" if cfg.legacy_simpson else "simpson"
+
+
+def _score_curves(cfg: TracerConfig, grad_cols, samples):
+    """The scoring stage's work: every curve's cost, then the ``N_keep``
+    cheapest, ``(bc, bcosts)``."""
+    costs, samples_t = curve_costs(grad_cols, samples,
+                                   kde_thresh=cfg.kde_thresh,
+                                   even=_even(cfg), return_samples_t=True)
+    return best_curves(samples, costs, cfg.N_keep, samples_t=samples_t)
+
+
+def _kde_curves(cfg: TracerConfig, bc, bcosts, blur):
+    """The KDE stage's work: the kept curves weighted by their normalised
+    inverse costs (gpet.py:492-493), then their KDE."""
+    inv = 1.0 / bcosts
+    weights = inv / frame_sum(inv)[..., None]
+    return curve_kde(bc, weights, cfg.M, cfg.N, cfg.x_st, blur=blur)
+
+
+# The fields of the state that the selection stage reads, and those of the
+# new state that it writes.
+_SELECT_STATE = ("user_x", "user_y", "user_valid", "obs_x", "obs_y",
+                 "obs_valid", "n_fobs", "score_thresh", "it", "iter_curves",
+                 "iter_costs", "iter_nobs", "iter_thresh")
+_SELECT_OUT = ("obs_x", "obs_y", "obs_valid", "user_valid", "score_thresh",
+               "n_fobs", "it", "iter_curves", "iter_costs", "iter_nobs",
+               "iter_thresh")
+
+
+def _put(buf, v, at):
+    """``buf`` (B, max_iters, ...) with each frame's ``v`` written at its
+    column of ``at`` ((B, max_iters) one-hot of its own iteration; none
+    past the last)."""
+    return torch.where(at.reshape(at.shape + (1,) * (buf.dim() - 2)),
+                       v.unsqueeze(1), buf)
+
+
+def _select_obs(cfg: TracerConfig, state: TraceState, kde_arr, grad_kde, bc,
+                bcosts, consts: SelectConsts):
+    """The selection stage's work on a batched state: :func:`select_pixels`
+    on the KDE, then the new state's fields of ``_SELECT_OUT`` and the
+    pixel scores. Each frame's telemetry goes to the column of its own
+    ``it``, read on the device."""
+    sel = select_pixels(
+        kde_arr, grad_kde,
+        torch.cat([state.user_x, state.obs_x], dim=-1),
+        torch.cat([state.user_y, state.obs_y], dim=-1),
+        torch.cat([state.user_valid, state.obs_valid], dim=-1),
+        n_pre=state.n_fobs, score_thresh=state.score_thresh,
+        spec=cfg.bins, fix_endpoints=cfg.fix_endpoints,
+        kde_thresh=cfg.kde_thresh, pixel_thresh=cfg.pixel_thresh,
+        algo_thresh=cfg.algo_thresh, max_decays=cfg.max_decays,
+        consts=consts)
+    at = torch.arange(cfg.max_iters, device=kde_arr.device) \
+        == state.it[..., None]
+    return (sel.obs_x, sel.obs_y, sel.obs_valid,
+            torch.zeros_like(state.user_valid),        # 1st iteration only
+            sel.score_thresh, sel.n_fobs, state.it + 1,
+            _put(state.iter_curves, bc[..., 0], at),
+            _put(state.iter_costs, bcosts[..., 0], at),
+            _put(state.iter_nobs, sel.n_fobs, at),
+            _put(state.iter_thresh, sel.score_thresh, at), sel.score)
+
+
+def _score_stage(cfg: TracerConfig, data: TracerData, samples, shard=None):
+    """The scoring stage, ``(bc, bcosts)``: :func:`_score_curves` through
+    :func:`stage_graph.run`, the samples (the sampling graph's buffer) taken
+    as its graph's own; with ``shard`` op by op, since
+    :func:`sharded_best_curves` runs collectives: the rank scores its
+    ``shard.width`` curves, with K1 planned on the group's S and no
+    transposed copy, and ranks over the group."""
+    if shard is None:
+        return stage_graph.run(
+            "gpet.score", functools.partial(_score_curves, cfg),
+            [data.grad_cols, samples], _score_key(cfg), share=(1,))
+    GRAPHS["eager"] += 1
+    costs = curve_costs(data.grad_cols, samples, kde_thresh=cfg.kde_thresh,
+                        even=_even(cfg), plan_samples=cfg.N_samples)
+    return sharded_best_curves(samples, costs, cfg.N_keep, shard)
+
+
+def _score_key(cfg: TracerConfig):
+    """The configuration's scalars that the scoring stage reads."""
+    return cfg.kde_thresh, cfg.legacy_simpson, cfg.N_keep
+
+
+def _kde_stage(cfg: TracerConfig, bc, bcosts, blur):
+    """The KDE stage: :func:`_kde_curves` through :func:`stage_graph.run`
+    on the kept curves and costs (the scoring graph's buffers, taken as its
+    graph's own) and the blur factors that are matrices."""
+    layout = (None if blur is None else
+              (tuple(m is not None for m in blur), blur.band))
+    mats = [m for m in blur or () if m is not None]
+
+    def fn(bc, bcosts, *mats):
+        pair = None
+        if layout is not None:
+            it = iter(mats)
+            pair = banded_pair(*(next(it) if m else None
+                                 for m in layout[0]), layout[1])
+        return _kde_curves(cfg, bc, bcosts, pair)
+    return stage_graph.run("gpet.kde", fn, [bc, bcosts] + mats,
+                           _kde_key(cfg, layout), share=(0, 1))
+
+
+def _kde_key(cfg: TracerConfig, layout):
+    """The configuration's scalars that the KDE stage reads, and which
+    blur factors are matrices with their band."""
+    return cfg.M, cfg.N, cfg.x_st, layout
+
+
+def _select_stage(cfg: TracerConfig, data: TracerData, state: TraceState,
+                  kde_arr, bc, bcosts, consts: SelectConsts):
+    """The selection stage: :func:`_select_obs` through
+    :func:`stage_graph.run` on the KDE, the kept curves and costs (the
+    previous graphs' buffers, taken as its graph's own), the gradient KDE,
+    the state's fields of ``_SELECT_STATE`` and the selection's
+    constants."""
+    ns = len(_SELECT_STATE)
+
+    def fn(kde_arr, grad_kde, bc, bcosts, *ts):
+        st = TraceState(*(None,) * len(TraceState._fields))._replace(
+            **dict(zip(_SELECT_STATE, ts[:ns])))
+        return _select_obs(cfg, st, kde_arr, grad_kde, bc, bcosts,
+                           SelectConsts(*ts[ns:]))
+    return stage_graph.run(
+        "gpet.select", fn,
+        [kde_arr, data.grad_kde, bc, bcosts]
+        + [getattr(state, f) for f in _SELECT_STATE] + list(consts),
+        _select_key(cfg), share=(0, 2, 3))
+
+
+def _select_key(cfg: TracerConfig):
+    """The configuration's scalars that the selection stage reads."""
+    return (cfg.kde_thresh, cfg.legacy_simpson, cfg.N_keep, cfg.M, cfg.N,
+            cfg.x_st, cfg.bins, cfg.fix_endpoints, cfg.pixel_thresh,
+            cfg.algo_thresh, cfg.max_decays)
+
+
+def _owned(state: TraceState) -> TraceState:
+    """``state`` with a copy of each field that is a graph's output
+    buffer (:func:`stage_graph.own`)."""
+    return TraceState(*(stage_graph.own(v) for v in state))
+
+
 def _lift(state: TraceState) -> TraceState:
     """One trace's state as a batch of one frame, its iteration count
     filled in on the device: no wait."""
@@ -692,71 +840,39 @@ def _iteration(cfg: TracerConfig, data: TracerData, state: TraceState, draws,
     iteration ``k`` (where its active frames stand): sample from
     ``draws.normals(k)`` (:func:`_sample_stage`), score, rank, KDE, select,
     each stage in its span (``gpet.sample``, ``gpet.score``, ``gpet.kde``,
-    ``gpet.select``) and once for all frames; the caller keeps finished
-    frames as they were. ``invariants``: :func:`loop_invariants`. Returns
-    the new state and the (B, E, S) samples (on the card the graph's
-    buffer, which the next replay overwrites), and with ``with_score`` also
-    the (B, M, N) pixel scores the selection ranked (gpet.py:582) and the
-    KDE maps they were made from.
+    ``gpet.select``) and once for all frames, on the card each replayed from
+    its graph (``trace/stage_graph.py``); the caller keeps finished frames
+    as they were. ``invariants``: :func:`loop_invariants`. Returns the new
+    state and the (B, E, S) samples, and with ``with_score`` also copies of
+    the (B, M, N) pixel scores the selection ranked (gpet.py:582) and of the
+    KDE maps they were made from. On the card the samples and the new
+    state's fields but ``user_x`` and ``user_y`` are graph buffers, which
+    the next iteration's replays overwrite once its stages have copied them
+    in: a caller that keeps them past that copies them (:func:`_owned`).
 
     With ``shard`` (a :class:`~..ops.collectives.SampleShard`; the
     reference's sample-axis arm, driver.py:372-429) the rank draws its
     columns of the iteration's normals, ``draws.normals(k, shard.cols)``:
     it samples and scores its ``shard.width`` curves, with K1 planned on
     the group's S and no transposed copy, and :func:`sharded_best_curves`
-    ranks over the group. The KDE and the selection then run replicated on
-    every rank."""
+    ranks over the group (op by op). The KDE and the selection then run
+    replicated on every rank."""
     blur, consts = invariants
     with span("gpet.sample"):
         samples = _sample_stage(cfg, data, state, draws, k,
                                 () if shard is None else (shard.cols,))
     with span("gpet.score"):
-        even = "avg" if cfg.legacy_simpson else "simpson"
-        if shard is None:
-            costs, samples_t = curve_costs(
-                data.grad_cols, samples, kde_thresh=cfg.kde_thresh,
-                even=even, return_samples_t=True)
-            bc, bcosts = best_curves(samples, costs, cfg.N_keep,
-                                     samples_t=samples_t)
-        else:
-            costs = curve_costs(data.grad_cols, samples,
-                                kde_thresh=cfg.kde_thresh, even=even,
-                                plan_samples=cfg.N_samples)
-            bc, bcosts = sharded_best_curves(samples, costs, cfg.N_keep,
-                                             shard)
+        bc, bcosts = _score_stage(cfg, data, samples, shard)
     with span("gpet.kde"):
-        inv = 1.0 / bcosts
-        weights = inv / frame_sum(inv)[..., None]           # gpet.py:492-493
-        kde_arr = curve_kde(bc, weights, cfg.M, cfg.N, cfg.x_st, blur=blur)
-
-    def put(buf, v):
-        buf = buf.clone()
-        buf[:, k] = v
-        return buf
-
+        kde_arr = _kde_stage(cfg, bc, bcosts, blur)
     with span("gpet.select"):
-        sel = select_pixels(
-            kde_arr, data.grad_kde,
-            torch.cat([state.user_x, state.obs_x], dim=-1),
-            torch.cat([state.user_y, state.obs_y], dim=-1),
-            torch.cat([state.user_valid, state.obs_valid], dim=-1),
-            n_pre=state.n_fobs, score_thresh=state.score_thresh,
-            spec=cfg.bins, fix_endpoints=cfg.fix_endpoints,
-            kde_thresh=cfg.kde_thresh, pixel_thresh=cfg.pixel_thresh,
-            algo_thresh=cfg.algo_thresh, max_decays=cfg.max_decays,
-            consts=consts)
-        new_state = TraceState(
-            obs_x=sel.obs_x, obs_y=sel.obs_y, obs_valid=sel.obs_valid,
-            user_x=state.user_x, user_y=state.user_y,
-            user_valid=torch.zeros_like(state.user_valid),  # 1st iteration
-            score_thresh=sel.score_thresh, n_fobs=sel.n_fobs,
-            it=state.it + 1,
-            iter_curves=put(state.iter_curves, bc[..., 0]),
-            iter_costs=put(state.iter_costs, bcosts[..., 0]),
-            iter_nobs=put(state.iter_nobs, sel.n_fobs),
-            iter_thresh=put(state.iter_thresh, sel.score_thresh))
-    return ((new_state, samples, sel.score, kde_arr) if with_score
-            else (new_state, samples))
+        *fields, score = _select_stage(cfg, data, state, kde_arr, bc, bcosts,
+                                       consts)
+        new_state = state._replace(**dict(zip(_SELECT_OUT, fields)))
+    if with_score:
+        return (new_state, samples, stage_graph.own(score),
+                stage_graph.own(kde_arr))
+    return new_state, samples
 
 
 def optimize_lml(kernel: KernelSpec, xs, ys, mask, noise_w, starts, lb, ub,
@@ -926,8 +1042,8 @@ def trace_step(cfg: TracerConfig, data: TracerData, state: TraceState,
     the loop and calling :func:`finish_trace` gives :func:`run_trace`'s
     result bit for bit. A caller that steps a whole trace builds
     :func:`loop_invariants` once and passes them. The state goes in as a
-    batch of one and comes out with no wait; the curves are a copy of the
-    stage's."""
+    batch of one and comes out with no wait; it and the curves are the
+    caller's own, not the stages' graph buffers."""
     if not isinstance(state.it, int):
         raise ValueError("trace_step steps one trace; trace_batch steps "
                          "frames")
@@ -935,7 +1051,7 @@ def trace_step(cfg: TracerConfig, data: TracerData, state: TraceState,
         draws = _default_draws(cfg, data)
     new, samples = _iteration(cfg, data, _lift(state), draws, state.it,
                               invariants or loop_invariants(cfg, data))
-    return _single(new, state.it + 1), samples[0].clone()
+    return _single(_owned(new), state.it + 1), samples[0].clone()
 
 
 def finish_trace(cfg: TracerConfig, data: TracerData, state: TraceState,
@@ -963,8 +1079,7 @@ def finish_trace(cfg: TracerConfig, data: TracerData, state: TraceState,
                                   data.x_grid.expand(y_mean.shape)], dim=-1)
         final_cost = curve_costs(data.grad_cols, y_mean[..., None],
                                  kde_thresh=cfg.kde_thresh,
-                                 even="avg" if cfg.legacy_simpson
-                                 else "simpson")[..., 0]
+                                 even=_even(cfg))[..., 0]
         host = to_host(torch.stack([state.it, (
             state.n_fobs >= cfg.algo_thresh).to(torch.int64)]), "finish")
         return TraceResult(
@@ -1003,7 +1118,7 @@ def run_loop(cfg: TracerConfig, data: TracerData, state0: TraceState,
     ``gpet.iter``. ``shard``: the sample arm of :func:`_iteration`; the
     rank draws its columns ``draws.normals(it, shard.cols)``. One trace's
     state runs as a batch of one and comes back at the iteration the host
-    counted."""
+    counted. The state that comes back owns its memory."""
     one = isinstance(state0.it, int)
     state = _lift(state0) if one else state0
     if draws is None:
@@ -1027,6 +1142,8 @@ def run_loop(cfg: TracerConfig, data: TracerData, state0: TraceState,
             k += 1
             if not bool(to_host(active.any(), "active")):
                 break
+    # A lone frame's state is the selection graph's buffers: copied out.
+    state = _owned(state) if lone else state
     return _single(state, state0.it + k - k0) if one else state
 
 

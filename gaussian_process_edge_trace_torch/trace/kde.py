@@ -111,10 +111,17 @@ def blur_matrices(M: int, N: int, dtype=torch.float32, device=None,
     if min(M, N) + 2 > _BLUR_MATMUL_MAX:
         return None
     taps = gaussian_taps(radius, bw, dtype, device)
-    mats = _BandedPair((
+    return banded_pair(
         _toeplitz(M + 2, taps) if M + 2 <= _BLUR_MATMUL_MAX else None,
-        _toeplitz(N + 2, taps) if N + 2 <= _BLUR_MATMUL_MAX else None))
-    mats.band = radius
+        _toeplitz(N + 2, taps) if N + 2 <= _BLUR_MATMUL_MAX else None,
+        radius)
+
+
+def banded_pair(Ty, Tx, band):
+    """The factors ``(Ty, Tx)`` as :func:`blur_matrices` gives them, zero
+    beyond the radius ``band``."""
+    mats = _BandedPair((Ty, Tx))
+    mats.band = band
     return mats
 
 

@@ -113,6 +113,8 @@ def select_pixels(kde_arr, grad_kde, obs_x, obs_y, obs_valid, n_pre,
                   max_decays: int = 400, consts: SelectConsts = None,
                   cand_mask=None) -> Selection:
     """One selection round: scores, adaptive threshold, per-bin argmax.
+    It copies nothing from the host and never waits for the device (given
+    ``consts`` and tensors on the device), so a CUDA graph can capture it.
 
     Args:
       kde_arr: (M, N) curve KDE of this iteration, or (B, M, N) for B
@@ -149,8 +151,7 @@ def select_pixels(kde_arr, grad_kde, obs_x, obs_y, obs_valid, n_pre,
     flat = torch.where(obs_valid, base + obs_y * N + obs_x,
                        torch.full_like(obs_x, frames * M * N))
     old = torch.zeros(frames * M * N + 1, dtype=torch.bool, device=dev)
-    with profiling.wait("select"):   # the value True is copied to the card
-        old[flat] = True
+    old.index_fill_(0, flat.reshape(-1), True)   # no copy from the host
     elig = cand | (old[:frames * M * N].reshape(kde_arr.shape) & dense_cand)
 
     raw_score = (kde_arr * grad_kde + kde_arr + grad_kde) / 3.0  # gpet.py:582
@@ -171,8 +172,7 @@ def select_pixels(kde_arr, grad_kde, obs_x, obs_y, obs_valid, n_pre,
     n_at = (bin_best_score[..., None, :] >= threshs[..., :, None]).sum(-1)
     n_pre = torch.as_tensor(n_pre, device=dev)[..., None]
     stop = (n_at - n_pre >= pixel_thresh) | (n_at >= algo_thresh)
-    with profiling.wait("select"):
-        last = torch.tensor(max_decays - 1, device=dev)
+    last = torch.full((), max_decays - 1, dtype=torch.int64, device=dev)
     j = torch.where(stop.any(-1), torch.argmax(stop.to(torch.uint8), dim=-1),
                     last)
     thresh = torch.take_along_dim(threshs, j[..., None], dim=-1)[..., 0]

@@ -10,8 +10,8 @@ reference's only instrumentation is ``time.time()`` prints
   ``gpet.wait.<kind>`` and one count of ``kind`` in :data:`HOST_READS`;
 - :func:`counters` / :func:`reset_counters` / :func:`add_counts`: every
   module counter of the package (kernel launches, blocked factorisations,
-  the host's waits and the bytes they copy, collectives, the sampling
-  stage's graphs) as one flat snapshot, set to 0, or added to;
+  the host's waits and the bytes they copy, collectives, the loop's stage
+  graphs) as one flat snapshot, set to 0, or added to;
 - :class:`PhaseTimer`: host wall-clock accumulated per named phase;
 - :func:`device_trace`: ``torch.profiler`` around a block, written as a
   Chrome trace (viewable in Perfetto or ``chrome://tracing``), the
@@ -27,9 +27,9 @@ reference's only instrumentation is ``time.time()`` prints
 The spans, from the entry point down: ``gpet.construct``
 (``GP_Edge_Tracing.__init__``), ``gpet.run_trace``, ``gpet.iter`` (one
 iteration of ``run_loop``, its active-mask read included) holding the
-stages ``gpet.sample`` (holding ``gpet.sample.replay`` where the stage
-replays its CUDA graph, ``trace/stage_graph.py``), ``gpet.score``,
-``gpet.kde`` and ``gpet.select``, ``gpet.finish`` (the final fit),
+stages ``gpet.sample``, ``gpet.score``, ``gpet.kde`` and ``gpet.select``
+(each holding ``<stage>.replay`` where the stage replays its CUDA graph,
+``trace/stage_graph.py``), ``gpet.finish`` (the final fit),
 ``gpet.frame_by_frame`` (the loop's frame-batched products, solve and sums
 of a batch on the card, ``models/gpr.py::frames_span``) and
 ``gpet.wait.<kind>``.
@@ -58,19 +58,20 @@ import torch
 # trace, interval and last threshold; ``data``: the constructor's
 # copies (init points, prior factor) and its read of the x grid; ``init``:
 # ``init_state``'s two scalars; ``consts``: the selection's tables, once a
-# trace; ``select``: the selection's mark of old observations and its
-# fallback index; ``fit``: the final fit's bounds and first start, its
-# screen grid and its step sizes. HOST_BYTES counts, by kind, the bytes
-# that ``to_host`` copies to the host.
+# trace; ``fit``: the final fit's bounds and first start, its screen grid
+# and its step sizes. HOST_BYTES counts, by kind, the bytes that
+# ``to_host`` copies to the host.
 HOST_READS = dict.fromkeys(
     ("active", "finish", "state", "samples", "frame", "result",
-     "data", "init", "consts", "select", "fit"), 0)
+     "data", "init", "consts", "fit"), 0)
 HOST_BYTES = dict.fromkeys(HOST_READS, 0)
 
-# The loop's sampling stage as a CUDA graph (``trace/stage_graph.py``):
-# ``capture``: graphs captured; ``replay``: stages replayed from one;
-# ``eager``: stages run op by op (off the card, under a dispatch mode, or
-# where the capture failed); ``failed``: captures that raised, once a key.
+# The loop's stages as CUDA graphs (``trace/stage_graph.py``), each stage
+# call counted once: ``capture``: graphs captured (the call that captures
+# replays too); ``replay``: stages replayed from one; ``eager``: stages run
+# op by op (off the card, under a dispatch mode, the scoring stage under a
+# sample axis, or where the capture failed); ``failed``: captures that
+# raised, once a key.
 GRAPHS = dict.fromkeys(("capture", "replay", "eager", "failed"), 0)
 
 _OFF = contextlib.nullcontext()
@@ -130,7 +131,7 @@ def counters() -> dict:
     ``{"<DICT>.<key>": n}``: the kernels' ``LAUNCHES`` (K1-K9), the blocked
     K5/K6 calls (``BLOCKED``), the host's waits (``HOST_READS``) and the
     bytes ``to_host`` copies (``HOST_BYTES``), the collectives
-    (``COLLECTIVES``), the sampling stage's graphs (``GRAPHS``)."""
+    (``COLLECTIVES``), the loop's stage graphs (``GRAPHS``)."""
     return {f"{name}.{k}": v for name, ds in _counter_dicts().items()
             for d in ds for k, v in d.items()}
 

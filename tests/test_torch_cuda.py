@@ -1221,7 +1221,8 @@ def test_replayed_sampling_stage_is_the_stage_op_by_op(dev, case):
     of the stage run op by op, bit for bit: at the first iteration (the
     capture's own run), then at two more, each from the state the
     iteration before left, the draws written straight into the graph's
-    buffers; one capture, the rest replays."""
+    buffers; one capture a stage, the rest replays (the iterations replay
+    the scoring, KDE and selection stages too)."""
     from gaussian_process_edge_trace_torch.trace import driver as pd
     from gaussian_process_edge_trace_torch.trace import stage_graph
     from gaussian_process_edge_trace_torch.utils import profiling
@@ -1235,15 +1236,17 @@ def test_replayed_sampling_stage_is_the_stage_op_by_op(dev, case):
             got = pd._sample_stage(cfg, data, state, draws, k)
             assert _bits_equal(got, want), k
             state, _ = pd._iteration(cfg, data, state, draws, k, inv)
-        assert pd.GRAPHS == dict(capture=1, replay=5, eager=0, failed=0)
+        # The sampling stage 1 capture and 5 replays; the other three
+        # stages 1 capture and 2 replays each.
+        assert pd.GRAPHS == dict(capture=4, replay=11, eager=0, failed=0)
     finally:
         stage_graph.clear()
 
 
 def test_second_tracer_of_a_config_replays_without_capture(dev):
-    """A new request of a configuration already traced replays every
-    iteration's sampling stage and captures nothing, with the launches of
-    the stage run op by op counted all the same."""
+    """A new request of a configuration already traced replays each of
+    every iteration's four stages and captures nothing, with the launches
+    of the stages run op by op counted all the same."""
     from gaussian_process_edge_trace_torch.trace import driver as pd
     from gaussian_process_edge_trace_torch.utils import profiling
     grads, inits = _demo_frames(dev, 2)
@@ -1251,7 +1254,7 @@ def test_second_tracer_of_a_config_replays_without_capture(dev):
     profiling.reset_counters()
     tracer, _ = _demo_trace(dev, grads[1], inits[1])
     n = tracer.last_result.n_iters
-    assert pd.GRAPHS == dict(capture=0, replay=n, eager=0, failed=0)
+    assert pd.GRAPHS == dict(capture=0, replay=4 * n, eager=0, failed=0)
     # Per iteration the sampling solve's forward and backward K6 and the
     # cross product's K8; the final fit adds more.
     assert cc.LAUNCHES["trsm"] > 2 * n
@@ -1284,7 +1287,7 @@ def test_trace_step_draws_the_curves_of_run_loop(dev, monkeypatch):
     """``trace_step`` and ``run_loop`` both draw their normals straight
     into the graph's buffers: the curves ``trace_step`` gives at each step
     are those ``run_loop`` drew at that iteration, bit for bit, and the
-    last states agree; every stage a replay but the first."""
+    last states agree; every stage a replay but each one's first."""
     from gaussian_process_edge_trace_torch.trace import driver as pd
     from gaussian_process_edge_trace_torch.trace import stage_graph
     from gaussian_process_edge_trace_torch.utils import profiling
@@ -1308,7 +1311,7 @@ def test_trace_step_draws_the_curves_of_run_loop(dev, monkeypatch):
         while state.it < looped.it:
             state, curves = pd.trace_step(cfg, data, state)
             stepped.append(curves)
-        assert pd.GRAPHS == dict(capture=1, replay=2 * looped.it - 1,
+        assert pd.GRAPHS == dict(capture=4, replay=4 * (2 * looped.it - 1),
                                  eager=0, failed=0)
     finally:
         stage_graph.clear()
@@ -1423,3 +1426,214 @@ def test_profiler_sees_each_replayed_stage(dev, tmp_path):
     ends = [s for s, _ in iters[1:]] + [float("inf")]
     for (s, _), end in zip(replays, ends):
         assert sum(1 for t in k6 if s <= t < end) >= 2
+
+
+# --- the scoring, KDE and selection stages as CUDA graphs -------------------
+
+_TRACE_CASES = ("demo", "1000", "1000_oddE", "demo_B64", "1000_S1e5")
+
+
+def _result_bits_equal(a, b):
+    """Two ``TraceResult`` s bit for bit, field by field."""
+    for name, x, y in zip(a._fields, a, b):
+        if isinstance(x, torch.Tensor):
+            assert x.shape == y.shape and x.dtype == y.dtype, name
+            assert torch.equal(x.contiguous().view(-1).view(torch.uint8),
+                               y.contiguous().view(-1).view(torch.uint8)), name
+        else:
+            assert x == y, name
+
+
+def _op_by_op(monkeypatch):
+    """Every stage op by op, as off the card."""
+    from gaussian_process_edge_trace_torch.trace import stage_graph
+    monkeypatch.setattr(stage_graph, "engaged", lambda device: False)
+
+
+@pytest.mark.parametrize("case", _TRACE_CASES)
+def test_replayed_trace_is_the_trace_op_by_op(dev, case, monkeypatch):
+    """A whole trace with its four stages replayed from their graphs is the
+    trace with every stage op by op, bit for bit in every ``TraceResult``
+    field: a single trace at the demo, at 1000², at odd E and at S = 10⁵,
+    and a batch of 64. One capture a stage, then replays only, and the
+    hand-written kernels' launches counted as op by op."""
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    from gaussian_process_edge_trace_torch.trace import stage_graph
+    from gaussian_process_edge_trace_torch.utils import profiling
+    cfg, data, state, draws = _stage_problem(dev, *_STAGE_CASES[case])
+    if state.it.shape[0] == 1:
+        state = pd._single(state, 0)
+    stage_graph.clear()
+    profiling.reset_counters()
+    try:
+        got = pd.run_trace(cfg, data, state, draws)
+        counts = profiling.counters()
+    finally:
+        stage_graph.clear()
+    n = int(torch.as_tensor(got.n_iters).max())
+    assert pd.GRAPHS == dict(capture=4, replay=4 * (n - 1), eager=0,
+                             failed=0)
+    _op_by_op(monkeypatch)
+    profiling.reset_counters()
+    want = pd.run_trace(cfg, data, state, draws)
+    _result_bits_equal(got, want)
+    assert pd.GRAPHS == dict(capture=0, replay=0, eager=4 * n, failed=0)
+    launches = {k: v for k, v in profiling.counters().items()
+                if k.startswith("LAUNCHES.")}
+    assert launches == {k: counts[k] for k in launches}
+    assert launches["LAUNCHES.binning_2l"] >= n
+    kernel = "column_interp" if case.endswith("oddE") else "fused_cost"
+    assert launches["LAUNCHES." + kernel] >= n
+
+
+def test_select_pixels_waits_for_nothing(dev):
+    """The selection copies nothing from the host and reads nothing back:
+    under ``torch.cuda.set_sync_debug_mode("error")`` it runs, single and
+    for frames, and gives the selection it gives outside that mode."""
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    cfg, data, state, _ = _stage_problem(dev, *_STAGE_CASES["demo"])
+    _, consts = pd.loop_invariants(cfg, data)
+    g = torch.Generator(device=dev).manual_seed(3)
+    kde = torch.rand((2, cfg.M, cfg.N), generator=g, device=dev)
+    nb = cfg.bins.n_bins
+    obs = torch.randint(0, 500, (2, nb), generator=g, device=dev)
+    valid = torch.rand((2, nb), generator=g, device=dev) < 0.5
+    args = [(kde[0], data.grad_kde, obs[0], obs[1], valid[0],
+             valid[0].sum(), torch.full((), 0.9, device=dev)),
+            (kde, data.grad_kde, obs, obs.flip(0), valid, valid.sum(-1),
+             torch.full((2,), 0.9, device=dev))]
+    kw = dict(spec=cfg.bins, fix_endpoints=True, kde_thresh=cfg.kde_thresh,
+              pixel_thresh=cfg.pixel_thresh, algo_thresh=cfg.algo_thresh,
+              max_decays=cfg.max_decays, consts=consts)
+    from gaussian_process_edge_trace_torch.trace.select import select_pixels
+    want = [select_pixels(*a[:5], n_pre=a[5], score_thresh=a[6], **kw)
+            for a in args]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [select_pixels(*a[:5], n_pre=a[5], score_thresh=a[6], **kw)
+               for a in args]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for g_, w in zip(got, want):
+        assert all(torch.equal(x, y) for x, y in zip(g_, w))
+    assert bool(want[1].obs_valid.any())
+
+
+def test_a_result_survives_the_next_trace(dev):
+    """Nothing a trace returns is a graph's buffer: after a second trace of
+    the same configuration (another image) the first trace's result and
+    loop state are as they were, and the second's are their own."""
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    from gaussian_process_edge_trace_torch.trace import stage_graph
+    grads, inits = _demo_frames(dev, 2)
+    cfg = pd.make_config(inits[0], (500, 500), kernel_options=_DEMO[0],
+                         N_samples=1000, delta_x=5, pixel_thresh=5, seed=1)
+    data = [pd.make_data(cfg, grads[i], inits[i], dev) for i in range(2)]
+    first = pd.run_trace(cfg, data[0], pd.init_state(cfg, dev))
+    loop = pd.run_loop(cfg, data[0], pd.init_state(cfg, dev))
+    kept = [v.clone() if isinstance(v, torch.Tensor) else v for v in first]
+    kept_loop = [v.clone() if isinstance(v, torch.Tensor) else v
+                 for v in loop]
+    second = pd.run_trace(cfg, data[1], pd.init_state(cfg, dev))
+    pd.run_loop(cfg, data[1], pd.init_state(cfg, dev))
+    torch.cuda.synchronize()
+    _result_bits_equal(first, kept)
+    for name, a, b in zip(pd.TraceState._fields, loop, kept_loop):
+        assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else a == b), name
+    assert not torch.equal(first.y_mean, second.y_mean)
+    for v in list(first) + list(loop):
+        assert not (isinstance(v, torch.Tensor) and stage_graph.produced(v))
+
+
+def test_with_score_maps_survive_the_next_iteration(dev, monkeypatch):
+    """``_iteration``'s pixel scores and KDE maps are copies: the next
+    iteration's replays leave them as they were, and they are those of the
+    iteration op by op."""
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    cfg, data, state, draws = _stage_problem(dev, *_STAGE_CASES["demo"])
+    inv = pd.loop_invariants(cfg, data)
+    new, _, score, kde = pd._iteration(cfg, data, state, draws, 0, inv,
+                                       with_score=True)
+    kept = score.clone(), kde.clone()
+    pd._iteration(cfg, data, new, draws, 1, inv, with_score=True)
+    torch.cuda.synchronize()
+    assert torch.equal(score, kept[0]) and torch.equal(kde, kept[1])
+    _op_by_op(monkeypatch)
+    _, _, want_score, want_kde = pd._iteration(cfg, data, state, draws, 0,
+                                               inv, with_score=True)
+    assert _bits_equal(score, want_score) and _bits_equal(kde, want_kde)
+
+
+def test_a_loop_stage_that_fails_capture_runs_op_by_op(dev, monkeypatch):
+    """A selection stage that reads the host cannot be captured: its first
+    call counts the failure, warns and still gives its state, and it runs
+    op by op from then on while the other stages replay; the trace is the
+    trace op by op, bit for bit."""
+    from gaussian_process_edge_trace_torch.trace import driver as pd
+    from gaussian_process_edge_trace_torch.trace import stage_graph
+    from gaussian_process_edge_trace_torch.utils import profiling
+    cfg, data, state, draws = _stage_problem(dev, *_STAGE_CASES["demo"])
+    state = pd._single(state, 0)
+    select = pd._select_obs
+
+    def reads_the_host(*args):
+        out = select(*args)
+        float(out[-1].sum())
+        return out
+    monkeypatch.setattr(pd, "_select_obs", reads_the_host)
+    stage_graph.clear()
+    profiling.reset_counters()
+    try:
+        with pytest.warns(RuntimeWarning, match="capture"):
+            got = pd.run_trace(cfg, data, state, draws)
+    finally:
+        stage_graph.clear()
+    n = got.n_iters
+    assert pd.GRAPHS == dict(capture=3, replay=3 * (n - 1), eager=n - 1,
+                             failed=1)
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    _op_by_op(monkeypatch)
+    _result_bits_equal(got, pd.run_trace(cfg, data, state, draws))
+
+
+def test_profiler_sees_each_replayed_loop_stage(dev, tmp_path):
+    """In a profiled demo trace each iteration's scoring, KDE and selection
+    stages replay, each in its ``<stage>.replay`` span inside the stage's
+    span, and the profiler sees their hand-written kernels: K1, K3, K8 and
+    K9 start on the card after the iteration's scoring stage starts and
+    before the next iteration's. (The card's clock is set to the host's
+    within microseconds, so a kernel that starts at once can read as
+    starting before the replay span that launched it.)"""
+    import json
+    from gaussian_process_edge_trace_torch.utils import profiling
+    grads, inits = _demo_frames(dev, 1)
+    _demo_trace(dev, grads[0], inits[0])
+    torch.cuda.synchronize()
+    with profiling.device_trace(tmp_path):
+        tracer, _ = _demo_trace(dev, grads[0], inits[0])
+        torch.cuda.synchronize()
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())
+              ["traceEvents"] if e.get("ph") == "X"]
+
+    def spans(name):
+        return sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                      for e in events if e.get("cat") == "user_annotation"
+                      and e["name"] == name)
+    n = tracer.last_result.n_iters
+    iters = spans("gpet.iter")
+    for stage in ("gpet.score", "gpet.kde", "gpet.select"):
+        outer, replays = spans(stage), spans(stage + ".replay")
+        assert len(outer) == len(replays) == n, stage
+        for (a, b), (s, e) in zip(outer, replays):
+            assert a <= s and e <= b
+    ends = [s for s, _ in iters[1:]] + [float("inf")]
+    for kernel, least in (("fused_cost_partial_kernel", 1),
+                          ("binning_2l_kernel", 1),
+                          ("frames_product_kernel", 2),
+                          ("row_sum_kernel", 1)):
+        starts = [float(e["ts"]) for e in events if e.get("cat") == "kernel"
+                  and kernel in e["name"]]
+        for (s, _), end in zip(spans("gpet.score"), ends):
+            assert sum(1 for t in starts if s <= t < end) >= least, kernel

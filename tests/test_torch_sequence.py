@@ -194,17 +194,17 @@ def test_sequence_default_draws_and_host_reads(sequences):
     loop, once after each iteration and once in ``finish_trace``, and
     waits for every other blocking copy where its code path makes one:
     its init points to the device, its state's scalars (the warm frames
-    count their hand-off on the device), the selection's tables once and
-    twice an iteration, the final fit's bounds, grid and step sizes; the
-    prior factor once for the sequence. The jitter ladders of the sampling
-    round and of the final fit wait for nothing, and on the CPU every
-    sampling stage runs op by op."""
+    count their hand-off on the device), the selection's tables once, the
+    final fit's bounds, grid and step sizes; the prior factor once for the
+    sequence. The jitter ladders of the sampling round and of the final fit
+    and the selection wait for nothing, and on the CPU each of an
+    iteration's four stages runs op by op."""
     profiling.reset_counters()
     res = ps.trace_sequence(sequences["pcfg"], torch.tensor(
         sequences["grads"]), sequences["inits"], device="cpu")
     n = sum(r.n_iters for r in res)
     assert pd.HOST_READS == dict(
         dict.fromkeys(pd.HOST_READS, 0), active=n + 3, finish=3, data=4,
-        init=4, consts=3, select=2 * n, fit=12)
-    assert pd.GRAPHS == dict(capture=0, replay=0, eager=n, failed=0)
+        init=4, consts=3, fit=12)
+    assert pd.GRAPHS == dict(capture=0, replay=0, eager=4 * n, failed=0)
     assert all(r.edge_trace.shape == (64, 2) for r in res)

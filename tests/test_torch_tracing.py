@@ -161,9 +161,9 @@ def test_counters_snapshot_and_reset_in_place():
     assert set(profiling.counters()) == want
     assert len(want) == sum(len(d) for ds in dicts.values() for d in ds)
     held = pd.HOST_READS
-    pd.HOST_READS["select"] += 3
+    pd.HOST_READS["consts"] += 3
     ci.LAUNCHES["fused_cost"] += 2
-    assert profiling.counters()["HOST_READS.select"] >= 3
+    assert profiling.counters()["HOST_READS.consts"] >= 3
     profiling.reset_counters()
     assert held is pd.HOST_READS is profiling.HOST_READS
     assert set(profiling.counters().values()) == {0}
@@ -256,7 +256,7 @@ def test_single_trace_runs_as_a_batch_of_one_with_no_crossing_wait():
     got = pd.run_trace(cfg, data, state0)
     assert "lift" not in pd.HOST_READS
     assert {k for k, v in pd.HOST_READS.items() if v} == {
-        "active", "consts", "select", "fit", "finish"}
+        "active", "consts", "fit", "finish"}
     assert pd.HOST_READS["active"] == got.n_iters + 1
     assert pd.HOST_READS["finish"] == 1
     batch = pd.run_trace(cfg, data, ps.make_batch_state(cfg, 1,
@@ -268,8 +268,8 @@ def test_single_trace_runs_as_a_batch_of_one_with_no_crossing_wait():
 
 def test_trace_step_waits_for_nothing_and_steps_to_run_trace():
     """``trace_step`` lifts one trace's state and takes it back out at the
-    iteration the host counts: a step waits only for the selection's two
-    reads, none for its iteration count. Stepped to the end and finished,
+    iteration the host counts: a step waits for nothing, neither for its
+    iteration count nor in the selection. Stepped to the end and finished,
     the trace is ``run_trace``'s bit for bit."""
     cfg, data = _problem()
     inv = pd.loop_invariants(cfg, data)
@@ -282,8 +282,7 @@ def test_trace_step_waits_for_nothing_and_steps_to_run_trace():
         assert isinstance(state.it, int) and state.it == steps
         assert samples.shape == (cfg.edge_length, cfg.N_samples)
     assert steps > 1
-    assert pd.HOST_READS == dict(dict.fromkeys(pd.HOST_READS, 0),
-                                 select=2 * steps)
+    assert pd.HOST_READS == dict.fromkeys(pd.HOST_READS, 0)
     draws = pd.StreamDraws(cfg, data.L_prior_unit.shape[1], "cpu")
     assert_same_bits(pd.finish_trace(cfg, data, state, draws),
                      pd.run_trace(cfg, data, pd.init_state(cfg, device="cpu"),
